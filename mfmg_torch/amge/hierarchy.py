@@ -1,0 +1,459 @@
+"""The multigrid hierarchy: host setup, then a V-cycle of PyTorch modules.
+
+Port of mfmg_tpu/amge/hierarchy.py (reference include/mfmg/common/
+hierarchy.hpp:155-309) for structured stencil hierarchies.  Each level is a
+``LevelData`` module (operator, smoother, transfer, coarse solver); setup
+runs on the host in numpy/scipy exactly as in the reference, and each level
+is moved to the hierarchy's device once, when it is appended.
+
+Setup pipeline per level (hierarchy.hpp:178-234):
+    operator -> smoother -> agglomerates -> batched eigensolve -> R (PoU
+    weighted) -> A_coarse = R A R^T (per-agglomerate Galerkin blocks) ->
+    structured transfer + block-stencil coarse operator -> recurse / coarse
+    solver.
+
+On CUDA, ``_finalize_cuda_kernels`` swaps the level-0 Chebyshev smoother for
+the K2-backed ``FusedChebyshevSmoother``; every fine stencil apply goes
+through K1.  The level-0 ``fused`` slot (mfmg_tpu's single-kernel coarse
+tail) is not ported yet: the cycle below is the generic recursion that the
+reference also runs on the CPU and whenever its fused tail is absent.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from mfmg_torch.amge.agglomeration import build_agglomerates
+from mfmg_torch.amge.local_problems import build_agglomerate_batch
+from mfmg_torch.amge.restriction import build_restriction, check_restriction
+from mfmg_torch.config import Config
+from mfmg_torch.eigen.batched_eigh import batched_smallest_eigenpairs
+from mfmg_torch.solve.cg import cg_solve
+from mfmg_torch.solve.coarse import build_coarse_solver
+from mfmg_torch.solve.operator import apply_op
+from mfmg_torch.solve.smoothers import build_smoother
+
+
+class LevelData(nn.Module):
+    """Per-level state (analog of mfmg::Level, common/level.hpp:22-77)."""
+
+    def __init__(self, op, smoother=None, transfer=None, coarse=None):
+        super().__init__()
+        self.op = op                      # StencilOperator | BlockStencilOperator
+        self.smoother = smoother          # None on the coarsest level
+        self.transfer = transfer          # restriction into the next level
+        self.coarse = coarse              # coarse solver on the coarsest level
+
+
+def _vcycle(levels, b, x, level, n_smoothing_steps, is_preconditioner,
+            cycle_type="v"):
+    """Recursive multigrid cycle (hierarchy.hpp:246-309)."""
+    if level == 0 and is_preconditioner:
+        x = torch.zeros_like(b)
+    return _cycle(levels, b, x, level, n_smoothing_steps, cycle_type)
+
+
+def _cycle(levels, b, x, level, n_smoothing_steps, cycle_type):
+    lvl = levels[level]
+    if level == len(levels) - 1:
+        return lvl.coarse.apply(b)
+    awr = hasattr(lvl.smoother, "apply_with_residual")
+    res = None
+    for i in range(n_smoothing_steps):
+        if awr and i == n_smoothing_steps - 1:
+            # the fused smoother emits the V-cycle residual in the same call
+            x, res = lvl.smoother.apply_with_residual(lvl.op, b, x)
+        else:
+            x = lvl.smoother.apply(lvl.op, b, x)
+    if res is None:
+        res = apply_op(lvl.op, x) - b    # negative residual (hierarchy.hpp:282-286)
+    b_coarse = lvl.transfer.restrict(res)
+    x_coarse = torch.zeros_like(b_coarse)
+    sub_cycles = {"v": ("v",), "w": ("w", "w"), "f": ("f", "v")}[cycle_type]
+    for sub in sub_cycles:
+        x_coarse = _cycle(levels, b_coarse, x_coarse, level + 1,
+                          n_smoothing_steps, sub)
+    x = x - lvl.transfer.prolong(x_coarse)
+    for _ in range(n_smoothing_steps):
+        x = lvl.smoother.apply(lvl.op, b, x)
+    return x
+
+
+def vcycle(levels, b, x, n_smoothing_steps=1, is_preconditioner=True,
+           cycle_type="v"):
+    return _vcycle(levels, b, x, 0, n_smoothing_steps, is_preconditioner,
+                   cycle_type)
+
+
+def _torch_dtype(name) -> torch.dtype:
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _np_dtype(dt: torch.dtype):
+    return np.float64 if dt == torch.float64 else np.float32
+
+
+class Hierarchy:
+    """Public entry point: the constructor runs the full setup on the host
+    (hierarchy.hpp:159-236) and places every level on ``device``.
+
+    device="cuda" needs a CUDA device and never falls back to the CPU.
+    Supported configurations: operator="stencil" on a structured mesh,
+    block agglomerates, the "lapack" eigensolver, Jacobi or Chebyshev
+    smoothing, and the "direct" coarse solver; anything else raises
+    NotImplementedError naming its ROADMAP item.
+    """
+
+    def __init__(self, problem, config: Config | None = None, device="cpu"):
+        self.config = config or Config()
+        self.problem = problem
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Hierarchy(device='cuda') needs a CUDA device; "
+                               "torch.cuda.is_available() is False")
+        self.dtype = _torch_dtype(self.config.dtype)
+        self.levels = nn.ModuleList()
+        self.setup_seconds = {}
+        self._exact_op_cache = None
+        self._check_supported()
+        self._setup()
+
+    def _check_supported(self):
+        cfg = self.config
+        unsupported = []
+        if cfg.operator != "stencil":
+            unsupported.append(f"operator={cfg.operator!r} (Slice E)")
+        if cfg.distributed_setup:
+            unsupported.append("distributed_setup (Slice G)")
+        if cfg.eigensolver.type != "lapack":
+            unsupported.append(f"eigensolver {cfg.eigensolver.type!r} (Slice E)")
+        if cfg.eigensolver.backend == "device":
+            unsupported.append("eigensolver backend 'device' (device_eig)")
+        if cfg.eigensolver.constrained_mode not in ("auto", "pin"):
+            unsupported.append(f"constrained_mode "
+                               f"{cfg.eigensolver.constrained_mode!r} (Slice E)")
+        if cfg.fast_ap is False:
+            unsupported.append("fast_ap=False (Slice E)")
+        if unsupported:
+            raise NotImplementedError("mfmg_torch does not support "
+                                      + ", ".join(unsupported)
+                                      + " yet (ROADMAP Queue 1)")
+
+    # ------------------------------------------------------------- setup --
+    def _setup(self):
+        from mfmg_torch.amge.multilevel import (_dof_row_structure,
+                                                agg_galerkin_blocks,
+                                                galerkin_product_from_blocks)
+        from mfmg_torch.ops.block_stencil import block_stencil_from_csr
+        from mfmg_torch.ops.stencil import stencil_from_cell_matrices
+        from mfmg_torch.ops.structured_transfer import (
+            general_window_transfer_from_csr, structured_transfer_from_batch)
+
+        t_last = [time.perf_counter()]
+
+        def mark(name):
+            now = time.perf_counter()
+            self.setup_seconds[name] = now - t_last[0]
+            t_last[0] = now
+
+        cfg = self.config
+        problem = self.problem
+        # coeff_dtype (e.g. bfloat16) reduces the fine apply's byte stream in
+        # the preconditioner only; the outer CG uses the exact-dtype operator
+        coeff_dt = _torch_dtype(cfg.coeff_dtype) if cfg.coeff_dtype else self.dtype
+        op = stencil_from_cell_matrices(problem.mesh, problem.A_loc,
+                                        problem.constrained, problem.diag_raw,
+                                        dtype=coeff_dt)
+        A_per_level = [None]          # the fine matrix is never assembled
+        mark("fine operator")
+
+        n_ev0 = cfg.eigensolver.n_eigenvectors
+        n_evd = cfg.eigensolver.n_eigenvectors_deep or n_ev0
+        agg_grid = None
+        for level in range(cfg.max_levels):
+            if level == cfg.max_levels - 1:
+                A_c = A_per_level[level]
+                if A_c is None:
+                    A_c = problem.A          # max_levels == 1
+                coarse = build_coarse_solver(A_c, cfg.coarse, dtype=self.dtype)
+                self._append(LevelData(op, coarse=coarse))
+                mark(f"coarse solver (n={A_c.shape[0]})")
+                break
+            smoother = build_smoother(op, cfg.smoother, dtype=self.dtype,
+                                      A_scipy=A_per_level[level])
+            mark(f"smoother L{level}")
+            R = self._build_restrictor(level, A_per_level)
+            mark(f"restrictor L{level}")
+            if level == 0:
+                # matrix-free Galerkin product R A R^T from per-agglomerate
+                # blocks Rb_a A_a Rb_a^T (reused by the level-1 restrictor)
+                batch, _, evecs = self._level0_eigendata
+                dof_rows, dof_vals = _dof_row_structure(R)
+                blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals,
+                                             R.shape[0], eliminate=False)
+                A_coarse = galerkin_product_from_blocks(blocks, R.shape[0])
+                self._level0_blocks = blocks
+                transfer = structured_transfer_from_batch(
+                    problem.mesh, batch, evecs, problem.diag_raw,
+                    dtype=self.dtype)
+                if transfer is not None:
+                    agg_grid = transfer.agg_shape
+                    coarse_grid, n_comp = agg_grid, n_ev0
+            else:
+                A_coarse = (R @ A_per_level[level] @ R.T).tocsr()
+                in_comp = n_ev0 if level == 1 else n_evd
+                out_grid = tuple(reversed(self._super_grid_xyz))
+                stride = tuple(reversed(cfg.agglomeration.block_dims(
+                    problem.mesh.dim)))
+                transfer = (general_window_transfer_from_csr(
+                    R, agg_grid, in_comp, out_grid, n_evd, stride,
+                    dtype=self.dtype) if agg_grid is not None else None)
+                if transfer is not None:
+                    agg_grid = out_grid
+                    coarse_grid, n_comp = out_grid, n_evd
+            A_per_level.append(A_coarse)
+            mark(f"galerkin product L{level}")
+            if transfer is None:
+                raise NotImplementedError(
+                    "unstructured coarse levels (ELL restriction) are not "
+                    "ported yet (ROADMAP Queue 1, Slice E)")
+            self._append(LevelData(op, smoother=smoother, transfer=transfer))
+            # a structured agglomerate grid's coarse operator is a block stencil
+            op = block_stencil_from_csr(A_coarse, coarse_grid, n_comp,
+                                        dtype=self.dtype)
+            if op is None:
+                raise NotImplementedError(
+                    "coarse operators outside the block-stencil window (ELL) "
+                    "are not ported yet (ROADMAP Queue 1, Slice E)")
+            mark(f"level L{level} placed on {self.device}")
+        self._A_per_level = A_per_level
+        self._finalize_cuda_kernels()
+
+    def _append(self, level_data: LevelData):
+        """Finalize a level and move it to the device (its one h2d copy)."""
+        from mfmg_torch.ops.stencil import StencilOperator, stencil_to_device
+        if isinstance(level_data.op, StencilOperator):
+            stencil_to_device(level_data.op, self.device)
+        self.levels.append(level_data.to(self.device))
+
+    def _finalize_cuda_kernels(self):
+        """The port's counterpart of mfmg_tpu _finalize_tpu_kernels: on CUDA,
+        the level-0 Chebyshev smoother becomes the K2-backed fused smoother.
+        (The single-kernel coarse tail is not ported yet: ROADMAP Queue 2,
+        item 1.)"""
+        if self.device.type != "cuda":
+            return
+        from mfmg_torch.solve.smoothers import fuse_chebyshev
+        l0 = self.levels[0]
+        fsm = fuse_chebyshev(l0.smoother, l0.op) if l0.smoother is not None else None
+        if fsm is not None:
+            l0.smoother = fsm
+
+    def _build_restrictor(self, level: int, A_per_level) -> sp.csr_matrix:
+        """Analog of HierarchyHelpers::build_restrictor for one level: level
+        0 agglomerates mesh cells, level 1 agglomerates the level-0
+        agglomerates (amge/multilevel.py)."""
+        cfg = self.config
+        problem = self.problem
+        if level == 0:
+            agg_ids = build_agglomerates(problem.mesh, cfg.agglomeration)
+            batch = build_agglomerate_batch(problem.mesh, problem.A_loc, agg_ids,
+                                            batch_dtype=_np_dtype(self.dtype))
+            evals, evecs = batched_smallest_eigenpairs(
+                batch, cfg.eigensolver.n_eigenvectors, constrained_mode="pin",
+                host_dtype=_np_dtype(self.dtype))
+            check_restriction(batch, problem.diag_raw, problem.n_dofs)
+            self._level0_eigendata = (batch, evals, evecs)
+            R = build_restriction(batch, evecs, problem.diag_raw, problem.n_dofs)
+            self._cell_agg = agg_ids
+            self._R_composed = R
+            return R
+        from mfmg_torch.amge.multilevel import build_recursive_restriction
+        n_evd = (cfg.eigensolver.n_eigenvectors_deep
+                 or cfg.eigensolver.n_eigenvectors)
+        R_l, cell_super, super_grid = build_recursive_restriction(
+            problem.mesh, self._cell_agg, self._R_composed, A_per_level[level],
+            n_evd, cfg.agglomeration.block_dims(problem.mesh.dim),
+            prev_batch=self._level0_eigendata[0] if level == 1 else None,
+            prev_blocks=self._level0_blocks if level == 1 else None)
+        self._cell_agg = cell_super
+        self._R_composed = (R_l @ self._R_composed).tocsr()
+        self._super_grid_xyz = super_grid
+        return R_l
+
+    # ------------------------------------------------------------- apply --
+    def to(self, device):
+        """Move every level (and the cached outer-CG operator) to device."""
+        self.device = torch.device(device)
+        self.levels.to(self.device)
+        if self._exact_op_cache is not None:
+            self._exact_op_cache.to(self.device)
+        return self
+
+    def _vector(self, b):
+        if isinstance(b, torch.Tensor):
+            return b.to(device=self.device, dtype=self.dtype)
+        return torch.as_tensor(np.asarray(b), dtype=self.dtype, device=self.device)
+
+    def apply(self, b, x=None):
+        """One V-cycle: solves/preconditions A x = b (hierarchy.hpp:246)."""
+        b = self._vector(b)
+        x = torch.zeros_like(b) if x is None else self._vector(x)
+        return vcycle(self.levels, b, x,
+                      n_smoothing_steps=self.config.smoother.n_smoothing_steps,
+                      is_preconditioner=self.config.is_preconditioner,
+                      cycle_type=self.config.cycle_type)
+
+    def vmult(self, b):
+        """Preconditioner application x = M^{-1} b (hierarchy.hpp:238-244)."""
+        b = self._vector(b)
+        return vcycle(self.levels, b, torch.zeros_like(b),
+                      n_smoothing_steps=self.config.smoother.n_smoothing_steps,
+                      is_preconditioner=True, cycle_type=self.config.cycle_type)
+
+    def solve_cg(self, b, tol=1e-12, maxiter=1000):
+        """Hierarchy-preconditioned CG (analog of laplace.hpp:206-219).
+        Returns (x tensor, {"iterations": int, "relres": float})."""
+        nss = self.config.smoother.n_smoothing_steps
+
+        def precond(r):
+            return vcycle(self.levels, r, torch.zeros_like(r),
+                          n_smoothing_steps=nss, is_preconditioner=True,
+                          cycle_type=self.config.cycle_type)
+
+        return cg_solve(self._exact_fine_op(), self._vector(b),
+                        preconditioner=precond, tol=tol, maxiter=maxiter)
+
+    def _exact_fine_op(self):
+        """Fine operator at the full hierarchy dtype for the outer Krylov
+        residual.  When coeff_dtype reduces the hierarchy's coefficient
+        storage (bf16 preconditioner), this builds (once) the exact operator
+        so CG solves the unperturbed system."""
+        cfg = self.config
+        if not cfg.coeff_dtype or _torch_dtype(cfg.coeff_dtype) == self.dtype:
+            return self.levels[0].op
+        if self._exact_op_cache is None:
+            from mfmg_torch.ops.stencil import (stencil_from_cell_matrices,
+                                                stencil_to_device)
+            p = self.problem
+            self._exact_op_cache = stencil_to_device(
+                stencil_from_cell_matrices(p.mesh, p.A_loc, p.constrained,
+                                           p.diag_raw, dtype=self.dtype),
+                self.device)
+        return self._exact_op_cache
+
+
+def measure_vcycle_rate(hierarchy: Hierarchy, n_cycles: int = 20, seed: int = 0):
+    """Asymptotic V-cycle convergence rate (reference tests/
+    test_hierarchy.cc:95-124): random initial error (uniform [0,1) from numpy
+    default_rng(seed), zero at Dirichlet dofs), zero RHS, n_cycles
+    standalone cycles, rate = res[n]/res[n-1]; the error is renormalized
+    every cycle (the iteration is linear)."""
+    problem = hierarchy.problem
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, size=problem.n_dofs)
+    x[problem.constrained] = 0.0
+    x = hierarchy._vector(x)
+    b = torch.zeros_like(x)
+    op = hierarchy.levels[0].op
+    nss = hierarchy.config.smoother.n_smoothing_steps
+
+    res_prev = None
+    rate = None
+    for _ in range(n_cycles):
+        x = vcycle(hierarchy.levels, b, x, n_smoothing_steps=nss,
+                   is_preconditioner=False,
+                   cycle_type=hierarchy.config.cycle_type)
+        res = float(torch.linalg.norm(apply_op(op, x)))
+        if res_prev is not None and res_prev > 0:
+            rate = res / res_prev
+        nrm = float(torch.linalg.norm(x))
+        if nrm > 0:
+            x = x / nrm
+            res_prev = res / nrm
+        else:
+            res_prev = res
+    return rate
+
+
+def levels_from_arrays(arrays: dict, meta: dict, device="cpu") -> list[LevelData]:
+    """Build the port's levels from a hierarchy flattened to numpy arrays
+    plus static metadata, so a hierarchy built elsewhere (mfmg_tpu) can be
+    carried across without either package importing the other.
+
+    meta = {"levels": [per-level dict]}; each per-level dict has
+      "op": {"type": "stencil", "offsets", "grid_shape", "sym_pos"} or
+            {"type": "block_stencil", "offsets", "agg_shape", "n_comp",
+             "radius"},
+      "smoother": None | {"type": "chebyshev", "theta", "delta", "degree"},
+      "transfer": None | {"type": "structured", "window_shape", "agg_shape",
+                  "grid_shape"} | {"type": "general", "window_shape", "t0",
+                  "stride", "in_grid", "out_grid", "n_in", "n_out"},
+      "coarse": None | {"type": "direct"}.
+    arrays holds "L{l}.op.coeffs", "L{l}.smoother.inv_diag",
+    "L{l}.transfer.W", "L{l}.transfer.Rd" (general, optional) and
+    "L{l}.coarse.inv"; each array keeps its dtype.
+    """
+    from mfmg_torch.ops.block_stencil import BlockStencilOperator
+    from mfmg_torch.ops.stencil import StencilOperator, stencil_to_device
+    from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
+                                                    StructuredTransfer)
+    from mfmg_torch.solve.coarse import DirectCoarseSolver
+    from mfmg_torch.solve.smoothers import ChebyshevSmoother
+
+    def t(key):
+        a = np.asarray(arrays[key])
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(a))      # a writable copy
+
+    device = torch.device(device)
+    levels = []
+    for l, m in enumerate(meta["levels"]):
+        pre = f"L{l}."
+        mo = m["op"]
+        if mo["type"] == "stencil":
+            op = stencil_to_device(StencilOperator(
+                t(pre + "op.coeffs"), mo["offsets"], mo["grid_shape"],
+                mo.get("sym_pos")), device)
+        elif mo["type"] == "block_stencil":
+            op = BlockStencilOperator(t(pre + "op.coeffs"), mo["offsets"],
+                                      mo["agg_shape"], mo["n_comp"],
+                                      mo.get("radius", 1))
+        else:
+            raise ValueError(f"unknown operator type {mo['type']!r}")
+        smoother = None
+        ms = m.get("smoother")
+        if ms is not None and ms["type"] == "chebyshev":
+            smoother = ChebyshevSmoother(t(pre + "smoother.inv_diag"),
+                                         ms["theta"], ms["delta"], ms["degree"])
+        elif ms is not None:
+            raise ValueError(f"unknown smoother type {ms['type']!r}")
+        transfer = None
+        mt = m.get("transfer")
+        if mt is not None and mt["type"] == "structured":
+            transfer = StructuredTransfer(t(pre + "transfer.W"),
+                                          mt["window_shape"], mt["agg_shape"],
+                                          mt["grid_shape"])
+        elif mt is not None and mt["type"] == "general":
+            Rd = t(pre + "transfer.Rd") if pre + "transfer.Rd" in arrays else None
+            transfer = GeneralWindowTransfer(
+                t(pre + "transfer.W"), mt["window_shape"], mt["t0"],
+                mt["stride"], mt["in_grid"], mt["out_grid"], mt["n_in"],
+                mt["n_out"], Rd=Rd)
+        elif mt is not None:
+            raise ValueError(f"unknown transfer type {mt['type']!r}")
+        coarse = None
+        if m.get("coarse") is not None:
+            coarse = DirectCoarseSolver(t(pre + "coarse.inv"))
+        levels.append(LevelData(op, smoother=smoother, transfer=transfer,
+                                coarse=coarse).to(device))
+    return levels

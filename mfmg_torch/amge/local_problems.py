@@ -1,0 +1,128 @@
+"""Per-agglomerate local operators as one padded dense batch (host numpy).
+
+Port of the structured path of mfmg_tpu/amge/local_problems.py.  All
+agglomerate operators are materialized as one (n_agg, m, m) dense batch so
+the eigensolve runs as one batched loop (reference
+dealii/amge_host.templates.hpp:586-615 solves them one at a time).
+
+Boundary conditions per agglomerate mirror the reference
+(tests/test_hierarchy_helpers.hpp:253-259): Dirichlet only where the
+agglomerate touches the global Dirichlet boundary, natural (Neumann) on
+interior agglomerate boundaries.  The generic ragged-agglomerate builder is
+not ported yet (ROADMAP Queue 1, Slice E).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from mfmg_torch.fem.mesh import Mesh
+from mfmg_torch.fem.reference import reference_element
+
+
+@dataclasses.dataclass
+class AgglomerateBatch:
+    """Padded batch of local problems.
+
+    dof_map : (n_agg, m_max) int64 global dof ids, -1 padding
+    valid   : (n_agg, m_max) bool
+    A_agg   : (n_agg, m_max, m_max) Dirichlet-eliminated local matrices
+              (raw diagonal kept at constrained dofs)
+    diag    : (n_agg, m_max) local raw diagonals (the PoU numerators)
+    constrained : (n_agg, m_max) bool
+    sizes   : (n_agg,) int
+    """
+
+    dof_map: np.ndarray
+    valid: np.ndarray
+    A_agg: np.ndarray
+    diag: np.ndarray
+    constrained: np.ndarray
+    sizes: np.ndarray
+
+    @property
+    def n_agg(self) -> int:
+        return self.dof_map.shape[0]
+
+    @property
+    def m_max(self) -> int:
+        return self.dof_map.shape[1]
+
+
+def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
+                            batch_dtype=np.float64) -> AgglomerateBatch:
+    """Assemble local dense operators for every agglomerate of a uniform
+    block partition of a structured mesh.
+
+    batch_dtype: dtype of the dense A_agg batch (float32 for float32
+    hierarchies, as in mfmg_tpu); the PoU diagonals are always float64.
+    """
+    if not mesh.is_structured:
+        raise NotImplementedError("unstructured agglomerate batches are not "
+                                  "ported yet (ROADMAP Queue 1, Slice E)")
+    n_agg = int(agg_ids.max()) + 1
+    counts = np.bincount(agg_ids, minlength=n_agg)
+    nc = np.asarray(mesh.structured_shape)
+    dim, k = mesh.dim, mesh.degree
+    mi = mesh.cell_multi_index()
+    sel = agg_ids == agg_ids[0]
+    bdims = (mi[sel].max(axis=0) - mi[sel].min(axis=0) + 1)
+    agg_mi = mi // bdims
+    n_agg_dim = nc // bdims
+    stride = np.cumprod(np.concatenate([[1], n_agg_dim[:-1]]))
+    if (counts.min() != counts.max() or np.prod(bdims) != counts[0]
+            or np.any(nc % bdims) or not np.array_equal(agg_ids, agg_mi @ stride)):
+        raise NotImplementedError("ragged agglomerates are not ported yet "
+                                  "(ROADMAP Queue 1, Slice E)")
+
+    # local structure shared by all agglomerates
+    m_dims = bdims * k + 1                # local nodes per dim
+    m = int(np.prod(m_dims))
+    n_loc = mesh.n_loc
+    lm = reference_element(dim, k).local_multi_index            # (n_loc, dim)
+    bc = np.stack(np.meshgrid(*[np.arange(b) for b in bdims], indexing="ij"),
+                  axis=-1).reshape(-1, dim, order="F")          # x fastest
+    lstride = np.cumprod(np.concatenate([[1], m_dims[:-1]]))
+    local_cells = ((bc[:, None, :] * k + lm[None, :, :]) @ lstride).astype(np.int64)
+
+    gstride = np.cumprod(np.concatenate([[1], nc[:-1]]))
+    agg_origin_mi = np.stack(np.meshgrid(*[np.arange(a) for a in n_agg_dim],
+                                         indexing="ij"),
+                             axis=-1).reshape(-1, dim, order="F") * bdims
+    cells_per_agg = (agg_origin_mi[:, None, :] + bc[None, :, :]) @ gstride
+
+    node_dims = nc * k + 1
+    nstride = np.cumprod(np.concatenate([[1], node_dims[:-1]]))
+    local_node_mi = np.stack(np.meshgrid(*[np.arange(md) for md in m_dims],
+                                         indexing="ij"),
+                             axis=-1).reshape(-1, dim, order="F")
+    dof_map = ((agg_origin_mi * k)[:, None, :] + local_node_mi[None, :, :]) @ nstride
+
+    A_agg = np.zeros((n_agg, m, m), dtype=batch_dtype)
+    gi = np.broadcast_to(np.arange(n_agg)[:, None, None, None],
+                         (n_agg, len(bc), n_loc, n_loc))
+    rows = np.broadcast_to(local_cells[None, :, :, None], gi.shape)
+    cols = np.broadcast_to(local_cells[None, :, None, :], gi.shape)
+    np.add.at(A_agg, (gi.reshape(-1), rows.reshape(-1), cols.reshape(-1)),
+              A_loc[cells_per_agg].reshape(-1).astype(batch_dtype))
+
+    if np.dtype(batch_dtype) == np.float64:
+        diag = np.einsum("gii->gi", A_agg).copy()
+    else:
+        # PoU diagonals in float64 straight from the cell matrices
+        diag = np.zeros((n_agg, m))
+        d_loc = np.einsum("cii->ci", A_loc)[cells_per_agg]
+        np.add.at(diag, (np.broadcast_to(np.arange(n_agg)[:, None, None], d_loc.shape),
+                         np.broadcast_to(local_cells[None], d_loc.shape)), d_loc)
+    constrained = mesh.constrained_mask[dof_map]
+
+    keep = ~constrained
+    A_agg *= keep[:, :, None] * keep[:, None, :]
+    gi2, ii2 = np.nonzero(constrained)
+    A_agg[gi2, ii2, ii2] = diag[gi2, ii2].astype(batch_dtype)
+
+    return AgglomerateBatch(dof_map=dof_map, valid=np.ones((n_agg, m), dtype=bool),
+                            A_agg=A_agg, diag=diag, constrained=constrained,
+                            sizes=np.full(n_agg, m, dtype=np.int64))

@@ -1,0 +1,354 @@
+"""Recursive spectral AMGe: level l >= 1 built with the level-0 machinery.
+
+Port of the parts of mfmg_tpu/amge/multilevel.py that a three-level
+structured hierarchy runs (host numpy/scipy).  The reference caps its own
+AMGe at 2 levels and delegates deeper hierarchies to ML/AMGX
+(hierarchy.hpp:172, dealii_solver.cc); here level 1 repeats the level-0
+construction on super-agglomerates:
+
+  * level-1 agglomerates = groups of level-0 agglomerates,
+  * the local operator of super-agglomerate G is the Galerkin restriction of
+    G's Neumann-assembled fine patch, A_G = R_G A_G R_G^T, summed from the
+    per-agglomerate blocks K_a = Rb_a A_a Rb_a^T (one batched matmul per
+    level-0 agglomerate, reused by the global Galerkin product),
+  * the local space spans every level-0 coarse dof whose support touches G,
+  * the eigenproblem is solved in the orthonormalized function space of the
+    patch Gram M_G = R_G R_G^T (rank-revealing pivoted Cholesky, eigh as the
+    fallback), and PoU weights w_i = diag(A_G)_i / diag(A_1)_i.
+
+The per-cell block path (levels >= 2, i.e. max_levels > 3), the
+interior-only local spaces and the distributed slabs are not ported yet
+(ROADMAP Queue 1, Slices E and G).
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import scipy.sparse as sp
+
+from mfmg_torch.fem.mesh import Mesh
+
+
+def group_agglomerates(mesh: Mesh, agg_ids: np.ndarray, block_dims):
+    """(super_of_agg (n_agg,), super grid dims x-first): centroid-layer
+    blocking of the previous-level agglomerates (exact on structured grids)."""
+    n_agg = int(agg_ids.max()) + 1
+    centroids = np.zeros((n_agg, mesh.dim))
+    counts = np.bincount(agg_ids, minlength=n_agg).astype(float)
+    cell_centers = mesh.nodes[mesh.cells].mean(axis=1)
+    np.add.at(centroids, agg_ids, cell_centers)
+    centroids /= counts[:, None]
+
+    super_mi = np.zeros((n_agg, mesh.dim), dtype=np.int64)
+    for d in range(mesh.dim):
+        vals = np.round(centroids[:, d] / max(1e-12, np.ptp(centroids[:, d]) + 1e-30) * 1e8)
+        _, layer = np.unique(vals, return_inverse=True)
+        super_mi[:, d] = layer // block_dims[d]
+    out = np.zeros(n_agg, dtype=np.int64)
+    stride = 1
+    grid = []
+    for d in range(mesh.dim):
+        n_d = int(super_mi[:, d].max()) + 1
+        grid.append(n_d)
+        out += super_mi[:, d] * stride
+        stride *= n_d
+    _, out = np.unique(out, return_inverse=True)
+    return out, tuple(grid)
+
+
+def _dof_row_structure(R: sp.csr_matrix):
+    """Padded per-dof (rows, values) of R's columns: which coarse rows touch
+    each fine dof.  (n_dofs, q_max) with -1 padding."""
+    C = R.tocsc()
+    n_dofs = C.shape[1]
+    q = np.diff(C.indptr)
+    q_max = int(q.max()) if n_dofs else 0
+    rows = -np.ones((n_dofs, q_max), dtype=np.int64)
+    vals = np.zeros((n_dofs, q_max))
+    if C.nnz:
+        d_idx = np.repeat(np.arange(n_dofs), q)
+        pos = np.arange(C.nnz) - np.repeat(C.indptr[:-1], q)
+        rows[d_idx, pos] = C.indices
+        vals[d_idx, pos] = C.data
+    return rows, vals
+
+
+def _batched_scatter(flat_idx: np.ndarray, weights: np.ndarray, size: int):
+    """Sum weights into a flat array (histogram scatter; ~5x np.add.at)."""
+    return np.bincount(flat_idx.ravel(), weights=weights.ravel(), minlength=size)
+
+
+# Gram rank cutoffs (relative); a quality knob, not only a numerical guard
+# (mfmg_tpu measured V-cycle rate 0.885 / PCG 17 with the rank kept too high
+# at 65^3 against 0.671 / PCG ~10 truncated).  pstrf pivots scale like
+# eigenvalues of the scaled Gram, and dpstrf's stop rule is conservative, so
+# its tolerance sits ~2 decades looser than the eigh cutoff.
+_RANK_TOL = 1e-8      # eigh basis: keep lam > tol * lam_max
+_PSTRF_TOL = 1e-6     # dpstrf pivot tolerance
+
+
+def build_recursive_restriction(mesh: Mesh, cell_agg_prev: np.ndarray,
+                                R_prev_local: sp.csr_matrix,
+                                A_coarse_prev: sp.csr_matrix,
+                                n_ev: int, block_dims,
+                                prev_batch, prev_blocks=None) -> tuple:
+    """One more AMGe level over the level-0 agglomerates; returns (R_l csr
+    over the previous coarse space, cell_super, super_grid)."""
+    super_of_agg, super_grid = group_agglomerates(mesh, cell_agg_prev, block_dims)
+    if prev_batch is None or prev_batch.n_agg != len(super_of_agg):
+        raise NotImplementedError(
+            "recursive levels beyond the first (max_levels > 3) need the "
+            "per-cell patch assembly, which is not ported yet (ROADMAP "
+            "Queue 1, Slice E)")
+    cell_super = super_of_agg[cell_agg_prev]
+    n_super = int(cell_super.max()) + 1
+    n_rows_prev = A_coarse_prev.shape[0]
+    coarse_diag = np.asarray(A_coarse_prev.diagonal())
+    dof_rows, dof_vals = _dof_row_structure(R_prev_local.tocsr())
+    A1, M, m1s, member_pad = _super_blocks_per_agg(
+        prev_batch, super_of_agg, dof_rows, dof_vals, n_rows_prev, n_super,
+        blocks=prev_blocks)
+    R_l = _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
+                              n_rows_prev, n_super)
+    return R_l, cell_super, super_grid
+
+
+class AggBlocks:
+    """Per-agglomerate dense R / Galerkin blocks (shared by the global
+    Galerkin product and the recursive level's patch assembly).
+
+    arows : (n_agg, t_max) coarse rows touching each agglomerate (padded)
+    t_s   : (n_agg,) valid row counts
+    Rb    : (n_agg, t_max, m) dense blocks of R restricted to rows x agg dofs
+    K     : (n_agg, t_max, t_max) Galerkin blocks  Rb A_agg Rb^T
+    """
+
+    __slots__ = ("arows", "t_s", "Rb", "K")
+
+    def __init__(self, arows, t_s, Rb, K):
+        self.arows, self.t_s, self.Rb, self.K = arows, t_s, Rb, K
+
+
+def agg_galerkin_blocks(batch, dof_rows: np.ndarray, dof_vals: np.ndarray,
+                        n_rows: int, eliminate: bool = True) -> AggBlocks:
+    """Batched per-agglomerate Galerkin blocks K_a = Rb_a A_a Rb_a^T.
+
+    Assembly is additive over cells and every cell belongs to exactly one
+    agglomerate, so scattering the K_a reproduces R A R^T exactly.
+    eliminate: additionally zero R values at constrained dofs inside the
+    blocks (the recursive level's local-eigenproblem convention).
+    """
+    n_agg, m = batch.dof_map.shape
+    dm = np.where(batch.valid, batch.dof_map, 0)
+    keep = batch.valid & ~batch.constrained if eliminate else batch.valid
+    ar = np.where(batch.valid[:, :, None], dof_rows[dm], -1)  # (n_agg, m, q)
+    av = np.where(keep[:, :, None], dof_vals[dm], 0.0)
+    ok = ar >= 0
+    keys = np.where(ok, np.arange(n_agg, dtype=np.int64)[:, None, None]
+                    * n_rows + ar, -1)
+    agg_keys = np.unique(keys[ok])                     # agg-major sorted
+    key_agg = agg_keys // n_rows
+    t_s = np.bincount(key_agg, minlength=n_agg)
+    offs_a = np.concatenate([[0], np.cumsum(t_s)])
+    t_max = int(t_s.max()) if n_agg else 0
+    arows = np.zeros((n_agg, t_max), dtype=np.int64)
+    within = np.arange(len(agg_keys)) - offs_a[key_agg]
+    arows[key_agg, within] = agg_keys % n_rows
+    # dense per-agg R blocks ((row, dof) pairs are unique -> assignment)
+    pos = np.searchsorted(agg_keys, np.where(ok, keys, 0)) - offs_a[
+        np.arange(n_agg)[:, None, None]]
+    ai = np.broadcast_to(np.arange(n_agg)[:, None, None], ar.shape)
+    si = np.broadcast_to(np.arange(m)[None, :, None], ar.shape)
+    Rb = np.zeros((n_agg, t_max, m))
+    Rb[ai[ok], pos[ok], si[ok]] = av[ok]
+
+    # K in the batch's dtype (float32 batches halve the BLAS-3 time)
+    kdt = batch.A_agg.dtype
+    K = np.empty((n_agg, t_max, t_max), dtype=kdt)
+
+    def _blk(lo, hi):
+        Rb_c = Rb[lo:hi].astype(kdt, copy=False)
+        tmp = np.matmul(Rb_c, batch.A_agg[lo:hi])
+        np.matmul(tmp, np.swapaxes(Rb_c, 1, 2), out=K[lo:hi])
+
+    _run_threaded(_blk, n_agg)
+    return AggBlocks(arows, t_s, Rb, K)
+
+
+def galerkin_product_from_blocks(blocks: AggBlocks, n_rows: int) -> sp.csr_matrix:
+    """A_coarse = R A R^T assembled from the per-agglomerate Galerkin blocks
+    (the global fine matrix never exists)."""
+    t_max = blocks.arows.shape[1]
+    valid = np.arange(t_max)[None] < blocks.t_s[:, None]
+    vij = valid[:, :, None] & valid[:, None, :]
+    ri = np.broadcast_to(blocks.arows[:, :, None], blocks.K.shape)[vij]
+    cj = np.broadcast_to(blocks.arows[:, None, :], blocks.K.shape)[vij]
+    A = sp.csr_matrix((blocks.K[vij], (ri, cj)), shape=(n_rows, n_rows))
+    A.sum_duplicates()
+    # padded patch-row pairs that share no cell are exact structural zeros;
+    # dropping them keeps the coarse graph inside the block-stencil window
+    A.eliminate_zeros()
+    return A
+
+
+def _super_blocks_per_agg(batch, super_of_agg: np.ndarray,
+                          dof_rows: np.ndarray, dof_vals: np.ndarray,
+                          n_rows_prev: int, n_super: int,
+                          blocks: AggBlocks | None = None):
+    """Per-super (A1, Gram) padded batches from per-agglomerate blocks:
+    K_a = Rb_a A_a Rb_a^T and M_a = Rown_a Rown_a^T (Rown = Rb masked to the
+    dofs owned by a within its super, so each dof of a super counts once)."""
+    if blocks is None:
+        blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals, n_rows_prev)
+    arows, t_s, Rb, K = blocks.arows, blocks.t_s, blocks.Rb, blocks.K
+    n_agg, m = batch.dof_map.shape
+    t_max = arows.shape[1]
+    dm = np.where(batch.valid, batch.dof_map, 0)
+
+    # ownership: one owner agglomerate per (super, dof)
+    G_of = super_of_agg.astype(np.int64)
+    dkeys = np.where(batch.valid, G_of[:, None] * np.int64(dm.max() + 1) + dm, -1)
+    flatd = dkeys.ravel()
+    order = np.argsort(flatd, kind="stable")
+    sortd = flatd[order]
+    first = np.concatenate([[True], sortd[1:] != sortd[:-1]]) & (sortd >= 0)
+    own = np.zeros(n_agg * m, dtype=bool)
+    own[order[first]] = True
+    own2 = own.reshape(n_agg, m)
+
+    wdt = K.dtype
+    Mb = np.empty((n_agg, t_max, t_max), dtype=wdt)
+
+    def _blk(lo, hi):
+        Rm = Rb[lo:hi].astype(wdt, copy=False) * own2[lo:hi][:, None, :]
+        np.matmul(Rm, np.swapaxes(Rm, 1, 2), out=Mb[lo:hi])
+
+    _run_threaded(_blk, n_agg)
+
+    # member-row table per super + scatter
+    skeys = np.where(np.arange(t_max)[None] < t_s[:, None],
+                     G_of[:, None] * n_rows_prev + arows, -1)
+    member_keys = np.unique(skeys[skeys >= 0])
+    key_super = member_keys // n_rows_prev
+    m1s = np.bincount(key_super, minlength=n_super)
+    offs = np.concatenate([[0], np.cumsum(m1s)])
+    m1_max = int(m1s.max()) if n_super else 0
+    member_pad = np.zeros((n_super, m1_max), dtype=np.int64)
+    within = np.arange(len(member_keys)) - offs[key_super]
+    member_pad[key_super, within] = member_keys % n_rows_prev
+
+    m1p = m1_max + 1
+    s_ok = skeys >= 0
+    gpos = np.where(s_ok, np.searchsorted(member_keys, np.where(s_ok, skeys, 0))
+                    - offs[G_of][:, None], m1_max)         # (n_agg, t_max)
+    flat = (G_of[:, None, None] * m1p + gpos[:, :, None]) * m1p + gpos[:, None, :]
+    A1 = _batched_scatter(flat, K, n_super * m1p * m1p).reshape(n_super, m1p, m1p)
+    M = _batched_scatter(flat, Mb, n_super * m1p * m1p).reshape(n_super, m1p, m1p)
+    A1 = A1[:, :m1_max, :m1_max]
+    M = M[:, :m1_max, :m1_max]
+    A1 = 0.5 * (A1 + np.swapaxes(A1, 1, 2))
+    M = 0.5 * (M + np.swapaxes(M, 1, 2))
+    return A1, M, m1s, member_pad
+
+
+def _run_threaded(fn, n, min_per_worker=16):
+    """Run fn(lo, hi) over [0, n) split across a thread pool, with
+    BLAS-internal threading pinned to 1 inside the pool (nested OpenBLAS
+    threads oversubscribe small hosts)."""
+    n_workers = min(os.cpu_count() or 1, 8, max(1, n // min_per_worker))
+    if n_workers <= 1:
+        fn(0, n)
+        return
+    from mfmg_torch.utils.threads import blas_single_thread
+    bounds = np.linspace(0, n, n_workers + 1).astype(int)
+    with blas_single_thread():
+        with ThreadPoolExecutor(n_workers) as pool:
+            for f in [pool.submit(fn, bounds[t], bounds[t + 1])
+                      for t in range(n_workers)]:
+                f.result()
+
+
+def _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
+                        n_rows_prev, n_super):
+    """Per-super rank-revealing eigensolves (threaded LAPACK) and assembly
+    of R_l with PoU weights.  The degenerate pencil (A1, M) is reduced with
+    an M-orthonormal basis W of range(M): pivoted Cholesky (Jacobi-scaled),
+    with the eigendecomposition of M as the fallback."""
+    import scipy.linalg as sla
+    from scipy.linalg.lapack import dpstrf
+
+    m1_max = member_pad.shape[1]
+    diag1 = np.einsum("gii->gi", A1)
+    cols_pad = np.zeros((n_super, n_ev, m1_max))
+    kks = np.zeros(n_super, dtype=np.int64)
+
+    def _reduce_pstrf(Ag, Mg, m1):
+        d = np.sqrt(np.maximum(Mg.diagonal(), 1e-300))
+        Dg = 1.0 / d
+        Ms = Mg * Dg[:, None] * Dg[None, :]
+        c, piv, r, info = dpstrf(Ms, lower=1, tol=_PSTRF_TOL)
+        if info < 0 or r == 0:
+            return None
+        piv = piv - 1                                  # LAPACK is 1-based
+        L11 = np.tril(c[:r, :r])
+        Ap = (Ag * Dg[:, None] * Dg[None, :])[np.ix_(piv, piv)]
+        X = sla.solve_triangular(L11, Ap[:, :r].T, lower=True,
+                                 check_finite=False).T
+        A_red = sla.solve_triangular(L11, X[:r], lower=True,
+                                     check_finite=False)
+        A_red = 0.5 * (A_red + A_red.T)
+        kk = min(n_ev, r)
+        w_, y_ = sla.eigh(A_red, subset_by_index=[0, kk - 1],
+                          driver="evr", check_finite=False)
+        cr = sla.solve_triangular(L11, y_, lower=True, trans="T",
+                                  check_finite=False)   # L11^{-T} y
+        c_full = np.zeros((m1, kk))
+        c_full[piv[:r]] = cr
+        return kk, c_full * Dg[:, None]
+
+    def _reduce_eigh(Ag, Mg, m1):
+        lam, Q = np.linalg.eigh(Mg)
+        r = int(np.sum(lam > _RANK_TOL * max(lam[-1], 1e-300)))
+        if r == 0:
+            return None
+        W = Q[:, m1 - r:] / np.sqrt(lam[m1 - r:])
+        A_red = W.T @ Ag @ W
+        A_red = 0.5 * (A_red + A_red.T)
+        kk = min(n_ev, r)
+        w_, y_ = sla.eigh(A_red, subset_by_index=[0, kk - 1],
+                          driver="evr", check_finite=False)
+        return kk, W @ y_
+
+    def _solve_range(lo, hi):
+        for G in range(lo, hi):
+            m1 = int(m1s[G])
+            if m1 == 0:
+                continue
+            Ag, Mg = A1[G, :m1, :m1], M[G, :m1, :m1]
+            try:
+                out = _reduce_pstrf(Ag, Mg, m1)
+            except (np.linalg.LinAlgError, ValueError):
+                out = None
+            if out is None:
+                out = _reduce_eigh(Ag, Mg, m1)
+            if out is None:
+                continue
+            kk, c = out
+            kks[G] = kk
+            w_pou = diag1[G, :m1] / coarse_diag[member_pad[G, :m1]]
+            cols_pad[G, :kk, :m1] = (w_pou[:, None] * c).T
+
+    _run_threaded(_solve_range, n_super, min_per_worker=2)
+
+    gsel, jsel = np.nonzero(np.arange(n_ev)[None] < kks[:, None])
+    rows_out = np.repeat(gsel * n_ev + jsel, m1s[gsel])
+    mask = np.arange(m1_max)[None] < m1s[gsel][:, None]
+    cols_out = member_pad[gsel][mask]
+    vals_out = cols_pad[gsel, jsel][mask]
+    R_l = sp.csr_matrix((vals_out, (rows_out, cols_out)),
+                        shape=(n_super * n_ev, n_rows_prev))
+    nonzero = np.diff(R_l.indptr) > 0
+    return R_l[nonzero]
