@@ -2,15 +2,16 @@
 
 A second package beside ``mfmg_tpu`` (the JAX reference).  It imports
 ``torch`` and never ``jax``.  Setup stays host numpy/scipy, as in the
-reference; the apply path is PyTorch, and the fine-grid Pallas kernels of
-the reference are hand-written CUDA for Hopper (``sm_90a``) in ``csrc/``,
+reference; the apply path is PyTorch, and the reference's Pallas kernels on
+the main path (the fine-grid stencil apply and Chebyshev step, the fused
+coarse tail) are hand-written CUDA for Hopper (``sm_90a``) in ``csrc/``,
 built with ``nvcc`` at first use and bound with ctypes
-(``ops/stencil_kernels.py``).
+(``ops/stencil_kernels.py``, ``ops/fused_cycle.py``).
 
     from mfmg_torch import Config, LaplaceProblem, Hierarchy
     problem = LaplaceProblem.hyper_cube(dim=3, n_refinements=6,
                                         material_property="linear")
-    hier = Hierarchy(problem, Config(operator="stencil", ...), device="cuda")
+    hier = Hierarchy(problem, Config(operator="stencil", ...))  # on the card
     x, info = hier.solve_cg(b, tol=1e-5)
 
 Precision: importing the package sets

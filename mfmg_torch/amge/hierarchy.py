@@ -13,10 +13,11 @@ Setup pipeline per level (hierarchy.hpp:178-234):
     solver.
 
 On CUDA, ``_finalize_cuda_kernels`` swaps the level-0 Chebyshev smoother for
-the K2-backed ``FusedChebyshevSmoother``; every fine stencil apply goes
-through K1.  The level-0 ``fused`` slot (mfmg_tpu's single-kernel coarse
-tail) is not ported yet: the cycle below is the generic recursion that the
-reference also runs on the CPU and whenever its fused tail is absent.
+the K2-backed ``FusedChebyshevSmoother`` and fills the level-0 ``fused`` slot
+with the single-kernel coarse tail (ops/fused_cycle.py) where the levels fit
+it; every fine stencil apply goes through K1.  Without a tail (on the CPU,
+or for other level structures) the cycle is the generic recursion, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ from mfmg_torch.amge.local_problems import build_agglomerate_batch
 from mfmg_torch.amge.restriction import build_restriction, check_restriction
 from mfmg_torch.config import Config
 from mfmg_torch.eigen.batched_eigh import batched_smallest_eigenpairs
+from mfmg_torch.ops.fused_cycle import (build_fused_tail,
+                                        fused_correction_apply,
+                                        fused_subcycle_apply)
 from mfmg_torch.solve.cg import cg_solve
 from mfmg_torch.solve.coarse import build_coarse_solver
 from mfmg_torch.solve.operator import apply_op
@@ -42,12 +46,15 @@ from mfmg_torch.solve.smoothers import build_smoother
 class LevelData(nn.Module):
     """Per-level state (analog of mfmg::Level, common/level.hpp:22-77)."""
 
-    def __init__(self, op, smoother=None, transfer=None, coarse=None):
+    def __init__(self, op, smoother=None, transfer=None, coarse=None,
+                 fused=None):
         super().__init__()
         self.op = op                      # StencilOperator | BlockStencilOperator
         self.smoother = smoother          # None on the coarsest level
         self.transfer = transfer          # restriction into the next level
         self.coarse = coarse              # coarse solver on the coarsest level
+        self.fused = fused                # FusedTail: the whole coarse tail in
+                                          # one kernel launch (level 0 only)
 
 
 def _vcycle(levels, b, x, level, n_smoothing_steps, is_preconditioner,
@@ -72,13 +79,26 @@ def _cycle(levels, b, x, level, n_smoothing_steps, cycle_type):
             x = lvl.smoother.apply(lvl.op, b, x)
     if res is None:
         res = apply_op(lvl.op, x) - b    # negative residual (hierarchy.hpp:282-286)
-    b_coarse = lvl.transfer.restrict(res)
-    x_coarse = torch.zeros_like(b_coarse)
-    sub_cycles = {"v": ("v",), "w": ("w", "w"), "f": ("f", "v")}[cycle_type]
-    for sub in sub_cycles:
-        x_coarse = _cycle(levels, b_coarse, x_coarse, level + 1,
-                          n_smoothing_steps, sub)
-    x = x - lvl.transfer.prolong(x_coarse)
+    fused = lvl.fused if level == 0 else None
+    if (fused is not None and cycle_type == "v"
+            and n_smoothing_steps == fused.nss and fused.fine_grid is not None):
+        # the whole coarse tail (restrict, level >= 1 cycle, prolong,
+        # correction) in one kernel launch (ops/fused_cycle.py)
+        x = fused_correction_apply(fused, x, res)
+    elif (fused is not None and cycle_type == "v"
+          and n_smoothing_steps == fused.nss):
+        # fine grid beyond the full-tail gate: the fine transfer around the
+        # single-kernel level-1 sub-cycle (windowed L1 -> L2 inside)
+        b_coarse = lvl.transfer.restrict(res)
+        x = x - lvl.transfer.prolong(fused_subcycle_apply(fused, b_coarse))
+    else:
+        b_coarse = lvl.transfer.restrict(res)
+        x_coarse = torch.zeros_like(b_coarse)
+        sub_cycles = {"v": ("v",), "w": ("w", "w"), "f": ("f", "v")}[cycle_type]
+        for sub in sub_cycles:
+            x_coarse = _cycle(levels, b_coarse, x_coarse, level + 1,
+                              n_smoothing_steps, sub)
+        x = x - lvl.transfer.prolong(x_coarse)
     for _ in range(n_smoothing_steps):
         x = lvl.smoother.apply(lvl.op, b, x)
     return x
@@ -97,6 +117,15 @@ def _torch_dtype(name) -> torch.dtype:
     return dt
 
 
+def _checked_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA device and "
+                           f"torch.cuda.is_available() is False; pass "
+                           f"device='cpu' to run on the CPU")
+    return device
+
+
 def _np_dtype(dt: torch.dtype):
     return np.float64 if dt == torch.float64 else np.float32
 
@@ -105,20 +134,18 @@ class Hierarchy:
     """Public entry point: the constructor runs the full setup on the host
     (hierarchy.hpp:159-236) and places every level on ``device``.
 
-    device="cuda" needs a CUDA device and never falls back to the CPU.
+    device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
+    device and never falls back to the CPU.
     Supported configurations: operator="stencil" on a structured mesh,
     block agglomerates, the "lapack" eigensolver, Jacobi or Chebyshev
     smoothing, and the "direct" coarse solver; anything else raises
     NotImplementedError naming its ROADMAP item.
     """
 
-    def __init__(self, problem, config: Config | None = None, device="cpu"):
+    def __init__(self, problem, config: Config | None = None, device="cuda"):
         self.config = config or Config()
         self.problem = problem
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Hierarchy(device='cuda') needs a CUDA device; "
-                               "torch.cuda.is_available() is False")
+        self.device = _checked_device(device)
         self.dtype = _torch_dtype(self.config.dtype)
         self.levels = nn.ModuleList()
         self.setup_seconds = {}
@@ -246,9 +273,11 @@ class Hierarchy:
 
     def _finalize_cuda_kernels(self):
         """The port's counterpart of mfmg_tpu _finalize_tpu_kernels: on CUDA,
-        the level-0 Chebyshev smoother becomes the K2-backed fused smoother.
-        (The single-kernel coarse tail is not ported yet: ROADMAP Queue 2,
-        item 1.)"""
+        the level-0 Chebyshev smoother becomes the K2-backed fused smoother,
+        and a float32 V-cycle hierarchy whose levels fit gets the fused
+        coarse tail (the kernel takes float32 vectors).  With a bf16
+        coeff_dtype over a float32 hierarchy the tail's weights are stored in
+        bf16, as in the reference."""
         if self.device.type != "cuda":
             return
         from mfmg_torch.solve.smoothers import fuse_chebyshev
@@ -256,6 +285,14 @@ class Hierarchy:
         fsm = fuse_chebyshev(l0.smoother, l0.op) if l0.smoother is not None else None
         if fsm is not None:
             l0.smoother = fsm
+        cfg = self.config
+        if cfg.cycle_type != "v" or self.dtype != torch.float32:
+            return
+        reduced = bool(cfg.coeff_dtype
+                       and _torch_dtype(cfg.coeff_dtype) == torch.bfloat16)
+        l0.fused = build_fused_tail(self.levels,
+                                    cfg.smoother.n_smoothing_steps,
+                                    reduced_storage=reduced)
 
     def _build_restrictor(self, level: int, A_per_level) -> sp.csr_matrix:
         """Analog of HierarchyHelpers::build_restrictor for one level: level
@@ -384,7 +421,7 @@ def measure_vcycle_rate(hierarchy: Hierarchy, n_cycles: int = 20, seed: int = 0)
     return rate
 
 
-def levels_from_arrays(arrays: dict, meta: dict, device="cpu") -> list[LevelData]:
+def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelData]:
     """Build the port's levels from a hierarchy flattened to numpy arrays
     plus static metadata, so a hierarchy built elsewhere (mfmg_tpu) can be
     carried across without either package importing the other.
@@ -400,7 +437,8 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cpu") -> list[LevelData
       "coarse": None | {"type": "direct"}.
     arrays holds "L{l}.op.coeffs", "L{l}.smoother.inv_diag",
     "L{l}.transfer.W", "L{l}.transfer.Rd" (general, optional) and
-    "L{l}.coarse.inv"; each array keeps its dtype.
+    "L{l}.coarse.inv"; each array keeps its dtype.  The levels go to
+    ``device``, the card unless the caller asks for the CPU.
     """
     from mfmg_torch.ops.block_stencil import BlockStencilOperator
     from mfmg_torch.ops.stencil import StencilOperator, stencil_to_device
@@ -415,7 +453,7 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cpu") -> list[LevelData
             return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         return torch.from_numpy(np.array(a))      # a writable copy
 
-    device = torch.device(device)
+    device = _checked_device(device)
     levels = []
     for l, m in enumerate(meta["levels"]):
         pre = f"L{l}."

@@ -46,13 +46,21 @@ class BlockStencilOperator(nn.Module):
 
 def block_stencil_apply(op: BlockStencilOperator, x: torch.Tensor) -> torch.Tensor:
     """y[s, e] = sum_o sum_f C_o[s, e, f] x[s + o, f], zero outside the grid."""
-    k, dim = op.radius, len(op.agg_shape)
-    xg = x.reshape(op.agg_shape + (op.n_comp,))
+    return block_stencil_apply_coeffs(op.coeffs, op.offsets, op.agg_shape,
+                                      op.n_comp, x, op.radius)
+
+
+def block_stencil_apply_coeffs(coeffs, offsets, agg_shape, n_comp, x,
+                               radius=1) -> torch.Tensor:
+    """block_stencil_apply on bare (n_off,) + agg_shape + (n_comp, n_comp)
+    coefficients, cast to x's dtype (the fused tail stores them in bf16)."""
+    k, dim = radius, len(agg_shape)
+    xg = x.reshape(tuple(agg_shape) + (n_comp,))
     xp = F.pad(xg, (0, 0) + (k, k) * dim)
     win = torch.stack([xp[tuple(slice(k + o, k + o + n)
-                                for o, n in zip(off, op.agg_shape))]
-                       for off in op.offsets])        # (n_off, *agg, n_comp)
-    y = torch.einsum("o...ef,o...f->...e", op.coeffs, win)
+                                for o, n in zip(off, agg_shape))]
+                       for off in offsets])           # (n_off, *agg, n_comp)
+    y = torch.einsum("o...ef,o...f->...e", coeffs.to(x.dtype), win)
     return y.reshape(x.shape)
 
 

@@ -1,0 +1,334 @@
+"""The coarse tail of a 3-level hierarchy in one CUDA kernel launch.
+
+Port of mfmg_tpu/ops/fused_cycle.py.  Below level 0 the V-cycle is the
+fine restriction, the level-1 Chebyshev sub-cycle (pre-smooth from zero,
+residual, level-1 -> 2 correction with the coarse pseudoinverse,
+post-smooth) and the prolongation: a chain of small launches in the
+generic recursion.  Two wrappers run it as one launch of
+``csrc/fused_tail.cu``:
+
+* ``fused_correction_apply(ft, x, res)`` = x - P . subcycle(R . res), the
+  whole tail (full mode), counterpart of the reference's function of that
+  name (fused_cycle.py:402);
+* ``fused_subcycle_apply(ft, b1)`` = subcycle(b1), the level-1 sub-cycle
+  alone (fused_cycle.py:376), for fine grids beyond the full-tail gate.
+
+The level-1 -> 2 correction is the dense ``Rd`` up to
+FUSED_DENSE_MAX_ELEMS entries, else the windowed weights ``W2``
+(fused_cycle.py:542-552).  ``FusedTail`` holds the operands in the port's
+own layout: site-major vectors v[s * c + e] as at every public function of
+the port; the reference's (c, gx, gz*gy) planes and 0/1 selection matrices
+existed for Mosaic's legal-op set and are not ported.
+
+Each wrapper runs its plain PyTorch version for a tensor on the CPU,
+launches the kernel for a CUDA tensor, and raises on anything else; each
+launch counts in ``stencil_kernels.LAUNCHES["fused_tail"]``.  The plain
+versions compute the reference's ``_subcycle_math`` literally with the
+port's block-stencil and transfer math, on the stored (possibly
+bf16-rounded) operands in the vectors' dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from mfmg_torch.ops import stencil_kernels
+from mfmg_torch.ops.block_stencil import (BlockStencilOperator,
+                                          block_stencil_apply_coeffs)
+from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
+                                                StructuredTransfer)
+from mfmg_torch.solve.coarse import DirectCoarseSolver
+from mfmg_torch.solve.smoothers import ChebyshevSmoother, _cheb_coeffs
+
+# The dense form's cap on Rd entries (fused_cycle.py:542); beyond it the
+# windowed form.
+FUSED_DENSE_MAX_ELEMS = 4_000_000
+# The full-tail gate of fused_cycle.py:565-570: the fine weights and their
+# windows, x, res and out in bytes of the hierarchy dtype.  It sized the
+# reference's VMEM residency; the card has no such limit, but the gate is
+# kept so that each size takes the reference's branch (65^3 the full tail,
+# 129^3 the sub-cycle; lifting it is a ROADMAP question).
+FULL_TAIL_MAX_BYTES = 30 * 1024 * 1024
+MAX_OFFSETS = 27                  # MFMG_TAIL_MAX_OFF in csrc/fused_tail.cu
+
+
+def full_tail_fits(n_comp, agg_shape, window_shape, grid_shape,
+                   itemsize) -> bool:
+    """The reference's full-tail gate (fused_cycle.py:565-570)."""
+    windows = int(np.prod([a * w for a, w in zip(agg_shape, window_shape)]))
+    n_fine = int(np.prod(grid_shape))
+    return ((n_comp + 1) * windows + 3 * n_fine) * itemsize < FULL_TAIL_MAX_BYTES
+
+
+class FusedTail(nn.Module):
+    """Operands of the fused coarse tail.
+
+    Buffers: ``coeffs`` (n_off, gz, gy, gx, c, c) level-1 block stencil;
+    ``invd`` (n1,) level-1 inverse diagonal; ``cheb_coef`` (2 * degree,)
+    [alphas..., betas...], runtime data as in the reference; ``inv2``
+    (n2, n2) coarse pseudoinverse; either ``Rd`` (n2, n1) or ``W2``
+    (n_S, n2e, wz, wy, wx, c), the windowed level-1 -> 2 weights regrouped
+    per output super-site (``win`` holds their window_shape, t0, stride,
+    out_grid, n_out); and, in full mode, ``W`` (c, tz, ty, tx, gz, gy, gx)
+    the fine transfer weights with ``fine_window`` and ``fine_grid``.
+    """
+
+    def __init__(self, coeffs, offsets, grid, n_comp, invd, cheb_coef,
+                 degree, nss, inv2, Rd=None, W2=None, win=None, W=None,
+                 fine_window=None, fine_grid=None):
+        super().__init__()
+        self.register_buffer("coeffs", coeffs)
+        self.register_buffer("invd", invd)
+        self.register_buffer("cheb_coef", cheb_coef)
+        self.register_buffer("inv2", inv2)
+        self.register_buffer("Rd", Rd)
+        self.register_buffer("W2", W2)
+        self.register_buffer("W", W)
+        self.offsets = tuple(tuple(int(v) for v in off) for off in offsets)
+        self.grid = tuple(int(v) for v in grid)
+        self.n_comp = int(n_comp)
+        self.degree = int(degree)
+        self.nss = int(nss)
+        self.win = win
+        self.fine_window = None if fine_window is None else tuple(fine_window)
+        self.fine_grid = None if fine_grid is None else tuple(fine_grid)
+
+    @property
+    def n1(self) -> int:
+        return int(np.prod(self.grid)) * self.n_comp
+
+    @property
+    def n2(self) -> int:
+        return self.inv2.shape[0]
+
+    @property
+    def n_fine(self) -> int:
+        return int(np.prod(self.fine_grid))
+
+    def coarse_transfer(self, dtype) -> GeneralWindowTransfer:
+        """The windowed level-1 -> 2 transfer over W2, in the layout of
+        GeneralWindowTransfer (n_out, window, n_in, out_grid)."""
+        w = self.win
+        oz, oy, ox = w["out_grid"]
+        W = self.W2.reshape((oz, oy, ox, w["n_out"]) + w["window_shape"]
+                            + (self.n_comp,))
+        W = W.permute(3, 4, 5, 6, 7, 0, 1, 2).to(dtype)
+        return GeneralWindowTransfer(W, w["window_shape"], w["t0"],
+                                     w["stride"], self.grid, w["out_grid"],
+                                     self.n_comp, w["n_out"])
+
+    def fine_transfer(self, dtype) -> StructuredTransfer:
+        return StructuredTransfer(self.W.to(dtype), self.fine_window,
+                                  self.grid, self.fine_grid).to(self.W.device)
+
+
+def build_fused_tail(levels, n_smoothing_steps: int = 1,
+                     reduced_storage: bool = False):
+    """Pattern-match a 3-level tail (structured fine transfer + block-stencil
+    L1 + Chebyshev + window transfer + direct coarse L2) and bake the fused
+    operands on the levels' device (fused_cycle.py:492-614).  Returns None
+    when the structure does not fit (the generic recursion stays).
+
+    reduced_storage: the level-1 coefficients, Rd / W2 and the fine W are
+    stored in bfloat16; invd, inv2 and the Chebyshev coefficients stay in
+    the hierarchy dtype, and every sum runs in the vectors' dtype on the
+    bf16-rounded weights (the reference's CPU semantics)."""
+    if len(levels) != 3:
+        return None
+    l0, l1, l2 = levels
+    op, sm, tr = l1.op, l1.smoother, l1.transfer
+    if not (isinstance(op, BlockStencilOperator)
+            and isinstance(sm, ChebyshevSmoother)
+            and isinstance(tr, GeneralWindowTransfer)
+            and isinstance(l2.coarse, DirectCoarseSolver)):
+        return None
+    if len(op.agg_shape) != 3:
+        return None
+    dtype = op.coeffs.dtype
+    if dtype not in (torch.float32, torch.float64):
+        return None
+    grid, c = op.agg_shape, op.n_comp
+    wdt = torch.bfloat16 if reduced_storage else dtype
+
+    Rd = W2 = win = None
+    inv2 = l2.coarse.inv.to(dtype)
+    if tr.Rd is not None and tr.Rd.numel() <= FUSED_DENSE_MAX_ELEMS:
+        Rd = tr.Rd.to(wdt)
+    else:
+        # _windowed_operands (fused_cycle.py:617-682) without its 60 MB
+        # VMEM budget, a TPU limit
+        n2 = tr.n_out * int(np.prod(tr.out_grid))
+        if (len(tr.in_grid) != 3 or tuple(tr.in_grid) != grid
+                or tr.n_in != c or tuple(inv2.shape) != (n2, n2)):
+            return None
+        oz, oy, ox = tr.out_grid
+        # (n_out, wz, wy, wx, n_in, oz, oy, ox) -> (n_S, n_out, wz, wy, wx, n_in)
+        W2 = tr.W.permute(5, 6, 7, 0, 1, 2, 3, 4).reshape(
+            (oz * oy * ox, tr.n_out) + tuple(tr.window_shape) + (c,))
+        W2 = W2.to(wdt).contiguous()
+        win = dict(window_shape=tuple(tr.window_shape), t0=tuple(tr.t0),
+                   stride=tuple(tr.stride), out_grid=tuple(tr.out_grid),
+                   n_out=tr.n_out)
+
+    alphas, betas = _cheb_coeffs(sm.theta, sm.delta, sm.degree)
+    cheb_coef = torch.tensor(alphas + betas, dtype=dtype,
+                             device=op.coeffs.device)
+
+    W = fine_window = fine_grid = None
+    ftr = l0.transfer
+    if (isinstance(ftr, StructuredTransfer) and ftr.n_ev == c
+            and len(ftr.agg_shape) == 3 and ftr.agg_shape == grid
+            and full_tail_fits(c, grid, ftr.window_shape, ftr.grid_shape,
+                               torch.finfo(dtype).bits // 8)):
+        W = ftr.W.to(wdt)
+        fine_window, fine_grid = ftr.window_shape, ftr.grid_shape
+
+    return FusedTail(op.coeffs.to(wdt), op.offsets, grid, c,
+                     sm.inv_diag.to(dtype), cheb_coef, sm.degree,
+                     n_smoothing_steps, inv2, Rd=Rd, W2=W2, win=win, W=W,
+                     fine_window=fine_window, fine_grid=fine_grid)
+
+
+# ------------------------------------------------------------ plain versions
+
+def fused_subcycle_apply_plain(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
+    """_subcycle_math (fused_cycle.py:289-350) on site-major vectors."""
+    dt = b1.dtype
+    d = ft.degree
+    coef = ft.cheb_coef.to(dt)
+    alphas = [coef[i] for i in range(d)]
+    betas = [coef[d + i] for i in range(d)]
+    invd = ft.invd.to(dt)
+
+    def apply_A(v):
+        return block_stencil_apply_coeffs(ft.coeffs, ft.offsets, ft.grid,
+                                          ft.n_comp, v)
+
+    def cheb_vmult(src):
+        # x = p_degree(D^-1 A) D^-1 src, zero initial guess
+        z = invd * src
+        p = z
+        x = alphas[0] * z
+        for i in range(1, d):
+            r = src - apply_A(x)
+            z = invd * r
+            p = z + betas[i] * p
+            x = x + alphas[i] * p
+        return x
+
+    def smooth(x):
+        return x - cheb_vmult(apply_A(x) - b1)
+
+    x1 = cheb_vmult(b1)               # pre-smooth from zero: -cheb(-b1)
+    for _ in range(ft.nss - 1):
+        x1 = smooth(x1)
+    r1 = apply_A(x1) - b1
+    inv2 = ft.inv2.to(dt)
+    if ft.Rd is not None:
+        Rd = ft.Rd.to(dt)
+        corr = (inv2 @ (Rd @ r1)) @ Rd
+    else:
+        tr = ft.coarse_transfer(dt)
+        corr = tr.prolong(inv2 @ tr.restrict(r1))
+    x1 = x1 - corr
+    for _ in range(ft.nss):
+        x1 = smooth(x1)
+    return x1
+
+
+def fused_correction_apply_plain(ft: FusedTail, x: torch.Tensor,
+                                 res: torch.Tensor) -> torch.Tensor:
+    """x - P . subcycle(R . res) through the fine structured transfer."""
+    fine = ft.fine_transfer(x.dtype)
+    return x - fine.prolong(fused_subcycle_apply_plain(ft, fine.restrict(res)))
+
+
+# ------------------------------------------------------------------ wrappers
+
+def fused_subcycle_apply(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
+    """x1 = subcycle(b1) (site-major flat level-1 vectors); a full-mode tail
+    runs its sub-cycle alone."""
+    _check_vector(ft, "b1", b1, ft.n1)
+    if b1.device.type == "cpu":
+        return fused_subcycle_apply_plain(ft, b1)
+    out = torch.empty_like(b1)
+    _launch(ft, full=False, b1=b1, out=out)
+    return out
+
+
+def fused_correction_apply(ft: FusedTail, x: torch.Tensor,
+                           res: torch.Tensor) -> torch.Tensor:
+    """x - P . subcycle(R . res) (flat fine vectors) in one launch."""
+    if ft.fine_grid is None:
+        raise ValueError("this tail has no fine transfer (the full-tail gate "
+                         "failed at build); use fused_subcycle_apply")
+    _check_vector(ft, "x", x, ft.n_fine)
+    _check_vector(ft, "res", res, ft.n_fine)
+    if x.device.type == "cpu":
+        return fused_correction_apply_plain(ft, x, res)
+    out = torch.empty_like(x)
+    _launch(ft, full=True, x=x, res=res, out=out)
+    return out
+
+
+def _check_vector(ft: FusedTail, name, v, n):
+    dev = ft.invd.device
+    if v.device != dev:
+        raise ValueError(f"{name} on {v.device}, the tail's operands on {dev}")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {v.device}")
+    want = torch.float32 if v.device.type == "cuda" else ft.invd.dtype
+    if v.dtype != want or ft.invd.dtype != want:
+        raise ValueError(f"{name} must be {want} like the tail's operands "
+                         f"({ft.invd.dtype}), got {v.dtype}")
+    if v.shape != (n,) or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) tensor, got "
+                         f"{tuple(v.shape)}")
+
+
+def _ints(vals):
+    vals = [int(v) for v in vals]
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None):
+    bf16 = ft.coeffs.dtype == torch.bfloat16
+    for name in ("coeffs", "Rd", "W2", "W"):
+        t = getattr(ft, name)
+        if t is not None and (t.dtype != ft.coeffs.dtype or not t.is_contiguous()):
+            raise ValueError(f"FusedTail.{name} must be contiguous "
+                             f"{ft.coeffs.dtype}, got {t.dtype}")
+    if not ft.coeffs.is_contiguous() or len(ft.offsets) > MAX_OFFSETS:
+        raise ValueError(f"the kernel takes contiguous coefficients and at "
+                         f"most {MAX_OFFSETS} offsets")
+    dense = ft.Rd is not None
+    if dense:
+        l2 = [ft.n2, 0] + [0] * 12
+    else:
+        w = ft.win
+        l2 = ([ft.n2, w["n_out"]] + list(w["out_grid"]) + list(w["window_shape"])
+              + list(w["stride"]) + list(w["t0"]))
+    fine = (list(ft.fine_grid) + list(ft.fine_window)) if full else [0] * 6
+    scratch = torch.empty(7 * ft.n1 + 2 * ft.n2, dtype=torch.float32,
+                          device=out.device)
+    gz, gy, gx = ft.grid
+    lib = stencil_kernels._library()
+    with torch.cuda.device(out.device):
+        err = lib.mfmg_fused_tail(
+            int(bf16), int(full), int(dense), _ptr(ft.coeffs), _ptr(ft.invd),
+            _ptr(ft.cheb_coef), _ptr(ft.Rd), _ptr(ft.W2), _ptr(ft.inv2),
+            _ptr(ft.W) if full else None, _ptr(b1), _ptr(x), _ptr(res),
+            out.data_ptr(), scratch.data_ptr(),
+            _ints([gz, gy, gx, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
+            _ints([v for off in ft.offsets for v in off]), _ints(l2),
+            _ints(fine), stencil_kernels._stream(out))
+    stencil_kernels._raise_on(err, "fused_tail")
+    stencil_kernels.LAUNCHES["fused_tail"] += 1

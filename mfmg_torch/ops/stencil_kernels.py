@@ -16,7 +16,9 @@ plain C interface at first use (into ``mfmg_torch/_build/<source hash>/``)
 and bound with ctypes.  Each wrapper takes its plain PyTorch version for a
 tensor on the CPU, launches its kernel for a CUDA tensor, and raises on
 anything else; there is no fallback around the build or the launch.  Each
-wrapper counts its launches in ``LAUNCHES``.
+wrapper counts its launches in ``LAUNCHES``.  The same library holds the
+fused coarse tail (``csrc/fused_tail.cu``), whose wrappers live in
+``ops/fused_cycle.py``.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_POS = 62                      # MFMG_MAX_POS in csrc/stencil_common.cuh
 
-# launches of each CUDA wrapper (one per call that reached its kernel)
-LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0}
+# launches of each CUDA wrapper (one per call that reached its kernel);
+# "fused_tail" counts both wrappers of ops/fused_cycle.py
+LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "fused_tail": 0}
 
 _lib = None
 
@@ -249,6 +252,10 @@ def _library():
                                          vp, vp, vp, i, i, i, i,
                                          ctypes.POINTER(i), vp]
         lib.mfmg_cheb_smooth.restype = i
+        ip = ctypes.POINTER(i)
+        lib.mfmg_fused_tail.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, vp,
+                                        vp, vp, vp, vp, vp, ip, ip, ip, ip, vp]
+        lib.mfmg_fused_tail.restype = i
         lib.mfmg_cuda_error_string.argtypes = [i]
         lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

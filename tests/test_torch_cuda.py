@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1, K2 and the fused coarse tail on the card against their plain
+PyTorch versions.
 
 Marked ``cuda``: each test takes the ``cuda`` fixture, which skips when
 torch.cuda.is_available() is False (every CPU-only host).  On a machine with
@@ -11,8 +12,12 @@ does not need and may not have; this file imports no JAX.)
 
 Tolerances: K1 1e-5 ||y||_inf (float accumulation, the kernel contracts
 multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative on the
-residual (the bounds of tests/test_pallas.py).
+residual (the bounds of tests/test_pallas.py); the fused tail 1e-5 relative
+(2-norm), the bound tests/test_fused_cycle.py holds the reference's kernel
+to: float sums over the same operands in another order.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -20,8 +25,11 @@ import torch
 
 import mfmg_torch.config as tcfg
 from mfmg_torch import Hierarchy, LaplaceProblem
+from mfmg_torch.amge.hierarchy import LevelData
+from mfmg_torch.ops import fused_cycle as tfc
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
+from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
 from mfmg_torch.solve.smoothers import build_smoother, fuse_chebyshev
 
 pytestmark = pytest.mark.cuda
@@ -82,8 +90,9 @@ def test_k2_matches_plain(cuda, n_ref, degree):
 
 def test_cuda_hierarchy_matches_cpu(cuda):
     """The main-path configuration at 17^3 on the card against the same
-    hierarchy on the CPU (plain versions): same PCG iteration count, V-cycle
-    within 1e-5 relative, and both kernels launched."""
+    hierarchy on the CPU (plain versions; the card's bf16-weight fused tail
+    attached to the CPU levels too): same PCG iteration count, V-cycle
+    within 1e-5 relative, and all three kernels launched."""
     cfg = tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
                       coeff_dtype="bfloat16",
                       eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
@@ -91,11 +100,12 @@ def test_cuda_hierarchy_matches_cpu(cuda):
                       smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
                       agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
     prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
-    hc, hg = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cuda")
+    hc, hg = Hierarchy(prob, cfg, device="cpu"), Hierarchy(prob, cfg)
+    hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
     b = np.random.default_rng(2).uniform(size=prob.n_dofs).astype(np.float32)
     tk.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
-    assert tk.LAUNCHES["stencil_apply_sym"] > 0 and tk.LAUNCHES["cheb_smooth"] > 0
+    assert min(tk.LAUNCHES.values()) > 0
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     yc, yg = hc.vmult(b), hg.vmult(b).cpu()
@@ -123,10 +133,101 @@ def test_hierarchy_to_moves_every_level(cuda):
                       smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
                       agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
     prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
-    h = Hierarchy(prob, cfg)
+    h = Hierarchy(prob, cfg, device="cpu")
     b = np.random.default_rng(3).uniform(size=prob.n_dofs).astype(np.float32)
     yc = h.vmult(b)
     h.to(cuda)
     assert all(t.is_cuda for lv in h.levels for t in lv.buffers())
     yg = h.vmult(b).cpu()
     assert float(torch.linalg.norm(yg - yc)) <= 1e-5 * float(torch.linalg.norm(yc))
+
+
+TAIL_TOL = 1e-5
+
+
+def _main_config():
+    return tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
+                       coeff_dtype="bfloat16",
+                       eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
+                                                          n_eigenvectors_deep=4),
+                       smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
+                       agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
+
+
+_HIER = {}
+
+
+def _hier(n_ref):
+    if n_ref not in _HIER:
+        prob = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
+        _HIER[n_ref] = Hierarchy(prob, _main_config())
+    return _HIER[n_ref]
+
+
+def _tail(levels, windowed, reduced):
+    if windowed:
+        tr = levels[1].transfer
+        win = GeneralWindowTransfer(tr.W, tr.window_shape, tr.t0, tr.stride,
+                                    tr.in_grid, tr.out_grid, tr.n_in, tr.n_out)
+        levels = [levels[0], LevelData(levels[1].op, smoother=levels[1].smoother,
+                                       transfer=win), levels[2]]
+    ft = tfc.build_fused_tail(levels, 1, reduced_storage=reduced)
+    assert (ft.Rd is None) == windowed and ft.fine_grid is not None
+    return ft
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.parametrize("n_ref", [4, 5], ids=["17^3", "33^3"])
+@pytest.mark.parametrize("reduced", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("windowed", [False, True], ids=["dense", "windowed"])
+def test_fused_tail_matches_plain(cuda, n_ref, reduced, windowed):
+    """Both modes (sub-cycle, full tail) of one tail against the plain
+    versions on the same card tensors; one launch per call."""
+    h = _hier(n_ref)
+    ft = _tail(list(h.levels), windowed, reduced)
+    rng = np.random.default_rng(n_ref)
+    b1 = torch.from_numpy(rng.standard_normal(ft.n1).astype(np.float32)).to(cuda)
+    x, res = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in
+              (rng.uniform(size=ft.n_fine), rng.standard_normal(ft.n_fine)))
+    before = tk.LAUNCHES["fused_tail"]
+    got = tfc.fused_subcycle_apply(ft, b1)
+    out = tfc.fused_correction_apply(ft, x, res)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["fused_tail"] == before + 2
+    assert _rel(got, tfc.fused_subcycle_apply_plain(ft, b1)) <= TAIL_TOL
+    assert _rel(out, tfc.fused_correction_apply_plain(ft, x, res)) <= TAIL_TOL
+
+
+def test_cuda_hierarchy_runs_the_tail(cuda):
+    """A float32 V-cycle hierarchy on the card carries the full-mode tail
+    with bf16 weights, and a V-cycle launches it once."""
+    h = _hier(4)
+    ft = h.levels[0].fused
+    assert ft is not None and ft.fine_grid is not None
+    assert ft.coeffs.dtype == torch.bfloat16 and ft.invd.dtype == torch.float32
+    b = np.random.default_rng(4).uniform(size=h.problem.n_dofs).astype(np.float32)
+    before = tk.LAUNCHES["fused_tail"]
+    h.vmult(b)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["fused_tail"] == before + 1
+
+
+def test_fused_tail_wrappers_raise_on_mismatch(cuda):
+    """A CUDA tail refuses a vector on the CPU, a float64 vector, and a
+    vector of the wrong length; a CPU tail refuses a CUDA vector."""
+    ft = _hier(4).levels[0].fused
+    n1, n = ft.n1, ft.n_fine
+    with pytest.raises(ValueError):
+        tfc.fused_subcycle_apply(ft, torch.zeros(n1))
+    with pytest.raises(ValueError):
+        tfc.fused_subcycle_apply(ft, torch.zeros(n1, dtype=torch.float64,
+                                                 device=cuda))
+    with pytest.raises(ValueError):
+        tfc.fused_correction_apply(ft, torch.zeros(n, device=cuda),
+                                   torch.zeros(n - 1, device=cuda))
+    with pytest.raises(ValueError):
+        tfc.fused_subcycle_apply(copy.deepcopy(ft).to("cpu"),
+                                 torch.zeros(n1, device=cuda))

@@ -113,7 +113,8 @@ def test_2d_distorted_hierarchy_matches_jax():
     jh = JHierarchy(JLaplace.hyper_cube(2, 5, material_property="linear",
                                         distort_random=True, seed=3), cfg(jcfg))
     th = THierarchy(TLaplace.hyper_cube(2, 5, material_property="linear",
-                                        distort_random=True, seed=3), cfg(tcfg))
+                                        distort_random=True, seed=3), cfg(tcfg),
+                    device="cpu")
     np.testing.assert_array_equal(th.problem.mesh.nodes, jh.problem.mesh.nodes)
     b = _rhs(th.problem.n_dofs, 4)
     assert _rel(th.vmult(b).numpy(), _j_cycle(jh, b)) <= 1e-10
@@ -128,7 +129,7 @@ def both64(request):
     jh = JHierarchy(JLaplace.hyper_cube(3, n_ref, material_property="linear"),
                     main_path_config(jcfg, "float64"))
     th = THierarchy(TLaplace.hyper_cube(3, n_ref, material_property="linear"),
-                    main_path_config(tcfg, "float64"))
+                    main_path_config(tcfg, "float64"), device="cpu")
     return jh, th
 
 
@@ -151,7 +152,7 @@ def test_f32_bf16_main_path_matches_jax():
     jh = JHierarchy(JLaplace.hyper_cube(3, 5, material_property="linear"),
                     main_path_config(jcfg, "float32", "bfloat16"))
     th = THierarchy(TLaplace.hyper_cube(3, 5, material_property="linear"),
-                    main_path_config(tcfg, "float32", "bfloat16"))
+                    main_path_config(tcfg, "float32", "bfloat16"), device="cpu")
     assert th.levels[0].op.planes.dtype == torch.bfloat16
     assert th._exact_fine_op().planes.dtype == torch.float32
     b = _rhs(th.problem.n_dofs, 2).astype(np.float32)
@@ -183,3 +184,18 @@ def test_cuda_device_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         THierarchy(prob, main_path_config(tcfg, "float32", "bfloat16"),
                    device="cuda")
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """Hierarchy and levels_from_arrays default to the card: without CUDA,
+    a call that names no device raises before any setup on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for hosts without one")
+    prob = TLaplace.hyper_cube(3, 2, material_property="linear")
+    built = []
+    monkeypatch.setattr(THierarchy, "_setup", lambda self: built.append(self))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        THierarchy(prob, main_path_config(tcfg, "float32", "bfloat16"))
+    assert not built
+    with pytest.raises(RuntimeError, match="CUDA"):
+        levels_from_arrays({}, {"levels": []})

@@ -40,7 +40,7 @@ def built(request):
     jp = JLaplace.hyper_cube(3, n_ref, material_property="linear")
     tp = TLaplace.hyper_cube(3, n_ref, material_property="linear")
     jh = JHierarchy(jp, main_path_config(jcfg, "float64"))
-    th = THierarchy(tp, main_path_config(tcfg, "float64"))
+    th = THierarchy(tp, main_path_config(tcfg, "float64"), device="cpu")
     return jp, tp, jh, th
 
 

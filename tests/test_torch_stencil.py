@@ -3,7 +3,9 @@
 The same problems (Q1 "linear" Laplace on 9^3 and 17^3 grids) are built by
 both packages; the same inputs, made with numpy from a seed, go through the
 port's plain versions of kernel K1 and through mfmg_tpu's Pallas kernel
-pallas_stencil_apply_sym (interpret mode on the CPU) and its XLA slice-sum.
+pallas_stencil_apply_sym (interpret mode on the CPU) and its XLA slice-sum;
+K1's plain version also against the z-tiled pallas_stencil_apply_tiled_sym,
+the fine apply of the 129^3 main path, which K1 stands for.
 """
 
 import jax.numpy as jnp
@@ -14,7 +16,10 @@ import torch
 
 from mfmg_tpu.fem.laplace import LaplaceProblem as JLaplace
 from mfmg_tpu.ops import stencil as jst
-from mfmg_tpu.ops.pallas_stencil import pallas_stencil_apply_sym
+from mfmg_tpu.ops.pallas_stencil import (pad_planes_tiled_sym,
+                                         pallas_stencil_apply_sym,
+                                         pallas_stencil_apply_tiled_sym,
+                                         tiled_sym_geom, tiled_sym_supported)
 from mfmg_torch.fem.laplace import LaplaceProblem as TLaplace
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
@@ -120,3 +125,29 @@ def test_kernel_wrappers_reject_bad_inputs(pair):
         tk.cheb_smooth(planes, x, x, x, coef[:3], T.pos_offsets, T.grid_shape, 2)
     with pytest.raises(ValueError):
         tk.cheb_smooth(planes, x, x[:-1], x, coef, T.pos_offsets, T.grid_shape, 2)
+
+
+@pytest.mark.parametrize("n_tiles", [2, 3])
+@pytest.mark.parametrize("n_ref", [4, 5], ids=["17^3", "33^3"])
+def test_k1_plain_matches_tiled_sym(n_ref, n_tiles):
+    """K1's plain version against mfmg_tpu's z-tiled symmetric kernel
+    (interpret mode) on grids cut into 2 and 3 z-tiles, inside its envelope
+    (tiled_sym_supported), float64: ||dy||_inf <= 1e-12 ||y||_inf (only the
+    summation order differs)."""
+    jp = JLaplace.hyper_cube(3, n_ref, material_property="linear")
+    tp = TLaplace.hyper_cube(3, n_ref, material_property="linear")
+    J = jst.stencil_from_cell_matrices(jp.mesh, jp.A_loc, jp.constrained,
+                                       jp.diag_raw, dtype=jnp.float64)
+    T = tst.stencil_from_cell_matrices(tp.mesh, tp.A_loc, tp.constrained,
+                                       tp.diag_raw, dtype=torch.float64)
+    assert tiled_sym_supported(J.grid_shape, J.offsets, J.sym_pos)
+    bz = tiled_sym_geom(J.grid_shape, n_tiles)[0]
+    assert (n_tiles - 1) * bz < J.grid_shape[0] <= n_tiles * bz   # every tile used
+    ct = pad_planes_tiled_sym(np.asarray(J.coeffs), J.offsets, J.grid_shape,
+                              n_tiles=n_tiles)
+    x = _x(jp.n_dofs, 4)
+    y_pal = np.asarray(pallas_stencil_apply_tiled_sym(
+        ct, jnp.asarray(x), J.offsets, J.grid_shape, J.sym_pos, n_tiles=n_tiles))
+    y = tk.stencil_apply_sym_plain(tst._gather_planes(T), torch.from_numpy(x),
+                                   T.pos_offsets, T.grid_shape).numpy()
+    assert np.abs(y - y_pal).max() <= 1e-12 * np.abs(y_pal).max()
