@@ -246,7 +246,7 @@ def test_full_tail_gate_by_size():
     assert not tfc.full_tail_fits(2, (32,) * 3, (5,) * 3, (129,) * 3, 4)
 
 
-def test_builder_declines_other_structures():
+def test_build_declines_other_structures():
     """Not three levels, or a level-1 coarse solver missing: no tail."""
     _, tl = _built(4)
     assert tfc.build_fused_tail(tl[:2], 1) is None
