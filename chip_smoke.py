@@ -14,17 +14,20 @@ each phase prints its wall time):
     level-1 -> 2 forms (dense, windowed) and both storages (f32, bf16) on
     the 17^3 and 33^3 hierarchies;
  4. a small-input reference: the 17^3 main-path hierarchy on the GPU against
-    the same hierarchy on the CPU (plain versions, the same bf16 tail);
+    the same hierarchy on the CPU (plain versions, the same bf16 tail), and
+    against the CPU's generic recursion within the bf16 storage's gap;
  5. the main path at 65^3 (274,625 dofs): Hierarchy(..., device="cuda") with
     the full-mode tail, solve_cg(tol=1e-5, maxiter=50), the true residual in
     float64 on the host, the launch counts (the tail once per V-cycle), the
-    tail against its plain version at these shapes, and the median ms per
-    V-cycle with the tail and with the generic recursion in turns;
+    tail against its plain version at these shapes (and the windowed
+    level-1 -> 2 form, timed beside the dense one), the median ms per
+    V-cycle with the tail and with the generic recursion in turns, and the
+    PCG count with K2's plain version as the smoother;
  6. the main path at 129^3 (2,146,689 dofs): the same with the sub-cycle-mode
     tail (windowed level-1 -> 2 inside the kernel), setup seconds per stage,
     peak device memory, and K1 (which stands for the reference's z-tiled
-    pallas_stencil_apply_tiled_sym there) and the tail against their plain
-    versions at these shapes.
+    pallas_stencil_apply_tiled_sym there), K2 and the tail against their
+    plain versions at these shapes.
 The line before the last is the kernel table as JSON (launches from the main
 paths' runs; bound_ms from the bytes and operations of this run's inputs at
 3.35 TB/s and 67 TFLOP/s float32, the H100 SXM data sheet); the last line is
@@ -47,14 +50,21 @@ PCG_TOL, PCG_MAX, PCG_ITERS_MAX = 1e-5, 50, 10
 # (<= PCG_TOL); its true residual levels off near 2e-5 at 65^3: mfmg_tpu
 # reaches 2.0e-5 on the same configuration, and the float32 rounding of an
 # exact solution alone leaves 5.9e-6.  The bound is twice the reference's.
-# At 129^3 the reference's value is not measured, so it is printed unbounded.
+# At 129^3 the reference's value is not measured; the bound there is the 65^3
+# bound times 4, the growth of the Laplacian's condition number (h^-2) per
+# refinement, which the float32 CG's attainable true residual follows.
 TRUE_RES_MAX = 4e-5
+TRUE_RES_MAX_LARGE = 4 * TRUE_RES_MAX
 K1_TOL = 1e-5             # ||dy||_inf / ||y||_inf
 K2_X_TOL, K2_RES_TOL = 1e-5, 1e-4
 # fused tail: ||d||_2 / ||ref||_2, float sums over the same operands in
 # another order (the bound tests/test_fused_cycle.py holds the reference's
 # kernel to against its recursion)
 TAIL_TOL = 1e-5
+# a V-cycle with the bf16-weight tail against the generic recursion (float32
+# coarse levels): the bf16 storage alone, 1.1e-3 to 1.6e-3 at 17^3 and 33^3
+# (tests/test_torch_fused_cycle.py::test_bf16_tail_gap_to_generic_recursion)
+BF16_STORAGE_GAP = 2e-3
 N_TIMED = 50
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12    # H100 SXM data sheet
 
@@ -263,6 +273,57 @@ def main():
                  if time_it else ""), flush=True)
         return v
 
+    def check_k2(tag, op, x, b, fsm):
+        """K2 with and without the residual against its plain version;
+        returns the largest absolute error."""
+        k2_err = 0.0
+        for want_res in (True, False):
+            args = (op.planes, x, b, fsm.inv_diag, fsm.coef, op.pos_offsets,
+                    op.grid_shape, fsm.degree, want_res)
+            got = tk.cheb_smooth(*args)
+            ref = tk.cheb_smooth_plain(*args)
+            torch.cuda.synchronize()
+            ex = rel2(got[0], ref[0])
+            err = float((got[0] - ref[0]).abs().max())
+            check(bool(torch.isfinite(got[0]).all()), f"K2 {tag}: non-finite output")
+            check(ex <= K2_X_TOL, f"K2 {tag} res={want_res}: x rel err {ex:.3e} "
+                  f"> {K2_X_TOL}")
+            msg = f"K2 {tag} res={want_res}: max|dx| {err:.3e} (rel {ex:.3e})"
+            if want_res:
+                er = rel2(got[1], ref[1])
+                check(er <= K2_RES_TOL, f"K2 {tag}: residual rel err {er:.3e} "
+                      f"> {K2_RES_TOL}")
+                err = max(err, float((got[1] - ref[1]).abs().max()))
+                msg += f", residual rel {er:.3e}"
+            ms = median_ms(lambda: tk.cheb_smooth(*args))
+            pms = median_ms(lambda: tk.cheb_smooth_plain(*args), batch=1)
+            key = f"cheb_smooth/{tag}/" + ("with_residual" if want_res
+                                           else "no_residual")
+            variants[key] = dict(max_abs_err=err, rel_err=ex, ms=ms, plain_ms=pms)
+            k2_err = max(k2_err, err)
+            print(f"{msg}, kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        return k2_err
+
+    class PlainChebyshev(torch.nn.Module):
+        """K2's plain PyTorch version on a fused smoother's buffers: the
+        same smoother without the kernel, for the PCG count."""
+
+        def __init__(self, fsm):
+            super().__init__()
+            self.fsm = fsm
+
+        def _run(self, op, b, x, want_res):
+            f = self.fsm
+            return tk.cheb_smooth_plain(op.planes, x, b, f.inv_diag, f.coef,
+                                        op.pos_offsets, op.grid_shape,
+                                        f.degree, want_res)
+
+        def apply(self, op, b, x):
+            return self._run(op, b, x, False)[0]
+
+        def apply_with_residual(self, op, b, x):
+            return self._run(op, b, x, True)
+
     def tail_variants(levels, windowed, reduced):
         if windowed:
             tr = levels[1].transfer
@@ -366,6 +427,12 @@ def main():
         hier.levels[0].fused = fc.build_fused_tail(hier.levels, ft.nss)
         pcg["tail_f32_weights"] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
         hier.levels[0].fused = ft
+        # K2's plain version as the smoother, for the iteration count
+        fsm = hier.levels[0].smoother
+        hier.levels[0].smoother = PlainChebyshev(fsm)
+        pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
+                                                   maxiter=PCG_MAX)[1]
+        hier.levels[0].smoother = fsm
         print(f"  V-cycle ms (CUDA events, medians in turns tail/generic/"
               f"generic/tail): tail {ab['tail']}, generic {ab['generic']}; "
               f"device ms/cycle (profiler): tail {dev_ms['tail']:.4f}, "
@@ -425,28 +492,7 @@ def main():
         library_k1("stencil_apply_sym/f32", hosts["f32"], x, y)
 
         op = ops["bf16"]
-        k2_err = 0.0
-        for want_res in (True, False):
-            args = (op.planes, x, b, fused.inv_diag, fused.coef, op.pos_offsets,
-                    op.grid_shape, fused.degree, want_res)
-            got = tk.cheb_smooth(*args)
-            ref = tk.cheb_smooth_plain(*args)
-            torch.cuda.synchronize()
-            ex = rel2(got[0], ref[0])
-            err = float((got[0] - ref[0]).abs().max())
-            check(ex <= K2_X_TOL, f"K2 res={want_res}: x rel err {ex:.3e} > {K2_X_TOL}")
-            msg = f"K2 res={want_res}: max|dx| {err:.3e} (rel {ex:.3e})"
-            if want_res:
-                er = rel2(got[1], ref[1])
-                check(er <= K2_RES_TOL, f"K2: residual rel err {er:.3e} > {K2_RES_TOL}")
-                err = max(err, float((got[1] - ref[1]).abs().max()))
-                msg += f", residual rel {er:.3e}"
-            ms = median_ms(lambda: tk.cheb_smooth(*args))
-            pms = median_ms(lambda: tk.cheb_smooth_plain(*args), batch=1)
-            key = "cheb_smooth/" + ("with_residual" if want_res else "no_residual")
-            variants[key] = dict(max_abs_err=err, rel_err=ex, ms=ms, plain_ms=pms)
-            k2_err = max(k2_err, err)
-            print(f"{msg}, kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        k2_err = check_k2("65^3", op, x, b, fused)
         k1_work65 = k1_work(ops["f32"].planes, prob.n_dofs)
         k2_work65 = k2_work(op.planes, prob.n_dofs, fused.degree, True)
         del ops, hosts, fused, x, b
@@ -474,16 +520,21 @@ def main():
         small = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
         hc = Hierarchy(small, main_config(cfg), device="cpu")
         hg = Hierarchy(small, main_config(cfg), device="cuda")
+        bs = np.random.default_rng(1).uniform(size=small.n_dofs).astype(np.float32)
+        y_generic = hc.vmult(bs)          # the CPU generic recursion
         # the card's tail (bf16 weights) on the CPU levels too, plain version
         hc.levels[0].fused = fc.build_fused_tail(hc.levels, 1, reduced_storage=True)
-        bs = np.random.default_rng(1).uniform(size=small.n_dofs).astype(np.float32)
         yc, yg = hc.vmult(bs), hg.vmult(bs).cpu()
-        rel = rel2(yg, yc)
+        rel, rel_generic = rel2(yg, yc), rel2(yg, y_generic)
         _, ic = hc.solve_cg(bs, tol=PCG_TOL, maxiter=PCG_MAX)
         _, ig = hg.solve_cg(bs, tol=PCG_TOL, maxiter=PCG_MAX)
-        print(f"17^3 reference: V-cycle GPU vs CPU rel {rel:.3e}; PCG "
+        print(f"17^3 reference: V-cycle GPU vs CPU rel {rel:.3e} (vs the CPU "
+              f"generic recursion {rel_generic:.3e}); PCG "
               f"{ig['iterations']} (GPU) vs {ic['iterations']} (CPU)", flush=True)
         check(rel <= 1e-5, f"17^3 V-cycle GPU vs CPU rel {rel:.3e} > 1e-5")
+        check(rel_generic <= BF16_STORAGE_GAP,
+              f"17^3 V-cycle GPU vs CPU generic rel {rel_generic:.3e} > "
+              f"{BF16_STORAGE_GAP}")
         check(ig["iterations"] == ic["iterations"], "17^3 PCG counts differ")
         del hc, hg
 
@@ -497,6 +548,11 @@ def main():
         # the same tail's sub-cycle alone: the fine transfer's share
         check_tail("fused_subcycle_apply/65^3", ft65, False,
                    np.random.default_rng(6), time_it=True)
+        # the windowed level-1 -> 2 form at the same shapes, timed beside the
+        # dense form the builder picks here
+        check_tail("fused_correction_apply/65^3/windowed",
+                   tail_variants(list(hier.levels), True, True), True,
+                   np.random.default_rng(5), time_it=True)
         del hier
 
     # ---- 6. the main path at 129^3 -------------------------------------
@@ -505,17 +561,25 @@ def main():
         prob7 = LaplaceProblem.hyper_cube(3, N_REF_LARGE, material_property="linear")
         print(f"problem: {prob7.n_dofs} dofs in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        hier7, summary129, _ = run_main_path("129^3", prob7, mode_full=False)
+        hier7, summary129, tr129 = run_main_path("129^3", prob7, mode_full=False)
+        check(tr129 <= TRUE_RES_MAX_LARGE,
+              f"129^3 true relres {tr129:.3e} > {TRUE_RES_MAX_LARGE}")
         ft129 = hier7.levels[0].fused
         check(ft129.W2 is not None, "129^3 tail is not in the windowed form")
         v129 = check_tail("fused_subcycle_apply/129^3", ft129, False,
                           np.random.default_rng(7), time_it=True)
         ex7 = hier7._exact_fine_op()
-        x7 = torch.from_numpy(np.random.default_rng(8).uniform(
-            -1, 1, prob7.n_dofs).astype(np.float32)).to(dev)
+        rng7 = np.random.default_rng(8)
+        x7 = torch.from_numpy(rng7.uniform(-1, 1, prob7.n_dofs)
+                              .astype(np.float32)).to(dev)
+        b7 = torch.from_numpy(rng7.uniform(size=prob7.n_dofs)
+                              .astype(np.float32)).to(dev)
+        op7 = hier7.levels[0].op
+        k2_err = max(k2_err, check_k2("129^3", op7, x7, b7,
+                                      hier7.levels[0].smoother))
+        del b7
         y7 = check_k1("stencil_apply_tiled_sym/f32", ex7.planes, x7,
                       ex7.pos_offsets, ex7.grid_shape)
-        op7 = hier7.levels[0].op
         check_k1("stencil_apply_tiled_sym/bf16", op7.planes, x7,
                  op7.pos_offsets, op7.grid_shape)
         host7 = st.stencil_from_cell_matrices(prob7.mesh, prob7.A_loc,
@@ -546,7 +610,8 @@ def main():
                     variants["stencil_apply_sym/bf16"]["max_abs_err"])),
         row("cheb_smooth", "mfmg_torch/csrc/cheb_smooth.cu",
             "mfmg_tpu/ops/pallas_stencil.py:691", l65["cheb_smooth"],
-            variants["cheb_smooth/with_residual"], k2_work65, None, err=k2_err),
+            variants["cheb_smooth/65^3/with_residual"], k2_work65, None,
+            err=k2_err),
         row("fused_correction_apply", "mfmg_torch/csrc/fused_tail.cu",
             "mfmg_tpu/ops/fused_cycle.py:402", l65["fused_tail"], v65,
             tail_work65, None),

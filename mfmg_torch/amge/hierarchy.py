@@ -277,7 +277,8 @@ class Hierarchy:
         and a float32 V-cycle hierarchy whose levels fit gets the fused
         coarse tail (the kernel takes float32 vectors).  With a bf16
         coeff_dtype over a float32 hierarchy the tail's weights are stored in
-        bf16, as in the reference."""
+        bf16, as in the reference.  A tail already in the slot (one moved
+        with the levels) is kept."""
         if self.device.type != "cuda":
             return
         from mfmg_torch.solve.smoothers import fuse_chebyshev
@@ -286,7 +287,8 @@ class Hierarchy:
         if fsm is not None:
             l0.smoother = fsm
         cfg = self.config
-        if cfg.cycle_type != "v" or self.dtype != torch.float32:
+        if (l0.fused is not None or cfg.cycle_type != "v"
+                or self.dtype != torch.float32):
             return
         reduced = bool(cfg.coeff_dtype
                        and _torch_dtype(cfg.coeff_dtype) == torch.bfloat16)
@@ -328,11 +330,14 @@ class Hierarchy:
 
     # ------------------------------------------------------------- apply --
     def to(self, device):
-        """Move every level (and the cached outer-CG operator) to device."""
-        self.device = torch.device(device)
+        """Move every level (and the cached outer-CG operator) to device.  On
+        CUDA the kernels are finalized as the constructor does: the K2
+        smoother, and the fused tail where the level-0 slot is empty."""
+        self.device = _checked_device(device)
         self.levels.to(self.device)
         if self._exact_op_cache is not None:
             self._exact_op_cache.to(self.device)
+        self._finalize_cuda_kernels()
         return self
 
     def _vector(self, b):

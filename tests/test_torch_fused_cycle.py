@@ -10,7 +10,8 @@ Tolerance: 1e-5 relative (2-norm) throughout, the bound tests/
 test_fused_cycle.py holds the reference's own kernel to against its
 recursion.  Both sides compute in float32 with the same operands and differ
 only in summation order (matmul chains and rolls there, einsum and slice
-sums here); observed differences are ~1e-7.
+sums here); observed differences are ~1e-7.  The two wider bounds
+(REF_REDUCED_WINDOWED_TOL, BF16_STORAGE_GAP) give their reasons beside them.
 """
 
 import dataclasses
@@ -26,6 +27,9 @@ from mfmg_tpu import Hierarchy as JHierarchy
 from mfmg_tpu import LaplaceProblem as JLaplace
 from mfmg_tpu.amge.hierarchy import vcycle as j_vcycle
 from mfmg_tpu.ops import fused_cycle as jfc
+import mfmg_torch.config as tcfg
+from mfmg_torch import Hierarchy as THierarchy
+from mfmg_torch import LaplaceProblem as TLaplace
 from mfmg_torch.amge.hierarchy import levels_from_arrays
 from mfmg_torch.amge.hierarchy import vcycle as t_vcycle
 from mfmg_torch.ops import fused_cycle as tfc
@@ -163,6 +167,33 @@ def test_reduced_storage_matches_jax(windowed):
     for fs, tol in ((fr, TOL), (fj, ref_tol)):
         oj = jfc.fused_correction_apply(fs, jnp.asarray(x), jnp.asarray(res))
         assert _rel(ot, oj) <= tol
+
+
+# The card's main-path configuration (bf16 fine planes and a bf16-weight
+# tail over float32 coarse levels) against the port's generic recursion on
+# the same levels: the gap is the bf16 storage of the tail's weights alone
+# (observed 1.56e-3 at 17^3, 1.13e-3 at 33^3).  tests/test_torch_cuda.py and
+# chip_smoke.py hold the card's V-cycle to the CPU generic recursion at this
+# bound.
+BF16_STORAGE_GAP = 2e-3
+
+
+@pytest.mark.parametrize("n_ref", [4, 5], ids=["17^3", "33^3"])
+def test_bf16_tail_gap_to_generic_recursion(n_ref):
+    cfg = tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
+                      coeff_dtype="bfloat16",
+                      eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
+                                                         n_eigenvectors_deep=4),
+                      smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
+                      agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
+    prob = TLaplace.hyper_cube(3, n_ref, material_property="linear")
+    h = THierarchy(prob, cfg, device="cpu")
+    b = _vec(prob.n_dofs, 2, uniform=True)
+    y_generic = h.vmult(b).numpy()
+    h.levels[0].fused = tfc.build_fused_tail(h.levels, 1)
+    assert _rel(h.vmult(b).numpy(), y_generic) <= TOL
+    h.levels[0].fused = tfc.build_fused_tail(h.levels, 1, reduced_storage=True)
+    assert _rel(h.vmult(b).numpy(), y_generic) <= BF16_STORAGE_GAP
 
 
 def test_fused_vcycle_matches_jax():

@@ -199,3 +199,18 @@ def test_default_device_is_cuda(monkeypatch):
     assert not built
     with pytest.raises(RuntimeError, match="CUDA"):
         levels_from_arrays({}, {"levels": []})
+
+
+def test_to_cuda_without_cuda_raises():
+    """Hierarchy.to('cuda') refuses as the constructor does and leaves the
+    hierarchy on the CPU; .to('cpu') builds no tail (the CPU cycle stays the
+    generic recursion)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for hosts without one")
+    prob = TLaplace.hyper_cube(3, 4, material_property="linear")
+    h = THierarchy(prob, main_path_config(tcfg, "float32", "bfloat16"),
+                   device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h.to("cuda")
+    assert h.device.type == "cpu"
+    assert h.to("cpu") is h and h.levels[0].fused is None
