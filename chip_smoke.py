@@ -1,4 +1,4 @@
-"""Smoke run of the mfmg_torch main path on one NVIDIA GPU.
+"""Smoke run of the mfmg_torch main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -24,15 +24,32 @@ each phase prints its wall time):
     V-cycle with the tail and with the generic recursion in turns, and the
     PCG count with K2's plain version as the smoother;
  6. the main path at 129^3 (2,146,689 dofs): the same with the sub-cycle-mode
-    tail (windowed level-1 -> 2 inside the kernel), setup seconds per stage,
-    peak device memory, and K1 (which stands for the reference's z-tiled
-    pallas_stencil_apply_tiled_sym there), K2 and the tail against their
-    plain versions at these shapes.
-The line before the last is the kernel table as JSON (launches from the main
-paths' runs; bound_ms from the bytes and operations of this run's inputs at
-3.35 TB/s and 67 TFLOP/s float32, the H100 SXM data sheet); the last line is
-{"ok": true, "device": {...}}.  Without CUDA, or without the mfmg_torch
-package beside this file, it exits non-zero and prints no result.
+    tail (windowed level-1 -> 2 inside the kernel) and the fine transfer
+    through K4/K5 (once each per V-cycle), setup seconds per stage, peak
+    device memory, and K1 (which stands for the reference's z-tiled
+    pallas_stencil_apply_tiled_sym there), K2 (which stands for
+    pallas_cheb_smooth_tiled), the tail, K3 on the 129^3 operator as 27
+    one-sided planes (which stands for pallas_stencil_apply_tiled) and
+    K4/K5 (float32 and bf16 weights, with cuSPARSE yardsticks of R and R^T)
+    against their plain versions at these shapes; the V-cycle and its
+    device time with K4/K5 and with the tensordot chain, in turns;
+ 7. the Q2 paths (fe_degree 2, 65^3 nodes, 274,625 dofs, 125 offsets):
+    (a) the main configuration on the Q2 cube, with the full-mode tail over
+    9^3 windows (held against its plain version at these shapes, with
+    K4/K5 at these windows) and the generic recursion in turns; its fine
+    applies take K1/K2 or K3 as the planes come out symmetric or not on
+    the host; (b) the distorted Q2 cube with two levels, one-sided on every
+    host: K3 (bf16 and f32 planes, cuSPARSE yardstick) against its plain
+    version, then the path with every fine apply through K3 and the fine
+    transfer through K4/K5.
+Each path is driven with the launch counts set to 0 just before it and read
+just after; it fails if one of its kernels was never launched.  The line
+before the last is the kernel table as JSON, one row per TPU kernel of the
+reference (launches from the main paths' runs; bound_ms from the bytes and
+operations of this run's inputs at 3.35 TB/s and 67 TFLOP/s float32, the
+H100 SXM data sheet); the last line is {"ok": true, "device": {...}}.
+Without CUDA, or without the mfmg_torch package beside this file, it exits
+non-zero and prints no result.
 """
 
 import json
@@ -44,18 +61,33 @@ import numpy as np
 import torch
 
 N_REF, N_REF_LARGE = 6, 7         # 65^3 (274,625 dofs), 129^3 (2,146,689)
-PCG_TOL, PCG_MAX, PCG_ITERS_MAX = 1e-5, 50, 10
+N_REF_Q2 = 5                      # Q2: 32^3 cells, 65^3 nodes (274,625 dofs)
+PCG_TOL, PCG_MAX = 1e-5, 50
+# PCG iterations to PCG_TOL with the RHS of run_main_path, per path: the
+# reference's own counts (mfmg_tpu on the CPU: 9 at 65^3, 10 at 129^3, 15 at
+# Q2, 16 on the distorted Q2 cube with two levels), with one to spare at Q2
+# for another summation order.
+PCG_ITERS_MAX = {"65^3": 9, "129^3": 10, "Q2 65^3": 16, "Q2 65^3 distorted": 17}
 # True residual ||b - A x|| / ||b|| in float64 of the float32 iterate.  The
 # float32 CG (the reference's own algorithm) stops on its recursive residual
 # (<= PCG_TOL); its true residual levels off near 2e-5 at 65^3: mfmg_tpu
 # reaches 2.0e-5 on the same configuration, and the float32 rounding of an
 # exact solution alone leaves 5.9e-6.  The bound is twice the reference's.
-# At 129^3 the reference's value is not measured; the bound there is the 65^3
-# bound times 4, the growth of the Laplacian's condition number (h^-2) per
-# refinement, which the float32 CG's attainable true residual follows.
+# At 129^3 mfmg_tpu (x64 on the CPU, the same configuration and RHS) takes
+# 10 iterations to relres 2.61e-6 with a true relres of 8.33e-5; at Q2 65^3
+# 15 iterations, 7.37e-6 and 4.93e-5; on the distorted Q2 cube (seed 0, two
+# levels) 16 iterations, 6.65e-6 and 5.46e-5.  Each bound is twice the
+# reference's.
 TRUE_RES_MAX = 4e-5
-TRUE_RES_MAX_LARGE = 4 * TRUE_RES_MAX
+TRUE_RES_MAX_LARGE = 2 * 8.33e-5
+TRUE_RES_MAX_Q2 = 2 * 4.93e-5
+TRUE_RES_MAX_Q2_DISTORTED = 2 * 5.46e-5
 K1_TOL = 1e-5             # ||dy||_inf / ||y||_inf
+# K3, ||dy||_inf / ||y||_inf: float32 planes; bf16 planes hold the same bound,
+# since the kernel and its plain version accumulate in float32 the products
+# of the same bf16-rounded planes (only the order and FMA contraction differ)
+K3_TOL, K3_BF16_TOL = 1e-5, 1e-5
+XFER_TOL = 1e-5           # K4/K5, ||d||_2 / ||ref||_2
 K2_X_TOL, K2_RES_TOL = 1e-5, 1e-4
 # fused tail: ||d||_2 / ||ref||_2, float sums over the same operands in
 # another order (the bound tests/test_fused_cycle.py holds the reference's
@@ -145,6 +177,35 @@ def tail_work(ft, full):
     return ops, flops
 
 
+def k3_work(planes, n):
+    """K3: the planes once, x in, y out; 2 flops per plane term."""
+    return nbytes(planes) + 8 * n, 2 * planes.shape[0] * n
+
+
+def xfer_work(W, n_fine, n_coarse):
+    """K4/K5: W once, the fine and coarse vectors once each; 2 flops per
+    weight."""
+    return nbytes(W) + 4 * (n_fine + n_coarse), 2 * W.numel()
+
+
+def csr_from_transfer(tr, device):
+    """R (n_coarse, n_fine) of a 3-D StructuredTransfer and R^T, as torch
+    sparse CSR tensors on the card: the operands of K4/K5's library
+    yardsticks, never used by the port."""
+    c, (wz, wy, wx), (gz, gy, gx) = tr.n_ev, tr.window_shape, tr.agg_shape
+    _, ny, nx = tr.grid_shape
+    W = tr.W.to(device=device, dtype=torch.float32)
+    idx = [torch.arange(k, device=device) for k in W.shape]
+    e, tz, ty, tx, az, ay, ax = torch.meshgrid(*idx, indexing="ij")
+    rows = ((az * gy + ay) * gx + ax) * c + e
+    cols = ((az * (wz - 1) + tz) * ny + ay * (wy - 1) + ty) * nx + ax * (wx - 1) + tx
+    ij = torch.stack([rows.reshape(-1), cols.reshape(-1)])
+    R = torch.sparse_coo_tensor(ij, W.reshape(-1), tr.shape, check_invariants=False)
+    RT = torch.sparse_coo_tensor(ij.flip(0), W.reshape(-1), tr.shape[::-1],
+                                 check_invariants=False)
+    return R.coalesce().to_sparse_csr(), RT.coalesce().to_sparse_csr()
+
+
 def csr_from_stencil(op, device):
     """The assembled float32 matrix of a host stencil (all offset planes,
     zeros dropped) as a torch sparse CSR tensor on the card: the operand of
@@ -167,8 +228,8 @@ def csr_from_stencil(op, device):
     return A.to_sparse_csr()
 
 
-def main_config(cfg):
-    return cfg.Config(max_levels=3, operator="stencil", dtype="float32",
+def main_config(cfg, max_levels=3):
+    return cfg.Config(max_levels=max_levels, operator="stencil", dtype="float32",
                       coeff_dtype="bfloat16",
                       eigensolver=cfg.EigensolverConfig(
                           type="lapack", n_eigenvectors=2, n_eigenvectors_deep=4),
@@ -202,8 +263,10 @@ def main():
     from mfmg_torch.ops import fused_cycle as fc
     from mfmg_torch.ops import stencil as st
     from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import transfer_kernels as ttk
     from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
-    from mfmg_torch.solve.smoothers import build_smoother, fuse_chebyshev
+    from mfmg_torch.solve.smoothers import (FusedChebyshevSmoother,
+                                            build_smoother, fuse_chebyshev)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -233,9 +296,8 @@ def main():
               f"plain {pms:.4f} ms", flush=True)
         return y
 
-    def library_k1(name, host_op, x, y_kernel):
-        """One cuSPARSE CSR SpMV of the same matrix, timed beside K1."""
-        A = csr_from_stencil(host_op, dev)
+    def library_spmv(name, A, x, y_kernel):
+        """One cuSPARSE CSR SpMV of the same matrix, timed beside a kernel."""
         y = torch.mv(A, x)
         torch.cuda.synchronize()
         err = float((y - y_kernel).abs().max() / y_kernel.abs().max())
@@ -243,8 +305,55 @@ def main():
         variants[name]["library_ms"] = lms
         variants[name]["library_nnz"] = int(A.values().numel())
         print(f"{name}: cuSPARSE CSR SpMV (nnz {A.values().numel()}) "
-              f"{lms:.4f} ms, |dy|/|y| vs K1 {err:.3e}", flush=True)
+              f"{lms:.4f} ms, |dy|/|y| vs the kernel {err:.3e}", flush=True)
         return lms
+
+    def check_k3(name, op, x, tol):
+        """K3 on a one-sided operator's planes against its plain version."""
+        args = (op.coeffs, x, op.offsets, op.grid_shape)
+        y = tk.stencil_apply(*args)
+        ref = tk.stencil_apply_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(bool(torch.isfinite(y).all()), f"K3 {name}: non-finite output")
+        check(rel <= tol, f"K3 {name}: |dy|/|y| = {rel:.3e} > {tol}")
+        ms = median_ms(lambda: tk.stencil_apply(*args))
+        pms = median_ms(lambda: tk.stencil_apply_plain(*args), batch=1)
+        variants[name] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=pms,
+                              n_off=len(op.offsets), planes=str(op.coeffs.dtype))
+        print(f"{name}: {len(op.offsets)} planes {op.coeffs.dtype}, max|dy| "
+              f"{err:.3e} (rel {rel:.3e}), kernel {ms:.4f} ms, plain {pms:.4f} "
+              f"ms", flush=True)
+        return y
+
+    def check_xfer(tag, tr, W, rng, csr=None):
+        """K4 and K5 on the weights W (float32 or bf16) of a level-0
+        transfer against their plain versions, with cuSPARSE SpMVs of R and
+        R^T as yardsticks when given."""
+        g = (tr.window_shape, tr.agg_shape, tr.grid_shape)
+        n_c, n_f = tr.shape
+        x = torch.from_numpy(rng.standard_normal(n_f).astype(np.float32)).to(dev)
+        xc = torch.from_numpy(rng.standard_normal(n_c).astype(np.float32)).to(dev)
+        for kind, v, A in (("restrict", x, None if csr is None else csr[0]),
+                           ("prolong", xc, None if csr is None else csr[1])):
+            fn = getattr(ttk, f"structured_{kind}")
+            plain = getattr(ttk, f"structured_{kind}_plain")
+            got, ref = fn(W, v, *g), plain(W, v, *g)
+            torch.cuda.synchronize()
+            rel, err = rel2(got, ref), float((got - ref).abs().max())
+            name = f"structured_{kind}/{tag}"
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+            check(rel <= XFER_TOL, f"{name}: rel err {rel:.3e} > {XFER_TOL}")
+            ms = median_ms(lambda: fn(W, v, *g))
+            pms = median_ms(lambda: plain(W, v, *g), batch=1)
+            variants[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                                  plain_ms=pms, weights=str(W.dtype))
+            print(f"{name}: W {tuple(W.shape)} {W.dtype}, max|d| {err:.3e} "
+                  f"(rel {rel:.3e}), kernel {ms:.4f} ms, plain {pms:.4f} ms",
+                  flush=True)
+            if A is not None:
+                library_spmv(name, A, v, got)
 
     def check_tail(name, ft, full, rng, time_it=False):
         """One mode of a tail against its plain version on card tensors."""
@@ -344,7 +453,7 @@ def main():
     def device_ms_per_cycle(hier, bd, n=20):
         """Device time per V-cycle from torch.profiler: the events that ran
         on the card (kernels, copies, fills) over n cycles, in ms per cycle,
-        with the largest five by name."""
+        with the largest eight by name and every row by name."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         hier.vmult(bd)
@@ -360,16 +469,36 @@ def main():
                 if us is None:
                     us = e.self_cuda_time_total
                 by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return sum(by_name.values()), [(k[:60], v) for k, v in top]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
 
-    def run_main_path(label, prob, mode_full):
+    class PlainTransfer(torch.nn.Module):
+        """K4/K5's plain versions (the tensordot chain) on a level-0
+        transfer's weights: the same transfer without the kernels, for the
+        V-cycle's A/B."""
+
+        def __init__(self, tr):
+            super().__init__()
+            self.tr = tr
+
+        def _geom(self):
+            return self.tr.window_shape, self.tr.agg_shape, self.tr.grid_shape
+
+        def restrict(self, x):
+            return ttk.structured_restrict_plain(self.tr.W, x, *self._geom())
+
+        def prolong(self, xc):
+            return ttk.structured_prolong_plain(self.tr.W, xc, *self._geom())
+
+    def run_main_path(label, prob, mode_full, kernels, max_levels=3):
         """Hierarchy + solve_cg with the counts set to 0 just before and read
-        just after; the rest of the phase is measurement."""
+        just after, each kernel of `kernels` launched at least once; the rest
+        of the phase is measurement.  mode_full: the tail's mode (True full,
+        False sub-cycle), None for a hierarchy without a tail."""
         tk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hier = Hierarchy(prob, main_config(cfg), device="cuda")
+        hier = Hierarchy(prob, main_config(cfg, max_levels), device="cuda")
         setup_s = time.perf_counter() - t0
         bh = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
         t0 = time.perf_counter()
@@ -385,12 +514,14 @@ def main():
         print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
                                              for k, v in hier.setup_seconds.items()),
               flush=True)
-        check(ft is not None, f"{label}: no fused tail on level 0")
-        check((ft.fine_grid is not None) == mode_full,
-              f"{label}: tail mode is not {'full' if mode_full else 'sub-cycle'}")
-        print(f"  tail: {'full' if mode_full else 'sub-cycle'} mode, "
-              f"{'dense' if ft.Rd is not None else 'windowed'} L1->L2, weights "
-              f"{ft.coeffs.dtype}", flush=True)
+        check((ft is None) == (mode_full is None),
+              f"{label}: a fused tail on level 0 is {ft is not None}")
+        if ft is not None:
+            check((ft.fine_grid is not None) == mode_full,
+                  f"{label}: tail mode is not {'full' if mode_full else 'sub-cycle'}")
+            print(f"  tail: {'full' if mode_full else 'sub-cycle'} mode, "
+                  f"{'dense' if ft.Rd is not None else 'windowed'} L1->L2, "
+                  f"weights {ft.coeffs.dtype}", flush=True)
         check(all(t.is_cuda for lv in hier.levels for t in lv.buffers()),
               "a level buffer is not on cuda")
         check(xs.shape == (prob.n_dofs,) and bool(torch.isfinite(xs).all()),
@@ -401,43 +532,49 @@ def main():
               f"{solve_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB",
               flush=True)
         print(f"  launches in the main path: {launches}", flush=True)
-        check(info["iterations"] <= PCG_ITERS_MAX,
-              f"PCG took {info['iterations']} > {PCG_ITERS_MAX} iterations")
+        it_max = PCG_ITERS_MAX[label]
+        check(info["iterations"] <= it_max,
+              f"{label}: PCG took {info['iterations']} > {it_max} iterations")
         check(info["relres"] <= PCG_TOL, f"relres {info['relres']:.3e} > {PCG_TOL}")
         check(np.isfinite(tr), "true relres not finite")
-        for k, v in launches.items():
-            check(v > 0, f"kernel {k} was never launched by the {label} main path")
+        for k in kernels:
+            check(launches[k] > 0,
+                  f"kernel {k} was never launched by the {label} main path")
         # solve_cg applies the preconditioner once per iteration plus once
-        check(launches["fused_tail"] == info["iterations"] + 1,
+        check(launches["fused_tail"] == (0 if ft is None else info["iterations"] + 1),
               f"tail launched {launches['fused_tail']} times in "
               f"{info['iterations'] + 1} V-cycles")
         # same-call A/B: the tail and the generic recursion, in turns
         bd = torch.from_numpy(bh).to(dev)
-        ab = {"tail": [], "generic": []}
+        keys = ("generic",) if ft is None else ("tail", "generic")
+        ab = {k: [] for k in keys}
         for key in ("tail", "generic", "generic", "tail"):
+            if key in keys:
+                hier.levels[0].fused = ft if key == "tail" else None
+                ab[key].append(median_ms(lambda: hier.vmult(bd), batch=2))
+        dev_ms, dev_top, dev_rows, pcg = {}, {}, {}, {}
+        for key in keys:
             hier.levels[0].fused = ft if key == "tail" else None
-            ab[key].append(median_ms(lambda: hier.vmult(bd), batch=2))
-        dev_ms, dev_top, pcg = {}, {}, {}
-        for key in ("tail", "generic"):
-            hier.levels[0].fused = ft if key == "tail" else None
-            dev_ms[key], dev_top[key] = device_ms_per_cycle(hier, bd)
-            if key == "generic":
+            dev_ms[key], dev_top[key], dev_rows[key] = device_ms_per_cycle(hier, bd)
+            if key == "generic" and ft is not None:
                 pcg[key] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
-        # the tail with float32 weight storage, for the iteration count
-        hier.levels[0].fused = fc.build_fused_tail(hier.levels, ft.nss)
-        pcg["tail_f32_weights"] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
-        hier.levels[0].fused = ft
+        if ft is not None:
+            # the tail with float32 weight storage, for the iteration count
+            hier.levels[0].fused = fc.build_fused_tail(hier.levels, ft.nss)
+            pcg["tail_f32_weights"] = hier.solve_cg(bh, tol=PCG_TOL,
+                                                    maxiter=PCG_MAX)[1]
+            hier.levels[0].fused = ft
         # K2's plain version as the smoother, for the iteration count
         fsm = hier.levels[0].smoother
-        hier.levels[0].smoother = PlainChebyshev(fsm)
-        pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
-                                                   maxiter=PCG_MAX)[1]
-        hier.levels[0].smoother = fsm
+        if isinstance(fsm, FusedChebyshevSmoother):
+            hier.levels[0].smoother = PlainChebyshev(fsm)
+            pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
+                                                       maxiter=PCG_MAX)[1]
+            hier.levels[0].smoother = fsm
         print(f"  V-cycle ms (CUDA events, medians in turns tail/generic/"
-              f"generic/tail): tail {ab['tail']}, generic {ab['generic']}; "
-              f"device ms/cycle (profiler): tail {dev_ms['tail']:.4f}, "
-              f"generic {dev_ms['generic']:.4f}", flush=True)
-        for key in ("tail", "generic"):
+              f"generic/tail): {ab}; device ms/cycle (profiler): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
+        for key in keys:
             print(f"  device ms/cycle by kernel ({key}): "
                   + "; ".join(f"{k} {v:.4f}" for k, v in dev_top[key]), flush=True)
         print("  PCG in the same process: " + ", ".join(
@@ -447,13 +584,13 @@ def main():
                        setup_stages=hier.setup_seconds,
                        pcg_iterations=info["iterations"], relres=info["relres"],
                        true_relres=tr, solve_s=solve_s,
-                       ms_per_vcycle_tail=ab["tail"],
+                       ms_per_vcycle_tail=ab.get("tail"),
                        ms_per_vcycle_generic=ab["generic"],
                        device_ms_per_vcycle=dev_ms, device_top=dev_top,
                        pcg_iterations_other={k: v["iterations"]
                                              for k, v in pcg.items()},
                        peak_device_gib=peak / 2**30, launches=launches)
-        return hier, summary, tr
+        return hier, summary, tr, dev_rows
 
     # ---- 2. build -----------------------------------------------------
     with Phase("2 build"):
@@ -489,7 +626,8 @@ def main():
         for name, op in ops.items():
             y = check_k1(f"stencil_apply_sym/{name}", op.planes, x,
                          op.pos_offsets, op.grid_shape)
-        library_k1("stencil_apply_sym/f32", hosts["f32"], x, y)
+        library_spmv("stencil_apply_sym/f32", csr_from_stencil(hosts["f32"], dev),
+                     x, y)
 
         op = ops["bf16"]
         k2_err = check_k2("65^3", op, x, b, fused)
@@ -540,7 +678,8 @@ def main():
 
     # ---- 5. the main path at 65^3 --------------------------------------
     with Phase("5 main path 65^3"):
-        hier, summary65, tr65 = run_main_path("65^3", prob, mode_full=True)
+        hier, summary65, tr65, _ = run_main_path(
+            "65^3", prob, True, ("stencil_apply_sym", "cheb_smooth", "fused_tail"))
         check(tr65 <= TRUE_RES_MAX, f"true relres {tr65:.3e} > {TRUE_RES_MAX}")
         ft65 = hier.levels[0].fused
         v65 = check_tail("fused_correction_apply/65^3", ft65, True,
@@ -561,11 +700,45 @@ def main():
         prob7 = LaplaceProblem.hyper_cube(3, N_REF_LARGE, material_property="linear")
         print(f"problem: {prob7.n_dofs} dofs in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        hier7, summary129, tr129 = run_main_path("129^3", prob7, mode_full=False)
+        hier7, summary129, tr129, rows129 = run_main_path(
+            "129^3", prob7, False, ("stencil_apply_sym", "cheb_smooth",
+                                    "fused_tail", "structured_restrict",
+                                    "structured_prolong"))
         check(tr129 <= TRUE_RES_MAX_LARGE,
               f"129^3 true relres {tr129:.3e} > {TRUE_RES_MAX_LARGE}")
         ft129 = hier7.levels[0].fused
         check(ft129.W2 is not None, "129^3 tail is not in the windowed form")
+        l129 = summary129["launches"]
+        n_cyc = summary129["pcg_iterations"] + 1
+        for k in ("structured_restrict", "structured_prolong"):
+            check(l129[k] == n_cyc, f"{k} launched {l129[k]} times in {n_cyc} "
+                  f"V-cycles at 129^3")
+        blas = [k for k in rows129["tail"] if "gemv" in k.lower() or "gemm" in k.lower()]
+        print(f"  BLAS rows in the 129^3 tail V-cycle: {blas}", flush=True)
+        check(not blas, "the 129^3 tail V-cycle still runs BLAS kernels")
+        # the fine transfer through K4/K5 against the tensordot chain inside
+        # the same V-cycle, in turns
+        tr7 = hier7.levels[0].transfer
+        bd7 = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=prob7.n_dofs).astype(np.float32)).to(dev)
+        ab_x, dev_x, top_x = {"kernels": [], "chain": []}, {}, {}
+        for key in ("kernels", "chain", "chain", "kernels"):
+            hier7.levels[0].transfer = tr7 if key == "kernels" else PlainTransfer(tr7)
+            ab_x[key].append(median_ms(lambda: hier7.vmult(bd7), batch=2))
+        for key in ("kernels", "chain"):
+            hier7.levels[0].transfer = tr7 if key == "kernels" else PlainTransfer(tr7)
+            dev_x[key], top_x[key], _ = device_ms_per_cycle(hier7, bd7)
+        hier7.levels[0].transfer = tr7
+        print(f"  129^3 V-cycle ms, fine transfer by K4/K5 vs the tensordot "
+              f"chain (in turns): kernels {ab_x['kernels']}, chain "
+              f"{ab_x['chain']}; device ms/cycle: kernels "
+              f"{dev_x['kernels']:.4f}, chain {dev_x['chain']:.4f}", flush=True)
+        for key in ("kernels", "chain"):
+            print(f"  device ms/cycle by kernel ({key}): "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in top_x[key]), flush=True)
+        summary129.update(ms_per_vcycle_transfer=ab_x,
+                          device_ms_per_vcycle_transfer=dev_x)
+        del bd7
         v129 = check_tail("fused_subcycle_apply/129^3", ft129, False,
                           np.random.default_rng(7), time_it=True)
         ex7 = hier7._exact_fine_op()
@@ -585,13 +758,106 @@ def main():
         host7 = st.stencil_from_cell_matrices(prob7.mesh, prob7.A_loc,
                                               prob7.constrained, prob7.diag_raw,
                                               dtype=torch.float32)
-        library_k1("stencil_apply_tiled_sym/f32", host7, x7, y7)
+        A7 = csr_from_stencil(host7, dev)
+        library_spmv("stencil_apply_tiled_sym/f32", A7, x7, y7)
+        # K3 on the same operator as 27 one-sided planes: the shape the
+        # reference's z-tiled one-sided kernel existed for
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            one7 = st.stencil_to_device(st.StencilOperator(
+                host7.coeffs.to(dt), host7.offsets, host7.grid_shape, None), dev)
+            y = check_k3(f"stencil_apply_tiled/{name}", one7, x7,
+                         K3_TOL if name == "f32" else K3_BF16_TOL)
+            if name == "f32":
+                library_spmv("stencil_apply_tiled/f32", A7, x7, y)
+                k3_work129 = k3_work(one7.coeffs, prob7.n_dofs)
+            del one7
+        del A7
+        check_xfer("129^3/f32", tr7, tr7.W, np.random.default_rng(9),
+                   csr=csr_from_transfer(tr7, dev))
+        check_xfer("129^3/bf16", tr7, tr7.W.to(torch.bfloat16),
+                   np.random.default_rng(9))
         k1_work129 = k1_work(ex7.planes, prob7.n_dofs)
+        k2_work129 = k2_work(op7.planes, prob7.n_dofs,
+                             hier7.levels[0].smoother.degree, True)
+        xfer_work129 = xfer_work(tr7.W, *tr7.shape[::-1])
         tail_work129 = tail_work(ft129, False)
-        del host7, hier7
+        del host7, hier7, tr7
+
+    # ---- 7. the Q2 path at 65^3 ----------------------------------------
+    with Phase("7 Q2 paths 65^3"):
+        # (a) the main configuration on the Q2 cube.  Whether its planes are
+        # symmetric bit for bit depends on how the host's numpy sums the
+        # cell matrices, so the fine applies take K1/K2 or K3 as the
+        # reference's dispatch does on that host.
+        probq = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
+                                          material_property="linear")
+        sym_q = st.stencil_from_cell_matrices(
+            probq.mesh, probq.A_loc, probq.constrained, probq.diag_raw,
+            dtype=torch.float64).sym_pos is not None
+        print(f"Q2 cube: {probq.n_dofs} dofs, planes "
+              f"{'symmetric' if sym_q else 'one-sided'} on this host", flush=True)
+        hierq, summaryq, trq, _ = run_main_path(
+            "Q2 65^3", probq, True,
+            ("stencil_apply_sym", "cheb_smooth", "fused_tail") if sym_q
+            else ("stencil_apply", "fused_tail"))
+        check(trq <= TRUE_RES_MAX_Q2,
+              f"Q2 true relres {trq:.3e} > {TRUE_RES_MAX_Q2}")
+        ftq = hierq.levels[0].fused
+        check(ftq.fine_window == (9, 9, 9), f"Q2 tail windows {ftq.fine_window}")
+        check_tail("fused_correction_apply/Q2 65^3", ftq, True,
+                   np.random.default_rng(11), time_it=True)
+        check_tail("fused_subcycle_apply/Q2 65^3", ftq, False,
+                   np.random.default_rng(12), time_it=True)
+        trq0 = hierq.levels[0].transfer
+        check_xfer("Q2/f32", trq0, trq0.W, np.random.default_rng(13),
+                   csr=csr_from_transfer(trq0, dev))
+        check_xfer("Q2/bf16", trq0, trq0.W.to(torch.bfloat16),
+                   np.random.default_rng(13))
+        del hierq, trq0
+
+        # (b) the distorted Q2 cube (general cell Jacobians): one-sided
+        # planes on every host, two levels (its level-1 agglomerates are not
+        # windowed), so every fine apply runs K3 and every V-cycle K4/K5
+        probd = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
+                                          material_property="linear",
+                                          distort_random=True, seed=0)
+        xq = torch.from_numpy(np.random.default_rng(10).uniform(
+            -1, 1, probd.n_dofs).astype(np.float32)).to(dev)
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            opq = st.stencil_to_device(st.stencil_from_cell_matrices(
+                probd.mesh, probd.A_loc, probd.constrained, probd.diag_raw,
+                dtype=dt), dev)
+            check(opq.sym_pos is None and len(opq.offsets) == 125,
+                  "the distorted Q2 operator is not one-sided with 125 offsets")
+            y = check_k3(f"stencil_apply/Q2/{name}", opq, xq,
+                         K3_TOL if name == "f32" else K3_BF16_TOL)
+            if name == "f32":
+                library_spmv("stencil_apply/Q2/f32", csr_from_stencil(opq, dev),
+                             xq, y)
+                k3_work_q2 = k3_work(opq.coeffs, probd.n_dofs)
+            del opq
+        del xq
+        hierd, summaryd, trd, _ = run_main_path(
+            "Q2 65^3 distorted", probd, None,
+            ("stencil_apply", "structured_restrict", "structured_prolong"),
+            max_levels=2)
+        check(trd <= TRUE_RES_MAX_Q2_DISTORTED,
+              f"distorted Q2 true relres {trd:.3e} > {TRUE_RES_MAX_Q2_DISTORTED}")
+        ld = summaryd["launches"]
+        n_cyc = summaryd["pcg_iterations"] + 1
+        # 5 per V-cycle (two per degree-2 smooth, the residual), one per CG
+        # apply; the fine transfer once each way per V-cycle
+        check(ld["stencil_apply"] == 6 * n_cyc,
+              f"K3 launched {ld['stencil_apply']} times, not 6 x {n_cyc}")
+        check(ld["structured_restrict"] == ld["structured_prolong"] == n_cyc,
+              f"K4/K5 launched {ld['structured_restrict']}/"
+              f"{ld['structured_prolong']} times in {n_cyc} V-cycles")
+        check(ld["stencil_apply_sym"] == ld["cheb_smooth"] == 0,
+              "the one-sided Q2 path launched K1 or K2")
+        del hierd
 
     tail_work65 = tail_work(ft65, True)
-    l65, l129 = summary65["launches"], summary129["launches"]
+    l65 = summary65["launches"]
 
     def row(name, source, replaces, launches, var, work, library_ms, err=None):
         b_ms, b_by = bound(*work)
@@ -624,10 +890,38 @@ def main():
             err=max(k1tv["max_abs_err"],
                     variants["stencil_apply_tiled_sym/bf16"]["max_abs_err"])),
     ]
-    for s in (summary65, summary129):
+    for kind, line in (("restrict", 214), ("prolong", 291)):
+        v = variants[f"structured_{kind}/129^3/f32"]
+        kernels.append(row(
+            f"structured_{kind}", "mfmg_torch/csrc/structured_transfer.cu",
+            f"mfmg_tpu/ops/pallas_transfer.py:{line}",
+            l129[f"structured_{kind}"], v, xfer_work129, v["library_ms"],
+            err=max(v["max_abs_err"],
+                    variants[f"structured_{kind}/129^3/bf16"]["max_abs_err"])))
+    k3v, k3tv = variants["stencil_apply/Q2/f32"], variants["stencil_apply_tiled/f32"]
+    kernels += [
+        row("stencil_apply", "mfmg_torch/csrc/stencil_apply.cu",
+            "mfmg_tpu/ops/pallas_stencil.py:807", ld["stencil_apply"], k3v,
+            k3_work_q2, k3v["library_ms"],
+            err=max(k3v["max_abs_err"],
+                    variants["stencil_apply/Q2/bf16"]["max_abs_err"])),
+        # closed by K3: its launches are K3's on the distorted Q2 path
+        row("stencil_apply_tiled", "mfmg_torch/csrc/stencil_apply.cu",
+            "mfmg_tpu/ops/pallas_stencil.py:514", ld["stencil_apply"], k3tv,
+            k3_work129, k3tv["library_ms"],
+            err=max(k3tv["max_abs_err"],
+                    variants["stencil_apply_tiled/bf16"]["max_abs_err"])),
+        # closed by K2: its launches are K2's on the 129^3 path
+        row("cheb_smooth_tiled", "mfmg_torch/csrc/cheb_smooth.cu",
+            "mfmg_tpu/ops/pallas_stencil.py:344", l129["cheb_smooth"],
+            variants["cheb_smooth/129^3/with_residual"], k2_work129, None),
+    ]
+    for s in (summary65, summary129, summaryq, summaryd):
         s["card"] = card
     print(f"summary 65^3: {json.dumps(summary65)}", flush=True)
     print(f"summary 129^3: {json.dumps(summary129)}", flush=True)
+    print(f"summary Q2 65^3: {json.dumps(summaryq)}", flush=True)
+    print(f"summary Q2 65^3 distorted: {json.dumps(summaryd)}", flush=True)
     print(f"kernel variants: {json.dumps(variants)}", flush=True)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

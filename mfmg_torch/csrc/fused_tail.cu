@@ -27,7 +27,13 @@
 // and are not used.  Out-of-grid stencil and window terms are skipped by
 // explicit bounds checks (the TPU kernel let roll wrap-around land on zero
 // coefficients).  Weights are float or bf16 (converted in registers), every
-// sum is float.  The phases at degree d and nss smoothing steps:
+// sum is float.  With bf16 weights in the windowed level-1 -> 2 form the
+// correction rounds four vectors to bf16 (round to nearest even), where the
+// reference's reduced tail rounds them (fused_cycle.py:256, 268, 272, 285):
+// r1, b2, x2, and the prolonged values summed over the z and y windows
+// before the x windows are added.  The dense form and the fine transfer
+// round nothing, as in the reference.  The phases at degree d and nss
+// smoothing steps:
 //   (full) restrict b1 = R res, fused with the first pointwise Chebyshev step
 //   d-1 applies of the pre-smooth x1 = cheb(b1)
 //   (nss-1) x d applies of further smooths
@@ -41,6 +47,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "window_transfer.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -58,8 +66,10 @@ struct TailParams {
     const float* coef;           // (2 * degree,) [alphas..., betas...]
     int gz, gy, gx, c, n_sites, n1, n_off, degree, nss;
     int odz[MFMG_TAIL_MAX_OFF], ody[MFMG_TAIL_MAX_OFF], odx[MFMG_TAIL_MAX_OFF];
-    // level 1 -> 2: dense Rd or the windowed weights W2
-    int dense;
+    // level 1 -> 2: dense Rd or the windowed weights W2; round_vec: round
+    // r1, b2, x2 and the z/y-summed prolonged values to bf16 (windowed form
+    // with bf16 weights)
+    int dense, round_vec;
     const void* Rd;              // (n2, n1)
     const void* W2;              // (n_S, n2e, wz2, wy2, wx2, c)
     const float* inv2;           // (n2, n2)
@@ -67,7 +77,7 @@ struct TailParams {
     // fine transfer (full mode): windows of fw per axis at stride fw - 1
     int full;
     const void* W;               // (c, fwz, fwy, fwx, gz, gy, gx)
-    int nz, ny, nx, fwz, fwy, fwx;
+    FineWindows fw;
     // vectors
     const float* b1_in;          // sub-cycle input (n1)
     const float* x_in;           // full-mode x and residual (fine n)
@@ -83,9 +93,8 @@ struct TailParams {
     float* x2;
 };
 
-__device__ __forceinline__ float wload(const float* p, size_t i) { return __ldg(p + i); }
-__device__ __forceinline__ float wload(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
+__device__ __forceinline__ float bf16_rn(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -103,10 +112,6 @@ __device__ __forceinline__ float block_sum(float v, float* smem) {
     if (w == 0) t = warp_sum(lane < (int)(blockDim.x >> 5) ? smem[lane] : 0.f);
     __syncthreads();
     return t;
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-    return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
 // (A v)[j] of the level-1 block stencil, j = s * c + e.
@@ -187,60 +192,26 @@ __device__ void smooth(const TailParams& p, cg::grid_group& grid,
 template <typename T>
 __device__ void restrict_fine(const TailParams& p, float* x_out) {
     const T* W = static_cast<const T*>(p.W);
-    const int sz = p.fwz - 1, sy = p.fwy - 1, sx = p.fwx - 1;
-    const int fw3 = p.fwz * p.fwy * p.fwx;
+    const int rows = p.fw.wz * p.fw.wy;
     const int n_out = p.c * p.n_sites;
     const int stride = gridDim.x * blockDim.x;
     for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < n_out; q += stride) {
         const int e = q / p.n_sites, a = q - e * p.n_sites;
-        const int ax = a % p.gx, t = a / p.gx, ay = t % p.gy, az = t / p.gy;
-        const float* r0 = p.res + ((size_t)(az * sz) * p.ny + ay * sy) * p.nx + ax * sx;
-        const size_t w0 = (size_t)e * fw3 * p.n_sites + a;
-        float acc = 0.f;
-        int tt = 0;
-        for (int tz = 0; tz < p.fwz; ++tz)
-            for (int ty = 0; ty < p.fwy; ++ty)
-                for (int tx = 0; tx < p.fwx; ++tx, ++tt)
-                    acc += wload(W, w0 + (size_t)tt * p.n_sites)
-                         * __ldg(r0 + ((size_t)tz * p.ny + ty) * p.nx + tx);
+        const float acc = window_restrict_rows(W, p.res, p.fw, e, a, 0, rows);
         const int j = a * p.c + e;
         p.B[j] = acc;
         cheb_first(p, j, acc, nullptr, x_out);
     }
 }
 
-// out[i] = x[i] - sum over the <= 8 agglomerates whose windows hold i of
-// sum_e W[e, i - a * s, a] x1[a, e].
+// out[i] = x[i] - (P x1)[i].
 template <typename T>
 __device__ void prolong_fine(const TailParams& p, const float* x1) {
     const T* W = static_cast<const T*>(p.W);
-    const int sz = p.fwz - 1, sy = p.fwy - 1, sx = p.fwx - 1;
-    const int fw3 = p.fwz * p.fwy * p.fwx;
-    const int n = p.nz * p.ny * p.nx;
+    const int n = p.fw.nz * p.fw.ny * p.fw.nx;
     const int stride = gridDim.x * blockDim.x;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-        const int ix = i % p.nx, t = i / p.nx, iy = t % p.ny, iz = t / p.ny;
-        float acc = 0.f;
-        // window offsets i - a * s lie in [0, s]: a in [floor((i-1)/s), i/s]
-        for (int az = max(floor_div(iz - 1, sz), 0); az <= min(iz / sz, p.gz - 1); ++az) {
-            const int tz = iz - az * sz;
-            if (tz > sz) continue;
-            for (int ay = max(floor_div(iy - 1, sy), 0); ay <= min(iy / sy, p.gy - 1); ++ay) {
-                const int ty = iy - ay * sy;
-                if (ty > sy) continue;
-                for (int ax = max(floor_div(ix - 1, sx), 0); ax <= min(ix / sx, p.gx - 1); ++ax) {
-                    const int tx = ix - ax * sx;
-                    if (tx > sx) continue;
-                    const int a = (az * p.gy + ay) * p.gx + ax;
-                    const int tt = (tz * p.fwy + ty) * p.fwx + tx;
-                    for (int e = 0; e < p.c; ++e)
-                        acc += wload(W, ((size_t)e * fw3 + tt) * p.n_sites + a)
-                             * x1[a * p.c + e];
-                }
-            }
-        }
-        p.out[i] = __ldg(p.x_in + i) - acc;
-    }
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+        p.out[i] = __ldg(p.x_in + i) - window_prolong_at(W, x1, p.fw, i);
 }
 
 // b2 = R2 r1: one block per coarse row k = S * n2e + e2.
@@ -272,7 +243,7 @@ __device__ void restrict_coarse(const TailParams& p, float* smem) {
             }
         }
         acc = block_sum(acc, smem);
-        if (threadIdx.x == 0) p.b2[k] = acc;
+        if (threadIdx.x == 0) p.b2[k] = p.round_vec ? bf16_rn(acc) : acc;
     }
 }
 
@@ -283,7 +254,7 @@ __device__ void coarse_solve(const TailParams& p, float* smem) {
         const float* row = p.inv2 + (size_t)k * p.n2;
         for (int j = threadIdx.x; j < p.n2; j += blockDim.x) acc += __ldg(row + j) * p.b2[j];
         acc = block_sum(acc, smem);
-        if (threadIdx.x == 0) p.x2[k] = acc;
+        if (threadIdx.x == 0) p.x2[k] = p.round_vec ? bf16_rn(acc) : acc;
     }
 }
 
@@ -329,23 +300,27 @@ __device__ void prolong_coarse(const TailParams& p, float* x1, float* smem) {
         const int y1 = min(floor_div(by - p.ty0, p.sy2), p.oy - 1);
         const int x0 = max(floor_div(bx - p.tx0 - p.wx2 + p.sx2, p.sx2), 0);
         const int x1_ = min(floor_div(bx - p.tx0, p.sx2), p.ox - 1);
-        for (int sz = z0; sz <= z1; ++sz) {
-            const int tz = bz - sz * p.sz2 - p.tz0;
-            if (tz < 0 || tz >= p.wz2) continue;
-            for (int sy = y0; sy <= y1; ++sy) {
-                const int ty = by - sy * p.sy2 - p.ty0;
-                if (ty < 0 || ty >= p.wy2) continue;
-                for (int sx = x0; sx <= x1_; ++sx) {
-                    const int tx = bx - sx * p.sx2 - p.tx0;
-                    if (tx < 0 || tx >= p.wx2) continue;
+        // x windows outermost: each one's sum over the z and y windows is
+        // the value the reference rounds before adding the x windows
+        for (int sx = x0; sx <= x1_; ++sx) {
+            const int tx = bx - sx * p.sx2 - p.tx0;
+            if (tx < 0 || tx >= p.wx2) continue;
+            float zy = 0.f;
+            for (int sz = z0; sz <= z1; ++sz) {
+                const int tz = bz - sz * p.sz2 - p.tz0;
+                if (tz < 0 || tz >= p.wz2) continue;
+                for (int sy = y0; sy <= y1; ++sy) {
+                    const int ty = by - sy * p.sy2 - p.ty0;
+                    if (ty < 0 || ty >= p.wy2) continue;
                     const int S = (sz * p.oy + sy) * p.ox + sx;
                     const int t = (tz * p.wy2 + ty) * p.wx2 + tx;
                     for (int e2 = 0; e2 < p.n2e; ++e2) {
                         const int k = S * p.n2e + e2;
-                        acc += wload(W2, ((size_t)k * w3 + t) * p.c + f) * p.x2[k];
+                        zy += wload(W2, ((size_t)k * w3 + t) * p.c + f) * p.x2[k];
                     }
                 }
             }
+            acc += p.round_vec ? bf16_rn(zy) : zy;
         }
         x1[j] -= acc;
     }
@@ -380,7 +355,10 @@ fused_tail_kernel(const __grid_constant__ TailParams p) {
 
     // coarse correction
     grid.sync();
-    for (int j = tid; j < p.n1; j += stride) p.R[j] = block_apply<T>(p, xc, j) - b1[j];
+    for (int j = tid; j < p.n1; j += stride) {
+        const float r = block_apply<T>(p, xc, j) - b1[j];
+        p.R[j] = p.round_vec ? bf16_rn(r) : r;
+    }
     grid.sync();
     restrict_coarse<T>(p, smem);
     grid.sync();
@@ -456,6 +434,7 @@ int mfmg_fused_tail(int weights_bf16, int full, int dense, const void* coeffs,
     }
     p.coeffs = coeffs; p.invd = invd; p.coef = coef;
     p.dense = dense; p.Rd = Rd; p.W2 = W2; p.inv2 = inv2;
+    p.round_vec = weights_bf16 && !dense;
     p.n2 = l2[0]; p.n2e = l2[1]; p.oz = l2[2]; p.oy = l2[3]; p.ox = l2[4];
     p.wz2 = l2[5]; p.wy2 = l2[6]; p.wx2 = l2[7];
     p.sz2 = l2[8]; p.sy2 = l2[9]; p.sx2 = l2[10];
@@ -463,9 +442,11 @@ int mfmg_fused_tail(int weights_bf16, int full, int dense, const void* coeffs,
     if (p.n2 < 1 || (!dense && (p.sz2 < 1 || p.sy2 < 1 || p.sx2 < 1)))
         return (int)cudaErrorInvalidValue;
     p.full = full; p.W = W;
-    p.nz = fine[0]; p.ny = fine[1]; p.nx = fine[2];
-    p.fwz = fine[3]; p.fwy = fine[4]; p.fwx = fine[5];
-    if (full && (p.fwz < 2 || p.fwy < 2 || p.fwx < 2)) return (int)cudaErrorInvalidValue;
+    const int fg[10] = {fine[0], fine[1], fine[2], p.gz, p.gy, p.gx,
+                        fine[3], fine[4], fine[5], p.c};
+    p.fw = make_fine_windows(fg);
+    if (full)
+        if (int err = check_fine_windows(p.fw)) return err;
     p.b1_in = b1_in; p.x_in = x_in; p.res = res; p.out = out;
     float* s = scratch;
     p.B = s; s += p.n1;

@@ -1,0 +1,106 @@
+// Index arithmetic of the fine-level windowed transfer, shared by K4/K5
+// (structured_transfer.cu) and the full-mode coarse tail (fused_tail.cu).
+//
+// The fine grid (nz, ny, nx) is covered by the agglomerate grid (gz, gy, gx)
+// of windows w per axis at stride s = w - 1 (neighbouring windows share one
+// node plane), so n = g * s + 1 per axis.  The weights are
+// W[e, tz, ty, tx, az, ay, ax], C-order (c, wz, wy, wx, gz, gy, gx), and the
+// coarse vector is site-major, xc[a * c + e]:
+//   restrict:  out[a, e] = sum_t W[e, t, a] x[a * s + t]
+//   prolong:   y[i] = sum over the <= 8 windows (a, t = i - a * s) holding i,
+//              and over e, of W[e, t, a] xc[a, e]   (the exact adjoint)
+// Every sum runs in a fixed order in one thread: no atomics, deterministic.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+struct FineWindows {
+    int nz, ny, nx;     // fine grid
+    int gz, gy, gx;     // agglomerate grid
+    int wz, wy, wx;     // window per axis, stride w - 1
+    int c;              // components (eigenvectors) per agglomerate
+};
+
+__device__ __forceinline__ float wload(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float wload(const __nv_bfloat16* p, size_t i) {
+    return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+    return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// Restriction of component e at agglomerate a over the window rows
+// r = tz * wy + ty in [r_begin, r_end) (all rows: [0, wz * wy)).
+template <typename T>
+__device__ __forceinline__ float window_restrict_rows(const T* __restrict__ W,
+                                                      const float* __restrict__ x,
+                                                      const FineWindows& g, int e,
+                                                      int a, int r_begin, int r_end) {
+    const int n_sites = g.gz * g.gy * g.gx;
+    const int ax = a % g.gx, u = a / g.gx, ay = u % g.gy, az = u / g.gy;
+    const float* x0 = x + ((size_t)(az * (g.wz - 1)) * g.ny + ay * (g.wy - 1)) * g.nx
+                        + ax * (g.wx - 1);
+    const size_t w0 = (size_t)e * g.wz * g.wy * g.wx * n_sites + a;
+    float acc = 0.f;
+    for (int r = r_begin; r < r_end; ++r) {
+        const int tz = r / g.wy, ty = r - tz * g.wy;
+        const float* xr = x0 + ((size_t)tz * g.ny + ty) * g.nx;
+        const size_t wr = w0 + (size_t)r * g.wx * n_sites;
+        for (int tx = 0; tx < g.wx; ++tx)
+            acc += wload(W, wr + (size_t)tx * n_sites) * __ldg(xr + tx);
+    }
+    return acc;
+}
+
+// Prolongation at fine point i (xc site-major).
+template <typename T>
+__device__ __forceinline__ float window_prolong_at(const T* __restrict__ W,
+                                                   const float* xc,
+                                                   const FineWindows& g, int i) {
+    const int sz = g.wz - 1, sy = g.wy - 1, sx = g.wx - 1;
+    const int n_sites = g.gz * g.gy * g.gx;
+    const int fw3 = g.wz * g.wy * g.wx;
+    const int ix = i % g.nx, t = i / g.nx, iy = t % g.ny, iz = t / g.ny;
+    float acc = 0.f;
+    // window offsets i - a * s lie in [0, s]: a in [floor((i - 1) / s), i / s]
+    for (int az = max(floor_div(iz - 1, sz), 0); az <= min(iz / sz, g.gz - 1); ++az) {
+        const int tz = iz - az * sz;
+        if (tz > sz) continue;
+        for (int ay = max(floor_div(iy - 1, sy), 0); ay <= min(iy / sy, g.gy - 1); ++ay) {
+            const int ty = iy - ay * sy;
+            if (ty > sy) continue;
+            for (int ax = max(floor_div(ix - 1, sx), 0); ax <= min(ix / sx, g.gx - 1); ++ax) {
+                const int tx = ix - ax * sx;
+                if (tx > sx) continue;
+                const int a = (az * g.gy + ay) * g.gx + ax;
+                const int tt = (tz * g.wy + ty) * g.wx + tx;
+                for (int e = 0; e < g.c; ++e)
+                    acc += wload(W, ((size_t)e * fw3 + tt) * n_sites + a) * xc[a * g.c + e];
+            }
+        }
+    }
+    return acc;
+}
+
+// 0 when the geometry is consistent (w >= 2 and n = g * (w - 1) + 1 on
+// every axis), else cudaErrorInvalidValue.
+inline int check_fine_windows(const FineWindows& g) {
+    const int n[3] = {g.nz, g.ny, g.nx}, a[3] = {g.gz, g.gy, g.gx},
+              w[3] = {g.wz, g.wy, g.wx};
+    if (g.c < 1) return (int)cudaErrorInvalidValue;
+    for (int d = 0; d < 3; ++d)
+        if (w[d] < 2 || a[d] < 1 || n[d] != a[d] * (w[d] - 1) + 1)
+            return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+inline FineWindows make_fine_windows(const int* geom) {
+    FineWindows g;
+    g.nz = geom[0]; g.ny = geom[1]; g.nx = geom[2];
+    g.gz = geom[3]; g.gy = geom[4]; g.gx = geom[5];
+    g.wz = geom[6]; g.wy = geom[7]; g.wx = geom[8];
+    g.c = geom[9];
+    return g;
+}

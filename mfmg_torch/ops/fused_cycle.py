@@ -25,12 +25,12 @@ launches the kernel for a CUDA tensor, and raises on anything else; each
 launch counts in ``stencil_kernels.LAUNCHES["fused_tail"]``.  The plain
 versions compute the reference's ``_subcycle_math`` literally with the
 port's block-stencil and transfer math, on the stored (possibly
-bf16-rounded) operands in the vectors' dtype.
+bf16-rounded) operands in the vectors' dtype.  With bf16 weights the
+windowed level-1 -> 2 correction also rounds four of its vectors to bf16,
+where the reference's reduced tail rounds them (``_windowed_correction``).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -40,7 +40,7 @@ from mfmg_torch.ops import stencil_kernels
 from mfmg_torch.ops.block_stencil import (BlockStencilOperator,
                                           block_stencil_apply_coeffs)
 from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
-                                                StructuredTransfer)
+                                                StructuredTransfer, _gwt_pads)
 from mfmg_torch.solve.coarse import DirectCoarseSolver
 from mfmg_torch.solve.smoothers import ChebyshevSmoother, _cheb_coeffs
 
@@ -232,12 +232,55 @@ def fused_subcycle_apply_plain(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
         Rd = ft.Rd.to(dt)
         corr = (inv2 @ (Rd @ r1)) @ Rd
     else:
-        tr = ft.coarse_transfer(dt)
-        corr = tr.prolong(inv2 @ tr.restrict(r1))
+        corr = _windowed_correction(ft, r1, inv2)
     x1 = x1 - corr
     for _ in range(ft.nss):
         x1 = smooth(x1)
     return x1
+
+
+def _windowed_correction(ft: FusedTail, r1, inv2):
+    """R2^T inv2 R2 r1 through the windowed weights W2.  With bf16 weights
+    it rounds (to nearest even) where the reference's reduced tail rounds on
+    the CPU, whose ``_match`` casts the data down when a bf16 0/1 selection
+    matrix is the first matmul operand (fused_cycle.py:256, 268, 272, 285):
+    r1, b2, x2, and the prolonged values once summed over the z and y
+    windows, before the x windows are added."""
+    dt = r1.dtype
+    tr = ft.coarse_transfer(dt)
+    if ft.W2.dtype != torch.bfloat16:
+        return tr.prolong(inv2 @ tr.restrict(r1))
+
+    def rnd(v):
+        return v.to(torch.bfloat16).to(dt)
+
+    x2 = rnd(inv2 @ rnd(tr.restrict(rnd(r1))))
+    (oz, oy, ox), (wz, wy, wx) = tr.out_grid, tr.window_shape
+    (sz, sy, sx), (gz, gy, gx), c = tr.stride, tr.in_grid, tr.n_in
+    (lz, hz), (ly, hy), (lx, hx) = _gwt_pads(tr)
+    # per-window contributions (oz, oy, ox, wz, wy, wx, c)
+    C = torch.einsum("eabcfzyx,zyxe->zyxabcf", tr.W,
+                     x2.reshape(tr.out_grid + (tr.n_out,)))
+    # the z and y windows onto the padded (z, y) grid, the x windows apart
+    pz, py = gz + lz + hz, gy + ly + hy
+    P = torch.zeros((pz, py, ox, wx, c), dtype=dt, device=r1.device)
+    for tz in range(wz):
+        for ty in range(wy):
+            P[tz: tz + sz * (oz - 1) + 1: sz,
+              ty: ty + sy * (oy - 1) + 1: sy] += C[:, :, :, tz, ty]
+    Q = torch.zeros((gz, gy, ox, wx, c), dtype=dt, device=r1.device)
+    nz, ny = min(pz, lz + gz) - lz, min(py, ly + gy) - ly
+    Q[:nz, :ny] = P[lz: lz + nz, ly: ly + ny]
+    Q = rnd(Q)
+    # then the x windows
+    px = gx + lx + hx
+    Y = torch.zeros((gz, gy, px, c), dtype=dt, device=r1.device)
+    for tx in range(wx):
+        Y[:, :, tx: tx + sx * (ox - 1) + 1: sx] += Q[:, :, :, tx]
+    y = torch.zeros((gz, gy, gx, c), dtype=dt, device=r1.device)
+    nx = min(px, lx + gx) - lx
+    y[:, :, :nx] = Y[:, :, lx: lx + nx]
+    return y.reshape(-1)
 
 
 def fused_correction_apply_plain(ft: FusedTail, x: torch.Tensor,
@@ -290,11 +333,6 @@ def _check_vector(ft: FusedTail, name, v, n):
                          f"{tuple(v.shape)}")
 
 
-def _ints(vals):
-    vals = [int(v) for v in vals]
-    return (ctypes.c_int * max(len(vals), 1))(*vals)
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -316,19 +354,25 @@ def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None):
         w = ft.win
         l2 = ([ft.n2, w["n_out"]] + list(w["out_grid"]) + list(w["window_shape"])
               + list(w["stride"]) + list(w["t0"]))
-    fine = (list(ft.fine_grid) + list(ft.fine_window)) if full else [0] * 6
+    fine = [0] * 6
+    if full:
+        if any(w < 2 or n != a * (w - 1) + 1 for w, a, n in
+               zip(ft.fine_window, ft.grid, ft.fine_grid)):
+            raise ValueError(f"fine windows {ft.fine_window} at stride w - 1 "
+                             f"over agglomerates {ft.grid} do not tile the "
+                             f"fine grid {ft.fine_grid}")
+        fine = list(ft.fine_grid) + list(ft.fine_window)
     scratch = torch.empty(7 * ft.n1 + 2 * ft.n2, dtype=torch.float32,
                           device=out.device)
-    gz, gy, gx = ft.grid
-    lib = stencil_kernels._library()
+    ints, lib = stencil_kernels._ints, stencil_kernels._library()
     with torch.cuda.device(out.device):
         err = lib.mfmg_fused_tail(
             int(bf16), int(full), int(dense), _ptr(ft.coeffs), _ptr(ft.invd),
             _ptr(ft.cheb_coef), _ptr(ft.Rd), _ptr(ft.W2), _ptr(ft.inv2),
             _ptr(ft.W) if full else None, _ptr(b1), _ptr(x), _ptr(res),
             out.data_ptr(), scratch.data_ptr(),
-            _ints([gz, gy, gx, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
-            _ints([v for off in ft.offsets for v in off]), _ints(l2),
-            _ints(fine), stencil_kernels._stream(out))
+            ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
+            stencil_kernels._offset_table(ft.offsets), ints(l2), ints(fine),
+            stencil_kernels._stream(out))
     stencil_kernels._raise_on(err, "fused_tail")
     stencil_kernels.LAUNCHES["fused_tail"] += 1

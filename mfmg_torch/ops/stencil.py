@@ -11,10 +11,11 @@ strictly-positive-offset planes are read: the negative planes satisfy
 C_{-o}[i] = C_o[i-o].
 
 Finalization (``stencil_to_device``) gathers a symmetric operator's center
-and positive planes into one contiguous (1+n_pos, gz, gy, gx) buffer and
-moves it to the device once; the CUDA kernel K1 (ops/stencil_kernels.py)
-then takes one pointer and a small offset table.  The TPU's (8,128) padded
-plane layouts are not ported.
+and positive planes into one contiguous (1+n_pos, gz, gy, gx) buffer, or
+keeps a one-sided operator's planes as one contiguous (n_off, gz, gy, gx)
+buffer, and moves it to the device once; the CUDA kernels K1 and K3
+(ops/stencil_kernels.py) then take one pointer and a small offset table.
+The TPU's (8,128) padded plane layouts are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import itertools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from mfmg_torch.fem.mesh import Mesh
@@ -110,41 +110,24 @@ def stencil_apply(op: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     stencil.py:115-163).
 
     A 3-D grid with float32 x and float32/bfloat16 planes is the reference's
-    Pallas case: a symmetric operator goes through the K1 wrapper, which
-    launches the CUDA kernel on a CUDA tensor and runs the plain version on
-    a CPU tensor.  A one-sided (non-symmetric) operator on CUDA raises: its
-    kernel (mfmg_tpu pallas_stencil_apply) is not ported yet.  Everything
-    else (2-D grids, float64) is plain PyTorch, as the reference runs XLA.
+    Pallas case: a symmetric operator goes through the K1 wrapper, a
+    one-sided one (Q2/Q3 elements, sym_pos None) through the K3 wrapper;
+    each launches its CUDA kernel on a CUDA tensor and runs its plain
+    version on a CPU tensor.  Everything else (2-D grids, float64) is plain
+    PyTorch, as the reference runs XLA.
     """
     kernel_case = (len(op.grid_shape) == 3 and x.dtype == torch.float32
                    and op.dtype in (torch.float32, torch.bfloat16))
     if op.sym_pos is None:
-        if kernel_case and x.is_cuda:
-            raise NotImplementedError(
-                "the one-sided stencil kernel (mfmg_tpu pallas_stencil_apply) "
-                "is not ported yet (ROADMAP Queue 2, item 5); only symmetric "
-                "stencils run on CUDA")
-        return _stencil_apply_plain(op, x)
+        fn = (stencil_kernels.stencil_apply if kernel_case
+              else stencil_kernels.stencil_apply_plain)
+        return fn(op.coeffs, x, op.offsets, op.grid_shape)
     planes = op.planes if op.planes is not None else _gather_planes(op)
     if kernel_case:
         return stencil_kernels.stencil_apply_sym(planes, x, op.pos_offsets,
                                                  op.grid_shape)
     return stencil_kernels.stencil_apply_sym_plain(planes, x, op.pos_offsets,
                                                    op.grid_shape)
-
-
-def _stencil_apply_plain(op: StencilOperator, x: torch.Tensor) -> torch.Tensor:
-    """One-sided plain version (mfmg_tpu _stencil_apply_xla): x zero-padded
-    once by the stencil radius, every shifted read a static slice."""
-    k = max(max(abs(o) for o in off) for off in op.offsets)
-    dim = len(op.grid_shape)
-    xp = F.pad(x.reshape(op.grid_shape), (k,) * (2 * dim))
-    y = None
-    for i, off in enumerate(op.offsets):
-        sl = tuple(slice(k + o, k + o + n) for o, n in zip(off, op.grid_shape))
-        t = op.coeffs[i].to(x.dtype) * xp[sl]
-        y = t if y is None else y + t
-    return y.reshape(x.shape)
 
 
 def _gather_planes(op: StencilOperator) -> torch.Tensor:
@@ -155,11 +138,13 @@ def _gather_planes(op: StencilOperator) -> torch.Tensor:
 def stencil_to_device(op: StencilOperator, device) -> StencilOperator:
     """Finalize a host-built operator (the counterpart of mfmg_tpu
     stencil_to_device): a symmetric operator keeps only its gathered
-    center + positive planes, one contiguous buffer; then one host-to-device
-    copy."""
+    center + positive planes, a one-sided one all its planes, each as one
+    contiguous buffer; then one host-to-device copy."""
     if op.sym_pos is not None and op.planes is None:
         op.planes = _gather_planes(op)
         op.coeffs = None
+    elif op.sym_pos is None:
+        op.coeffs = op.coeffs.contiguous()
     return op.to(device)
 
 

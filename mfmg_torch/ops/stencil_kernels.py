@@ -1,14 +1,20 @@
-"""Fine-grid stencil kernels K1 and K2: CUDA wrappers, plain versions, build.
+"""Fine-grid stencil kernels K1, K2 and K3: CUDA wrappers, plain versions,
+and the build of the port's kernel library.
 
-Counterpart of mfmg_tpu/ops/pallas_stencil.py for the two kernels on the
-main path:
+Counterpart of mfmg_tpu/ops/pallas_stencil.py:
 
-* K1 ``stencil_apply_sym`` replaces ``pallas_stencil_apply_sym``: the
-  symmetric-pair stencil apply y = C_0 x + sum_{o>0} [C_o x(i+o) +
-  C_o(i-o) x(i-o)] over the gathered center + positive planes.
-* K2 ``cheb_smooth`` replaces ``pallas_cheb_smooth``: one whole deal.II
-  Chebyshev step x <- x - p(D^-1 A) D^-1 (A x - b), with the V-cycle
-  residual A x_s - b on request.
+* K1 ``stencil_apply_sym`` replaces ``pallas_stencil_apply_sym`` (and covers
+  ``pallas_stencil_apply_tiled_sym``): the symmetric-pair stencil apply
+  y = C_0 x + sum_{o>0} [C_o x(i+o) + C_o(i-o) x(i-o)] over the gathered
+  center + positive planes.
+* K2 ``cheb_smooth`` replaces ``pallas_cheb_smooth`` (and covers
+  ``pallas_cheb_smooth_tiled``): one whole deal.II Chebyshev step
+  x <- x - p(D^-1 A) D^-1 (A x - b), with the V-cycle residual A x_s - b on
+  request.
+* K3 ``stencil_apply`` replaces ``pallas_stencil_apply`` (and covers
+  ``pallas_stencil_apply_tiled``): the one-sided apply y = sum_o C_o
+  x(i+o) over all offset planes, for operators without the symmetric-pair
+  form (Q2/Q3 elements, stencils read from an assembled matrix).
 
 The kernels are hand-written CUDA for Hopper (``csrc/*.cu``), compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
@@ -17,13 +23,16 @@ and bound with ctypes.  Each wrapper takes its plain PyTorch version for a
 tensor on the CPU, launches its kernel for a CUDA tensor, and raises on
 anything else; there is no fallback around the build or the launch.  Each
 wrapper counts its launches in ``LAUNCHES``.  The same library holds the
-fused coarse tail (``csrc/fused_tail.cu``), whose wrappers live in
-``ops/fused_cycle.py``.
+fused coarse tail (``csrc/fused_tail.cu``) and the fine transfer pair K4/K5
+(``csrc/structured_transfer.cu``), whose wrappers live in
+``ops/fused_cycle.py`` and ``ops/transfer_kernels.py``.  Each source is
+compiled by its own ``nvcc`` process, all started together, then linked.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,12 +47,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_POS = 62                      # MFMG_MAX_POS in csrc/stencil_common.cuh
+MAX_OFF, MAX_RADIUS = 343, 3      # MFMG_MAX_OFF/RADIUS in csrc/stencil_apply.cu
 
 # launches of each CUDA wrapper (one per call that reached its kernel);
 # "fused_tail" counts both wrappers of ops/fused_cycle.py
-LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "fused_tail": 0}
+LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "fused_tail": 0,
+            "stencil_apply": 0, "structured_restrict": 0,
+            "structured_prolong": 0}
 
 _lib = None
 
@@ -74,6 +86,22 @@ def stencil_apply_sym_plain(planes: torch.Tensor, x: torch.Tensor,
         y = y + c * xp[sl_p]
         sl_m = tuple(slice(k - o, k - o + n) for o, n in zip(off, grid_shape))
         y = y + F.pad(c * xg, pad)[sl_m]
+    return y.reshape(x.shape)
+
+
+def stencil_apply_plain(planes: torch.Tensor, x: torch.Tensor, offsets,
+                        grid_shape) -> torch.Tensor:
+    """Plain K3 (mfmg_tpu _stencil_apply_xla): x zero-padded once by the
+    stencil radius, every shifted read a static slice, summed in offset
+    order in x's dtype.  Any dimension."""
+    k = max(max(abs(o) for o in off) for off in offsets)
+    dim = len(grid_shape)
+    xp = F.pad(x.reshape(grid_shape), (k,) * (2 * dim))
+    y = None
+    for i, off in enumerate(offsets):
+        sl = tuple(slice(k + o, k + o + n) for o, n in zip(off, grid_shape))
+        t = planes[i].to(x.dtype) * xp[sl]
+        y = t if y is None else y + t
     return y.reshape(x.shape)
 
 
@@ -116,6 +144,29 @@ def stencil_apply_sym(planes: torch.Tensor, x: torch.Tensor, pos_offsets,
     return y
 
 
+def stencil_apply(planes: torch.Tensor, x: torch.Tensor, offsets,
+                  grid_shape) -> torch.Tensor:
+    """K3: y = sum_o C_o x(i + o) over the (n_off, gz, gy, gx) planes of a
+    one-sided stencil (offsets of radius <= 3)."""
+    _check_grid(planes, x, len(offsets), grid_shape)
+    if not _k3_takes(tuple(offsets)):
+        raise ValueError(f"K3 takes at most {MAX_OFF} offsets of radius <= "
+                         f"{MAX_RADIUS}, got {len(offsets)}")
+    if x.device.type == "cpu":
+        return stencil_apply_plain(planes, x, offsets, grid_shape)
+    y = torch.empty_like(x)
+    gz, gy, gx = grid_shape
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.mfmg_stencil_apply(
+            planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+            x.data_ptr(), y.data_ptr(), gz, gy, gx, len(offsets),
+            _offset_table(offsets), _stream(x))
+    _raise_on(err, "stencil_apply")
+    LAUNCHES["stencil_apply"] += 1
+    return y
+
+
 def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                 inv_diag: torch.Tensor, coef: torch.Tensor, pos_offsets,
                 grid_shape, degree: int, want_res: bool = False):
@@ -153,6 +204,15 @@ def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 
 def _check_stencil(planes, x, pos_offsets, grid_shape):
+    _check_grid(planes, x, 1 + len(pos_offsets), grid_shape)
+    if len(pos_offsets) > MAX_POS:
+        raise ValueError(f"{len(pos_offsets)} positive offsets exceed the "
+                         f"kernel's limit ({MAX_POS})")
+
+
+def _check_grid(planes, x, n_planes, grid_shape):
+    """x a contiguous float32 grid vector, planes contiguous float32/bf16
+    (n_planes,) + grid_shape on x's device (cpu or cuda)."""
     if len(grid_shape) != 3:
         raise ValueError(f"the stencil kernels take 3-D grids, got {grid_shape}")
     n = int(np.prod(grid_shape))
@@ -161,7 +221,7 @@ def _check_stencil(planes, x, pos_offsets, grid_shape):
                          f"{x.dtype} {tuple(x.shape)}")
     if planes.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"planes must be float32 or bfloat16, got {planes.dtype}")
-    want = (1 + len(pos_offsets),) + tuple(grid_shape)
+    want = (n_planes,) + tuple(grid_shape)
     if tuple(planes.shape) != want or not planes.is_contiguous():
         raise ValueError(f"planes must be contiguous {want}, got "
                          f"{tuple(planes.shape)}")
@@ -169,9 +229,8 @@ def _check_stencil(planes, x, pos_offsets, grid_shape):
         raise ValueError(f"planes on {planes.device}, x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if len(pos_offsets) > MAX_POS or n >= 2 ** 31:
-        raise ValueError(f"{len(pos_offsets)} positive offsets / {n} points "
-                         f"exceed the kernel's limits ({MAX_POS} / 2^31)")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} points exceed the kernels' limit (2^31)")
 
 
 def _check_like(name, t, x):
@@ -182,9 +241,23 @@ def _check_like(name, t, x):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _offset_table(pos_offsets):
-    flat = [int(c) for off in pos_offsets for c in off]
-    return (ctypes.c_int * max(len(flat), 1))(*flat)
+def _ints(vals):
+    vals = [int(v) for v in vals]
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+# The offset checks and tables are made once per offset tuple: the fine
+# applies launch every few tens of microseconds, and rebuilding a 375-entry
+# table on every call costs the host as much.
+@functools.lru_cache(maxsize=None)
+def _k3_takes(offsets) -> bool:
+    return len(offsets) <= MAX_OFF and all(abs(c) <= MAX_RADIUS
+                                           for off in offsets for c in off)
+
+
+@functools.lru_cache(maxsize=None)
+def _offset_table(offsets):
+    return _ints(c for off in offsets for c in off)
 
 
 def _stream(x):
@@ -212,10 +285,19 @@ def _nvcc() -> str:
                        "mfmg_torch are built from csrc/ at first use")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; (return codes, logs) in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], logs
+
+
 def build_library() -> tuple[Path, str]:
     """Compile csrc/*.cu into the shared library keyed on a hash of the
-    sources and flags, unless it exists; returns (path, compiler log).
-    Concurrent builders write to private temporaries and rename atomically."""
+    sources and flags, unless it exists; returns (path, compiler log).  One
+    nvcc per source, all started together, then one link.  Concurrent
+    builders write to private temporaries and rename atomically."""
     cu, cuh = sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + cuh:
@@ -226,13 +308,23 @@ def build_library() -> tuple[Path, str]:
     if out.exists():
         return out, log_path.read_text() if log_path.exists() else ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out.with_name(f".{pid}.{p.stem}.o") for p in cu]
+    tmp = out.with_name(f".{pid}.tmp.so")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(cu, objs)]
+    rcs, logs = _run_all(cmds)
+    if all(rc == 0 for rc in rcs):
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        rc, link_log = _run_all(cmds[-1:])
+        rcs, logs = rcs + rc, logs + link_log
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(logs)
+    for cmd, rc, lg in zip(cmds, rcs, logs):
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{lg}")
     log_path.write_text(log)
     os.replace(tmp, out)
     return out, log
@@ -256,6 +348,11 @@ def _library():
         lib.mfmg_fused_tail.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, vp,
                                         vp, vp, vp, vp, vp, ip, ip, ip, ip, vp]
         lib.mfmg_fused_tail.restype = i
+        lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, vp]
+        lib.mfmg_stencil_apply.restype = i
+        for name in ("mfmg_structured_restrict", "mfmg_structured_prolong"):
+            getattr(lib, name).argtypes = [i, vp, vp, vp, ip, vp]
+            getattr(lib, name).restype = i
         lib.mfmg_cuda_error_string.argtypes = [i]
         lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -8,10 +8,14 @@ starting at a*s of width s+1 (windows overlap by one node plane):
   restrict:  out[e, a] = sum_t W[e, t, a] * x[a*s + t]
   prolong:   y[a*s + t] += sum_e W[e, t, a] * xc[e, a]   (the exact adjoint)
 
-Both are chains of per-axis 0/1 selection matmuls plus one contraction with
-the weights, as in the reference; these matmuls ran outside any Pallas
-kernel there, so ``torch.tensordot``/``einsum`` is their counterpart.  The
-port runs them in exact float32 (TF32 is off, see mfmg_torch/__init__.py).
+A 3-D float32 transfer goes through the kernels K4/K5
+(ops/transfer_kernels.py), counterparts of the reference's Pallas pair
+pallas_restrict_tiled/pallas_prolong_tiled: on a CUDA tensor they launch
+``csrc/structured_transfer.cu``, on a CPU tensor they run their plain
+versions, the reference's chain of per-axis 0/1 selection matmuls plus one
+contraction with the weights (``torch.tensordot``/``einsum`` in exact
+float32, TF32 off, see mfmg_torch/__init__.py).  Other dimensions and
+float64 run the plain chain, as the reference runs XLA.
 
 Coarser levels use ``GeneralWindowTransfer``: its dense matrix ``Rd`` below
 DENSE_TRANSFER_MAX_ELEMS entries, its windowed form (strided unfolds and an
@@ -27,21 +31,11 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from mfmg_torch.ops import transfer_kernels
+
 # Dense-transfer size cap (entries): below it the coarse-level transfer is a
 # dense matrix and both directions are one matvec (mfmg_tpu 2fcbb18).
 DENSE_TRANSFER_MAX_ELEMS = 16_000_000
-
-
-def _selection_matrix(naa: int, w: int, s: int, g: int) -> np.ndarray:
-    """((a, t) -> grid) window-selection operator: S[a*w + t, a*s + t] = 1."""
-    S = np.zeros((naa * w, g), dtype=np.float64)
-    a = np.repeat(np.arange(naa), w)
-    t = np.tile(np.arange(w), naa)
-    S[a * w + t, a * s + t] = 1.0
-    return S
-
-
-_LT, _LB = "ijk", "uvw"
 
 
 class StructuredTransfer(nn.Module):
@@ -55,10 +49,6 @@ class StructuredTransfer(nn.Module):
         self.agg_shape = tuple(int(v) for v in agg_shape)
         self.grid_shape = tuple(int(v) for v in grid_shape)
         self.register_buffer("W", W)
-        for d in range(len(self.agg_shape)):
-            S = _selection_matrix(self.agg_shape[d], self.window_shape[d],
-                                  self.window_shape[d] - 1, self.grid_shape[d])
-            self.register_buffer(f"S{d}", torch.from_numpy(S).to(W.dtype))
 
     @property
     def n_ev(self):
@@ -69,33 +59,19 @@ class StructuredTransfer(nn.Module):
         return (self.n_ev * int(np.prod(self.agg_shape)),
                 int(np.prod(self.grid_shape)))
 
-    def _sel(self):
-        return [getattr(self, f"S{d}") for d in range(len(self.agg_shape))]
+    def _kernel_case(self, v) -> bool:
+        return (len(self.grid_shape) == 3 and v.dtype == torch.float32
+                and self.W.dtype in (torch.float32, torch.bfloat16))
 
     def restrict(self, x):
-        dim = len(self.agg_shape)
-        t = x.reshape(self.grid_shape)
-        for d, S in enumerate(self._sel()):
-            t = torch.movedim(torch.tensordot(S, t, dims=([1], [d])), 0, d)
-        shape = []
-        for d in range(dim):
-            shape += [self.agg_shape[d], self.window_shape[d]]
-        xw = t.reshape(shape)                       # (u, i, v, j, w, k)
-        spec = ("e" + _LT[:dim] + _LB[:dim] + ","
-                + "".join(_LB[d] + _LT[d] for d in range(dim))
-                + "->" + _LB[:dim] + "e")
-        return torch.einsum(spec, self.W, xw).reshape(-1)
+        fn = (transfer_kernels.structured_restrict if self._kernel_case(x)
+              else transfer_kernels.structured_restrict_plain)
+        return fn(self.W, x, self.window_shape, self.agg_shape, self.grid_shape)
 
     def prolong(self, xc):
-        dim = len(self.agg_shape)
-        xcg = xc.reshape(self.agg_shape + (self.n_ev,))
-        spec = ("e" + _LT[:dim] + _LB[:dim] + "," + _LB[:dim] + "e->"
-                + "".join(_LB[d] + _LT[d] for d in range(dim)))
-        t = torch.einsum(spec, self.W, xcg).reshape(
-            tuple(a * w for a, w in zip(self.agg_shape, self.window_shape)))
-        for d, S in enumerate(self._sel()):
-            t = torch.movedim(torch.tensordot(S, t, dims=([0], [d])), 0, d)
-        return t.reshape(-1)
+        fn = (transfer_kernels.structured_prolong if self._kernel_case(xc)
+              else transfer_kernels.structured_prolong_plain)
+        return fn(self.W, xc, self.window_shape, self.agg_shape, self.grid_shape)
 
 
 class GeneralWindowTransfer(nn.Module):

@@ -1,0 +1,69 @@
+"""The reference's PCG count and true residual on the CPU, for the bounds of
+chip_smoke.py.
+
+    JAX_PLATFORMS=cpu python scripts/reference_cpu_counts.py N_REF DEGREE \
+        [--distort] [--max-levels L]
+
+Builds mfmg_tpu's hierarchy (x64 enabled, on the CPU) for the main
+configuration of bench.py:97-103 (float32 with bf16 preconditioner planes,
+Chebyshev degree 2, 4x4x4 agglomerates, direct coarse solve) on the
+"linear" Laplace hyper_cube, optionally distorted (distort_random, seed 0),
+and runs solve_cg(b, tol=1e-5, maxiter=50) with
+b = default_rng(0).uniform(size=n) in float32, the right-hand side of
+chip_smoke.py.  Prints the level sizes, the iteration count, the recursive
+relres and the true relres ||b - A x|| / ||b|| in float64.  129^3 (N_REF 7,
+DEGREE 1) takes about a minute of setup.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("n_ref", type=int)
+    ap.add_argument("degree", type=int)
+    ap.add_argument("--distort", action="store_true")
+    ap.add_argument("--max-levels", type=int, default=3)
+    args = ap.parse_args()
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import mfmg_tpu.config as cfg
+    from mfmg_tpu import Hierarchy, LaplaceProblem
+
+    t0 = time.perf_counter()
+    prob = LaplaceProblem.hyper_cube(3, args.n_ref, degree=args.degree,
+                                     material_property="linear",
+                                     distort_random=args.distort, seed=0)
+    config = cfg.Config(
+        max_levels=args.max_levels, operator="stencil", dtype="float32",
+        coeff_dtype="bfloat16",
+        eigensolver=cfg.EigensolverConfig(type="lapack", n_eigenvectors=2,
+                                          n_eigenvectors_deep=4),
+        smoother=cfg.SmootherConfig(type="chebyshev", degree=2),
+        agglomeration=cfg.AgglomerationConfig(nx=4, ny=4, nz=4),
+        coarse=cfg.CoarseConfig(type="direct"))
+    hier = Hierarchy(prob, config)
+    print(f"setup {time.perf_counter() - t0:.1f} s, levels "
+          f"{[lv.op.shape[0] for lv in hier.levels]}", flush=True)
+    b = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
+    x, info = hier.solve_cg(b, tol=1e-5, maxiter=50)
+    b64 = b.astype(np.float64)
+    true = (np.linalg.norm(b64 - prob.A @ np.asarray(x, dtype=np.float64))
+            / np.linalg.norm(b64))
+    print(f"n_ref {args.n_ref} degree {args.degree} distort {args.distort} "
+          f"max_levels {args.max_levels}: {prob.n_dofs} dofs, "
+          f"{int(info['iterations'])} iterations, relres "
+          f"{float(info['relres']):.3e}, true relres {true:.3e}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

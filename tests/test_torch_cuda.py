@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and the fused coarse tail on the card against their plain
+"""Kernels K1-K5 and the fused coarse tail on the card against their plain
 PyTorch versions.
 
 Marked ``cuda``: each test takes the ``cuda`` fixture, which skips when
@@ -10,11 +10,11 @@ an NVIDIA H100 run them with
 (``--noconftest``: tests/conftest.py configures JAX, which that machine
 does not need and may not have; this file imports no JAX.)
 
-Tolerances: K1 1e-5 ||y||_inf (float accumulation, the kernel contracts
-multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative on the
-residual (the bounds of tests/test_pallas.py); the fused tail 1e-5 relative
-(2-norm), the bound tests/test_fused_cycle.py holds the reference's kernel
-to: float sums over the same operands in another order.
+Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
+contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
+on the residual (the bounds of tests/test_pallas.py); K4/K5 and the fused
+tail 1e-5 relative (2-norm), the bound tests/test_fused_cycle.py holds the
+reference's kernel to: float sums over the same operands in another order.
 """
 
 import copy
@@ -29,6 +29,7 @@ from mfmg_torch.amge.hierarchy import LevelData
 from mfmg_torch.ops import fused_cycle as tfc
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
+from mfmg_torch.ops import transfer_kernels as ttk
 from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
 from mfmg_torch.solve.smoothers import (FusedChebyshevSmoother, build_smoother,
                                         fuse_chebyshev)
@@ -115,7 +116,8 @@ def test_cuda_hierarchy_matches_cpu(cuda):
     hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
     tk.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
-    assert min(tk.LAUNCHES.values()) > 0
+    assert all(tk.LAUNCHES[k] > 0
+               for k in ("stencil_apply_sym", "cheb_smooth", "fused_tail"))
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     yc, yg = hc.vmult(b), hg.vmult(b).cpu()
@@ -123,16 +125,112 @@ def test_cuda_hierarchy_matches_cpu(cuda):
     assert _rel(yg, y_generic) <= BF16_STORAGE_GAP
 
 
-def test_one_sided_stencil_on_cuda_raises(cuda):
-    """A non-symmetric stencil on a CUDA tensor has no kernel yet: it raises
-    instead of running the plain version."""
-    p = LaplaceProblem.hyper_cube(3, 2, material_property="linear")
+@pytest.mark.parametrize("degree,n_ref", [(1, 4), (2, 3), (2, 4), (3, 2)],
+                         ids=["Q1-17^3", "Q2-17^3", "Q2-33^3", "Q3-13^3"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_matches_plain(cuda, degree, n_ref, dtype):
+    """K3 on one-sided operators (Q1 with all 27 planes, Q2 125, Q3 343)
+    against its plain version; one launch per call, through the dispatch."""
+    p = LaplaceProblem.hyper_cube(3, n_ref, degree=degree,
+                                  material_property="linear")
     host = tst.stencil_from_cell_matrices(p.mesh, p.A_loc, p.constrained,
-                                          p.diag_raw, dtype=torch.float32)
-    one = tst.StencilOperator(host.coeffs, host.offsets, host.grid_shape,
-                              None).to(cuda)
-    with pytest.raises(NotImplementedError):
-        one(torch.zeros(p.n_dofs, device=cuda))
+                                          p.diag_raw, dtype=dtype)
+    op = tst.stencil_to_device(tst.StencilOperator(
+        host.coeffs, host.offsets, host.grid_shape, None), cuda)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, p.n_dofs).astype(np.float32)).to(cuda)
+    before = tk.LAUNCHES["stencil_apply"]
+    y = op(x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["stencil_apply"] == before + 1
+    ref = tk.stencil_apply_plain(op.coeffs, x, op.offsets, op.grid_shape)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", ["Q1-33^3", "Q2-33^3"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_k4_k5_match_plain(cuda, shape, bf16):
+    """K4 and K5 against their plain versions on the level-0 transfer of a
+    main-path hierarchy (5^3 or 9^3 windows), float32 and bf16 weights; one
+    launch each; adjoint to 1e-5."""
+    tr = (_hier(5) if shape.startswith("Q1") else _hier_q2(4)).levels[0].transfer
+    W = tr.W.to(torch.bfloat16) if bf16 else tr.W
+    g = (tr.window_shape, tr.agg_shape, tr.grid_shape)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(tr.shape[1]).astype(np.float32)).to(cuda)
+    xc = torch.from_numpy(rng.standard_normal(tr.shape[0]).astype(np.float32)).to(cuda)
+    before = dict(tk.LAUNCHES)
+    rx, py = ttk.structured_restrict(W, x, *g), ttk.structured_prolong(W, xc, *g)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["structured_restrict"] == before["structured_restrict"] + 1
+    assert tk.LAUNCHES["structured_prolong"] == before["structured_prolong"] + 1
+    assert _rel(rx, ttk.structured_restrict_plain(W, x, *g)) <= 1e-5
+    assert _rel(py, ttk.structured_prolong_plain(W, xc, *g)) <= 1e-5
+    lhs, rhs = float(torch.dot(rx, xc)), float(torch.dot(x, py))
+    assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(rx) * torch.linalg.norm(xc))
+
+
+def test_q2_hierarchy_runs_its_kernels(cuda):
+    """The main configuration on the Q2 cube at 33^3: the full-mode tail (9^3
+    windows) once per V-cycle; the fine applies through K1/K2 where the
+    host's numpy sums the cell matrices into bit-symmetric planes, else all
+    through K3; the V-cycle equal to the CPU one with the same tail, the same
+    PCG count; the generic recursion launches K4 and K5 once each."""
+    hg = _hier_q2(4)
+    ft = hg.levels[0].fused
+    assert ft is not None and ft.fine_window == (9, 9, 9)
+    hc = Hierarchy(hg.problem, _main_config(), device="cpu")
+    hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
+    b = np.random.default_rng(7).uniform(size=hg.problem.n_dofs).astype(np.float32)
+    tk.reset_launch_counts()
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    n = ig["iterations"] + 1
+    assert tk.LAUNCHES["fused_tail"] == n
+    if hg.levels[0].op.sym_pos is None:
+        # 5 per V-cycle (two per degree-2 smooth, the residual) and one per
+        # CG apply (the initial residual and one per iteration)
+        assert tk.LAUNCHES["stencil_apply"] == 6 * n
+        assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
+    else:
+        assert tk.LAUNCHES["cheb_smooth"] == 2 * n
+        assert tk.LAUNCHES["stencil_apply_sym"] == n
+        assert tk.LAUNCHES["stencil_apply"] == 0
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
+    hg.levels[0].fused = None
+    try:
+        tk.reset_launch_counts()
+        hg.vmult(b)
+        torch.cuda.synchronize()
+    finally:
+        hg.levels[0].fused = ft
+    assert tk.LAUNCHES["structured_restrict"] == 1
+    assert tk.LAUNCHES["structured_prolong"] == 1
+
+
+def test_distorted_q2_runs_k3_k4_k5(cuda):
+    """The distorted Q2 cube (seed 0) at 33^3 with two levels, one-sided on
+    every host: six K3 launches per V-cycle and CG apply, K4 and K5 once
+    per V-cycle, no K1/K2 or tail; PCG count and V-cycle (1e-5) as on the
+    CPU."""
+    cfg = _main_config()
+    cfg.max_levels = 2
+    prob = LaplaceProblem.hyper_cube(3, 4, degree=2, material_property="linear",
+                                     distort_random=True, seed=0)
+    hg, hc = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cpu")
+    assert hg.levels[0].op.sym_pos is None and hg.levels[0].fused is None
+    b = np.random.default_rng(8).uniform(size=prob.n_dofs).astype(np.float32)
+    tk.reset_launch_counts()
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    n = ig["iterations"] + 1
+    assert tk.LAUNCHES["stencil_apply"] == 6 * n
+    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
+    assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
+    assert tk.LAUNCHES["fused_tail"] == 0
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
 
 
 def test_hierarchy_to_moves_every_level(cuda):
@@ -181,11 +279,16 @@ def _main_config():
 _HIER = {}
 
 
-def _hier(n_ref):
-    if n_ref not in _HIER:
-        prob = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
-        _HIER[n_ref] = Hierarchy(prob, _main_config())
-    return _HIER[n_ref]
+def _hier(n_ref, degree=1):
+    if (n_ref, degree) not in _HIER:
+        prob = LaplaceProblem.hyper_cube(3, n_ref, degree=degree,
+                                         material_property="linear")
+        _HIER[n_ref, degree] = Hierarchy(prob, _main_config())
+    return _HIER[n_ref, degree]
+
+
+def _hier_q2(n_ref):
+    return _hier(n_ref, degree=2)
 
 
 def _tail(levels, windowed, reduced):

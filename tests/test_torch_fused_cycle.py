@@ -11,7 +11,7 @@ test_fused_cycle.py holds the reference's own kernel to against its
 recursion.  Both sides compute in float32 with the same operands and differ
 only in summation order (matmul chains and rolls there, einsum and slice
 sums here); observed differences are ~1e-7.  The two wider bounds
-(REF_REDUCED_WINDOWED_TOL, BF16_STORAGE_GAP) give their reasons beside them.
+(BF16_ROUNDING_GAP, BF16_STORAGE_GAP) give their reasons beside them.
 """
 
 import dataclasses
@@ -129,23 +129,29 @@ def _bf16_rounded(jl):
             dataclasses.replace(l1, op=op1, transfer=tr1), l2)
 
 
-# The reference's own reduced windowed tail on the CPU also rounds the
-# correction's vectors (r1, b2, x2, the prolonged planes) to bf16: its
-# _match (fused_cycle.py:112-124) casts the data down where a 0/1 selection
-# matrix is the first matmul operand.  The port keeps them in float32, so
-# there the bound is the size of that rounding (observed 2.4e-4 on the
-# sub-cycle and 1.2e-4 on the full tail at 17^3), one decade below the
-# effect of bf16 weight storage itself (1.9e-3 against float32 storage).
-REF_REDUCED_WINDOWED_TOL = 1e-3
+# The reference's reduced windowed tail on the CPU also rounds four of the
+# correction's vectors (r1, b2, x2, the prolonged planes summed over the z
+# and y windows) to bf16: its _match (fused_cycle.py:112-124) casts the data
+# down where a bf16 0/1 selection matrix is the first matmul operand.  The
+# port rounds at the same points, so against the reference's reduced tail
+# it is held to TOL (observed 1.1e-7 to 2.7e-7 at 17^3 and 33^3: float32
+# roundoff; a rounding that flips under the other summation order moves one
+# value by one bf16 ulp, and perturbing b1 by 1e-7 moves the output by
+# 1.5e-7, so such flips stay at roundoff level).  Against the reference's
+# tail on bf16-rounded weights with float32 vectors the gap is that
+# rounding itself: observed 2.4e-4 on the sub-cycle and 1.2e-4 on the full
+# tail at 17^3.
+BF16_ROUNDING_GAP = 1e-3
 
 
 @pytest.mark.parametrize("windowed", [False, True], ids=["dense", "windowed"])
 def test_reduced_storage_matches_jax(windowed):
     """bf16 weights (L1 coefficients, Rd or W2, fine W) with float32 invd,
     inv2 and Chebyshev coefficients: float32 sums on the bf16-rounded
-    weights.  Held to 1e-5 against the reference's tail on the same rounded
-    weights, and against the reference's reduced storage (1e-5 dense,
-    REF_REDUCED_WINDOWED_TOL windowed)."""
+    weights, and in the windowed form the reference's bf16 rounding of four
+    correction vectors.  Held to 1e-5 against the reference's reduced
+    storage, and against the reference's tail on the same rounded weights
+    with float32 vectors (1e-5 dense, BF16_ROUNDING_GAP windowed)."""
     jl, tl = _built(4)
     if windowed:
         jl, tl = _strip_rd(jl, tl)
@@ -155,16 +161,16 @@ def test_reduced_storage_matches_jax(windowed):
     assert ft.coeffs.dtype == torch.bfloat16 and ft.W.dtype == torch.bfloat16
     assert (ft.W2 if windowed else ft.Rd).dtype == torch.bfloat16
     assert ft.invd.dtype == ft.inv2.dtype == ft.cheb_coef.dtype == torch.float32
-    ref_tol = REF_REDUCED_WINDOWED_TOL if windowed else TOL
+    fr_tol = BF16_ROUNDING_GAP if windowed else TOL
     b1 = _vec(tl[1].op.shape[0], 5)
     xt = tfc.fused_subcycle_apply(ft, torch.from_numpy(b1)).numpy()
-    assert _rel(xt, jfc.fused_subcycle_apply(fr, jnp.asarray(b1))) <= TOL
-    assert _rel(xt, jfc.fused_subcycle_apply(fj, jnp.asarray(b1))) <= ref_tol
+    assert _rel(xt, jfc.fused_subcycle_apply(fr, jnp.asarray(b1))) <= fr_tol
+    assert _rel(xt, jfc.fused_subcycle_apply(fj, jnp.asarray(b1))) <= TOL
     n = tl[0].op.shape[0]
     x, res = _vec(n, 6, uniform=True), _vec(n, 7)
     ot = tfc.fused_correction_apply(ft, torch.from_numpy(x),
                                     torch.from_numpy(res)).numpy()
-    for fs, tol in ((fr, TOL), (fj, ref_tol)):
+    for fs, tol in ((fr, fr_tol), (fj, TOL)):
         oj = jfc.fused_correction_apply(fs, jnp.asarray(x), jnp.asarray(res))
         assert _rel(ot, oj) <= tol
 
@@ -303,3 +309,49 @@ def test_wrappers_reject_bad_inputs():
                         ft.cheb_coef, ft.degree, ft.nss, ft.inv2, Rd=ft.Rd)
     with pytest.raises(ValueError):
         tfc.fused_correction_apply(sub, torch.zeros(n), torch.zeros(n))
+
+
+def test_reduced_windowed_tail_rounds_like_jax_at_33():
+    """The windowed form with bf16 weights at 33^3, both modes: the port's
+    rounding of r1, b2, x2 and the z/y-summed prolonged values against the
+    reference's reduced tail to TOL (observed 2e-7 to 2.7e-7), and
+    BF16_ROUNDING_GAP away from float32 vectors on the same weights."""
+    jl, tl = _strip_rd(*_built(5))
+    fr = jfc.build_fused_tail(_bf16_rounded(jl), 1)
+    fj = jfc.build_fused_tail(jl, 1, reduced_storage=True)
+    ft = tfc.build_fused_tail(tl, 1, reduced_storage=True)
+    assert ft.W2.dtype == torch.bfloat16
+    b1 = _vec(ft.n1, 11)
+    xt = tfc.fused_subcycle_apply(ft, torch.from_numpy(b1)).numpy()
+    assert _rel(xt, jfc.fused_subcycle_apply(fj, jnp.asarray(b1))) <= TOL
+    assert _rel(xt, jfc.fused_subcycle_apply(fr, jnp.asarray(b1))) <= \
+        BF16_ROUNDING_GAP
+    x, res = _vec(ft.n_fine, 12, uniform=True), _vec(ft.n_fine, 13)
+    ot = tfc.fused_correction_apply(ft, torch.from_numpy(x),
+                                    torch.from_numpy(res)).numpy()
+    assert _rel(ot, jfc.fused_correction_apply(fj, jnp.asarray(x),
+                                               jnp.asarray(res))) <= TOL
+
+
+def test_float64_hierarchy_takes_the_generic_recursion_in_both():
+    """A float64 hierarchy runs the generic recursion in both packages: the
+    reference builds its tail only on a TPU backend (hierarchy.py:405-406),
+    the port only for float32 on CUDA (the gate is reached here by setting
+    the device type without touching a card).  Their V-cycles agree to
+    1e-12 at 17^3."""
+    prob = JLaplace.hyper_cube(3, 4, material_property="linear")
+    jh = JHierarchy(prob, main_path_config(jcfg, "float64"))
+    assert jh.levels[0].fused is None
+    arrays, meta = flatten_levels(jh.levels)
+    tl = levels_from_arrays(arrays, meta, "cpu")
+    b = np.random.default_rng(14).uniform(size=prob.n_dofs)
+    yj = j_vcycle(jh.levels, jnp.asarray(b), jnp.zeros(prob.n_dofs))
+    yt = t_vcycle(tl, torch.from_numpy(b), torch.zeros(prob.n_dofs,
+                                                       dtype=torch.float64))
+    assert _rel(yt.numpy(), yj) <= 1e-12
+    th = THierarchy(TLaplace.hyper_cube(3, 4, material_property="linear"),
+                    main_path_config(tcfg, "float64"), device="cpu")
+    sm = th.levels[0].smoother
+    th.device = torch.device("cuda")
+    th._finalize_cuda_kernels()
+    assert th.levels[0].fused is None and th.levels[0].smoother is sm

@@ -67,7 +67,8 @@ def test_plain_applies_match_jax_f64(pair):
     planes = tst._gather_planes(T)
     y_sym = tk.stencil_apply_sym_plain(planes, torch.from_numpy(x),
                                        T.pos_offsets, T.grid_shape).numpy()
-    y_one = tst._stencil_apply_plain(T, torch.from_numpy(x)).numpy()
+    y_one = tk.stencil_apply_plain(T.coeffs, torch.from_numpy(x), T.offsets,
+                                   T.grid_shape).numpy()
     for y in (y_sym, y_one):
         assert np.abs(y - y_pal).max() <= 1e-12 * scale
         assert np.abs(y - y_xla).max() <= 1e-12 * scale
