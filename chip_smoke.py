@@ -32,16 +32,21 @@ each phase prints its wall time):
     one-sided planes (which stands for pallas_stencil_apply_tiled) and
     K4/K5 (float32 and bf16 weights, with cuSPARSE yardsticks of R and R^T)
     against their plain versions at these shapes; the V-cycle and its
-    device time with K4/K5 and with the tensordot chain, in turns;
+    device time with K4/K5 and with their plain versions, in turns;
  7. the Q2 paths (fe_degree 2, 65^3 nodes, 274,625 dofs, 125 offsets):
     (a) the main configuration on the Q2 cube, with the full-mode tail over
     9^3 windows (held against its plain version at these shapes, with
     K4/K5 at these windows) and the generic recursion in turns; its fine
     applies take K1/K2 or K3 as the planes come out symmetric or not on
-    the host; (b) the distorted Q2 cube with two levels, one-sided on every
-    host: K3 (bf16 and f32 planes, cuSPARSE yardstick) against its plain
-    version, then the path with every fine apply through K3 and the fine
-    transfer through K4/K5.
+    the host.  Where they are symmetric, K1 (62 positive planes, f32 and
+    bf16) and K2 are held against their plain versions at these shapes,
+    and the same cube runs again with its fine operator kept one-sided:
+    every fine apply through K3 and the plain Chebyshev smoother, with the
+    tail, as the reference runs it where the planes are not symmetric;
+    (b) the distorted Q2 cube with two levels, one-sided on every host: K3
+    (bf16 and f32 planes, cuSPARSE yardstick) against its plain version,
+    then the path with every fine apply through K3 and the fine transfer
+    through K4/K5.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched.  The line
 before the last is the kernel table as JSON, one row per TPU kernel of the
@@ -67,7 +72,8 @@ PCG_TOL, PCG_MAX = 1e-5, 50
 # reference's own counts (mfmg_tpu on the CPU: 9 at 65^3, 10 at 129^3, 15 at
 # Q2, 16 on the distorted Q2 cube with two levels), with one to spare at Q2
 # for another summation order.
-PCG_ITERS_MAX = {"65^3": 9, "129^3": 10, "Q2 65^3": 16, "Q2 65^3 distorted": 17}
+PCG_ITERS_MAX = {"65^3": 9, "129^3": 10, "Q2 65^3": 16, "Q2 65^3 one-sided": 16,
+                 "Q2 65^3 distorted": 17}
 # True residual ||b - A x|| / ||b|| in float64 of the float32 iterate.  The
 # float32 CG (the reference's own algorithm) stops on its recursive residual
 # (<= PCG_TOL); its true residual levels off near 2e-5 at 65^3: mfmg_tpu
@@ -75,9 +81,9 @@ PCG_ITERS_MAX = {"65^3": 9, "129^3": 10, "Q2 65^3": 16, "Q2 65^3 distorted": 17}
 # exact solution alone leaves 5.9e-6.  The bound is twice the reference's.
 # At 129^3 mfmg_tpu (x64 on the CPU, the same configuration and RHS) takes
 # 10 iterations to relres 2.61e-6 with a true relres of 8.33e-5; at Q2 65^3
-# 15 iterations, 7.37e-6 and 4.93e-5; on the distorted Q2 cube (seed 0, two
-# levels) 16 iterations, 6.65e-6 and 5.46e-5.  Each bound is twice the
-# reference's.
+# 15 iterations, 7.37e-6 and 4.93e-5 (its planes one-sided on that host, as
+# on the Q2 path "one-sided"); on the distorted Q2 cube (seed 0, two levels)
+# 16 iterations, 6.65e-6 and 5.46e-5.  Each bound is twice the reference's.
 TRUE_RES_MAX = 4e-5
 TRUE_RES_MAX_LARGE = 2 * 8.33e-5
 TRUE_RES_MAX_Q2 = 2 * 4.93e-5
@@ -473,7 +479,7 @@ def main():
         return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
 
     class PlainTransfer(torch.nn.Module):
-        """K4/K5's plain versions (the tensordot chain) on a level-0
+        """K4/K5's plain versions (the per-axis chain) on a level-0
         transfer's weights: the same transfer without the kernels, for the
         V-cycle's A/B."""
 
@@ -490,15 +496,38 @@ def main():
         def prolong(self, xc):
             return ttk.structured_prolong_plain(self.tr.W, xc, *self._geom())
 
-    def run_main_path(label, prob, mode_full, kernels, max_levels=3):
-        """Hierarchy + solve_cg with the counts set to 0 just before and read
-        just after, each kernel of `kernels` launched at least once; the rest
-        of the phase is measurement.  mode_full: the tail's mode (True full,
-        False sub-cycle), None for a hierarchy without a tail."""
+    def one_sided_hierarchy(prob):
+        """The main configuration with the fine operator kept one-sided: the
+        hierarchy set up on the host, its level-0 planes (bf16) and the
+        outer CG's (float32) replaced by one-sided operators of the same
+        values, then moved to the card, whose finalization keeps the plain
+        Chebyshev smoother (fine applies through K3) and builds the tail."""
+        hier = Hierarchy(prob, main_config(cfg), device="cpu")
+
+        def one_sided(dt):
+            host = st.stencil_from_cell_matrices(prob.mesh, prob.A_loc,
+                                                 prob.constrained,
+                                                 prob.diag_raw, dtype=dt)
+            return st.stencil_to_device(st.StencilOperator(
+                host.coeffs, host.offsets, host.grid_shape, None), "cpu")
+
+        hier.levels[0].op = one_sided(torch.bfloat16)
+        hier._exact_op_cache = one_sided(torch.float32)
+        return hier.to("cuda")
+
+    def run_main_path(label, prob, mode_full, kernels, max_levels=3,
+                      build=None):
+        """Hierarchy (or build()) + solve_cg with the counts set to 0 just
+        before and read just after, each kernel of `kernels` launched at
+        least once and the fine level's kernels as often as its operator
+        calls for; the rest of the phase is measurement.  mode_full: the
+        tail's mode (True full, False sub-cycle), None for a hierarchy
+        without a tail."""
         tk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hier = Hierarchy(prob, main_config(cfg, max_levels), device="cuda")
+        hier = (build() if build is not None else
+                Hierarchy(prob, main_config(cfg, max_levels), device="cuda"))
         setup_s = time.perf_counter() - t0
         bh = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
         t0 = time.perf_counter()
@@ -541,9 +570,20 @@ def main():
             check(launches[k] > 0,
                   f"kernel {k} was never launched by the {label} main path")
         # solve_cg applies the preconditioner once per iteration plus once
-        check(launches["fused_tail"] == (0 if ft is None else info["iterations"] + 1),
-              f"tail launched {launches['fused_tail']} times in "
-              f"{info['iterations'] + 1} V-cycles")
+        n_cyc = info["iterations"] + 1
+        check(launches["fused_tail"] == (0 if ft is None else n_cyc),
+              f"tail launched {launches['fused_tail']} times in {n_cyc} "
+              f"V-cycles")
+        # the fine applies: one-sided, five K3 per V-cycle (two per degree-2
+        # smooth, the residual) and one per CG apply (the first residual,
+        # one per iteration); symmetric, two K2 per V-cycle and one K1 per
+        # CG apply
+        want = (dict(stencil_apply=6 * n_cyc, stencil_apply_sym=0, cheb_smooth=0)
+                if hier.levels[0].op.sym_pos is None else
+                dict(stencil_apply=0, stencil_apply_sym=n_cyc,
+                     cheb_smooth=2 * n_cyc))
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{label}: fine-level launches {got}, not {want}")
         # same-call A/B: the tail and the generic recursion, in turns
         bd = torch.from_numpy(bh).to(dev)
         keys = ("generic",) if ft is None else ("tail", "generic")
@@ -716,7 +756,7 @@ def main():
         blas = [k for k in rows129["tail"] if "gemv" in k.lower() or "gemm" in k.lower()]
         print(f"  BLAS rows in the 129^3 tail V-cycle: {blas}", flush=True)
         check(not blas, "the 129^3 tail V-cycle still runs BLAS kernels")
-        # the fine transfer through K4/K5 against the tensordot chain inside
+        # the fine transfer through K4/K5 against their plain versions inside
         # the same V-cycle, in turns
         tr7 = hier7.levels[0].transfer
         bd7 = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -729,8 +769,8 @@ def main():
             hier7.levels[0].transfer = tr7 if key == "kernels" else PlainTransfer(tr7)
             dev_x[key], top_x[key], _ = device_ms_per_cycle(hier7, bd7)
         hier7.levels[0].transfer = tr7
-        print(f"  129^3 V-cycle ms, fine transfer by K4/K5 vs the tensordot "
-              f"chain (in turns): kernels {ab_x['kernels']}, chain "
+        print(f"  129^3 V-cycle ms, fine transfer by K4/K5 vs their plain "
+              f"versions (in turns): kernels {ab_x['kernels']}, chain "
               f"{ab_x['chain']}; device ms/cycle: kernels "
               f"{dev_x['kernels']:.4f}, chain {dev_x['chain']:.4f}", flush=True)
         for key in ("kernels", "chain"):
@@ -813,7 +853,39 @@ def main():
                    csr=csr_from_transfer(trq0, dev))
         check_xfer("Q2/bf16", trq0, trq0.W.to(torch.bfloat16),
                    np.random.default_rng(13))
-        del hierq, trq0
+        summaryo = None
+        if sym_q:
+            # the pair kernels this path ran, at its shapes: K1 on the outer
+            # CG's float32 planes and the V-cycle's bf16 planes (1 + 62), K2
+            # on the level-0 smoother
+            rngq = np.random.default_rng(14)
+            xq = torch.from_numpy(rngq.uniform(-1, 1, probq.n_dofs)
+                                  .astype(np.float32)).to(dev)
+            bq = torch.from_numpy(rngq.uniform(size=probq.n_dofs)
+                                  .astype(np.float32)).to(dev)
+            opq0 = hierq.levels[0].op
+            for name, op in (("f32", hierq._exact_fine_op()), ("bf16", opq0)):
+                check(len(op.pos_offsets) == 62,
+                      f"Q2 {name} planes: {len(op.pos_offsets)} positive")
+                check_k1(f"stencil_apply_sym/Q2/{name}", op.planes, xq,
+                         op.pos_offsets, op.grid_shape)
+            k2_err = max(k2_err, check_k2("Q2 65^3", opq0, xq, bq,
+                                          hierq.levels[0].smoother))
+            del hierq, trq0, opq0, xq, bq
+            # the same cube with its fine operator kept one-sided, as the
+            # reference runs it where the planes are not bit-symmetric: K3
+            # for every fine apply, with the full-mode tail
+            hiero, summaryo, tro, _ = run_main_path(
+                "Q2 65^3 one-sided", probq, True, ("stencil_apply", "fused_tail"),
+                build=lambda: one_sided_hierarchy(probq))
+            check(tro <= TRUE_RES_MAX_Q2,
+                  f"one-sided Q2 true relres {tro:.3e} > {TRUE_RES_MAX_Q2}")
+            check(hiero.levels[0].fused.fine_window == (9, 9, 9),
+                  "one-sided Q2 tail windows "
+                  f"{hiero.levels[0].fused.fine_window}")
+            del hiero
+        else:
+            del hierq, trq0
 
         # (b) the distorted Q2 cube (general cell Jacobians): one-sided
         # planes on every host, two levels (its level-1 agglomerates are not
@@ -845,15 +917,10 @@ def main():
               f"distorted Q2 true relres {trd:.3e} > {TRUE_RES_MAX_Q2_DISTORTED}")
         ld = summaryd["launches"]
         n_cyc = summaryd["pcg_iterations"] + 1
-        # 5 per V-cycle (two per degree-2 smooth, the residual), one per CG
-        # apply; the fine transfer once each way per V-cycle
-        check(ld["stencil_apply"] == 6 * n_cyc,
-              f"K3 launched {ld['stencil_apply']} times, not 6 x {n_cyc}")
+        # the fine transfer once each way per V-cycle
         check(ld["structured_restrict"] == ld["structured_prolong"] == n_cyc,
               f"K4/K5 launched {ld['structured_restrict']}/"
               f"{ld['structured_prolong']} times in {n_cyc} V-cycles")
-        check(ld["stencil_apply_sym"] == ld["cheb_smooth"] == 0,
-              "the one-sided Q2 path launched K1 or K2")
         del hierd
 
     tail_work65 = tail_work(ft65, True)
@@ -872,8 +939,8 @@ def main():
         row("stencil_apply_sym", "mfmg_torch/csrc/stencil_apply_sym.cu",
             "mfmg_tpu/ops/pallas_stencil.py:611", l65["stencil_apply_sym"],
             k1v, k1_work65, k1v["library_ms"],
-            err=max(k1v["max_abs_err"],
-                    variants["stencil_apply_sym/bf16"]["max_abs_err"])),
+            err=max(v["max_abs_err"] for k, v in variants.items()
+                    if k.startswith("stencil_apply_sym/"))),
         row("cheb_smooth", "mfmg_torch/csrc/cheb_smooth.cu",
             "mfmg_tpu/ops/pallas_stencil.py:691", l65["cheb_smooth"],
             variants["cheb_smooth/65^3/with_residual"], k2_work65, None,
@@ -916,12 +983,13 @@ def main():
             "mfmg_tpu/ops/pallas_stencil.py:344", l129["cheb_smooth"],
             variants["cheb_smooth/129^3/with_residual"], k2_work129, None),
     ]
-    for s in (summary65, summary129, summaryq, summaryd):
-        s["card"] = card
-    print(f"summary 65^3: {json.dumps(summary65)}", flush=True)
-    print(f"summary 129^3: {json.dumps(summary129)}", flush=True)
-    print(f"summary Q2 65^3: {json.dumps(summaryq)}", flush=True)
-    print(f"summary Q2 65^3 distorted: {json.dumps(summaryd)}", flush=True)
+    summaries = {"65^3": summary65, "129^3": summary129, "Q2 65^3": summaryq,
+                 "Q2 65^3 one-sided": summaryo,
+                 "Q2 65^3 distorted": summaryd}
+    for label, s in summaries.items():
+        if s is not None:
+            s["card"] = card
+            print(f"summary {label}: {json.dumps(s)}", flush=True)
     print(f"kernel variants: {json.dumps(variants)}", flush=True)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -40,7 +40,7 @@ from mfmg_torch.ops import stencil_kernels
 from mfmg_torch.ops.block_stencil import (BlockStencilOperator,
                                           block_stencil_apply_coeffs)
 from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
-                                                StructuredTransfer, _gwt_pads)
+                                                StructuredTransfer, _gwt_prolong)
 from mfmg_torch.solve.coarse import DirectCoarseSolver
 from mfmg_torch.solve.smoothers import ChebyshevSmoother, _cheb_coeffs
 
@@ -248,39 +248,14 @@ def _windowed_correction(ft: FusedTail, r1, inv2):
     windows, before the x windows are added."""
     dt = r1.dtype
     tr = ft.coarse_transfer(dt)
-    if ft.W2.dtype != torch.bfloat16:
-        return tr.prolong(inv2 @ tr.restrict(r1))
-
-    def rnd(v):
-        return v.to(torch.bfloat16).to(dt)
-
+    if ft.W2.dtype == torch.bfloat16:
+        def rnd(v):
+            return v.to(torch.bfloat16).to(dt)
+    else:
+        def rnd(v):
+            return v
     x2 = rnd(inv2 @ rnd(tr.restrict(rnd(r1))))
-    (oz, oy, ox), (wz, wy, wx) = tr.out_grid, tr.window_shape
-    (sz, sy, sx), (gz, gy, gx), c = tr.stride, tr.in_grid, tr.n_in
-    (lz, hz), (ly, hy), (lx, hx) = _gwt_pads(tr)
-    # per-window contributions (oz, oy, ox, wz, wy, wx, c)
-    C = torch.einsum("eabcfzyx,zyxe->zyxabcf", tr.W,
-                     x2.reshape(tr.out_grid + (tr.n_out,)))
-    # the z and y windows onto the padded (z, y) grid, the x windows apart
-    pz, py = gz + lz + hz, gy + ly + hy
-    P = torch.zeros((pz, py, ox, wx, c), dtype=dt, device=r1.device)
-    for tz in range(wz):
-        for ty in range(wy):
-            P[tz: tz + sz * (oz - 1) + 1: sz,
-              ty: ty + sy * (oy - 1) + 1: sy] += C[:, :, :, tz, ty]
-    Q = torch.zeros((gz, gy, ox, wx, c), dtype=dt, device=r1.device)
-    nz, ny = min(pz, lz + gz) - lz, min(py, ly + gy) - ly
-    Q[:nz, :ny] = P[lz: lz + nz, ly: ly + ny]
-    Q = rnd(Q)
-    # then the x windows
-    px = gx + lx + hx
-    Y = torch.zeros((gz, gy, px, c), dtype=dt, device=r1.device)
-    for tx in range(wx):
-        Y[:, :, tx: tx + sx * (ox - 1) + 1: sx] += Q[:, :, :, tx]
-    y = torch.zeros((gz, gy, gx, c), dtype=dt, device=r1.device)
-    nx = min(px, lx + gx) - lx
-    y[:, :, :nx] = Y[:, :, lx: lx + nx]
-    return y.reshape(-1)
+    return _gwt_prolong(tr, x2, between=rnd)
 
 
 def fused_correction_apply_plain(ft: FusedTail, x: torch.Tensor,

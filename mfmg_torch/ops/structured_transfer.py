@@ -12,9 +12,9 @@ A 3-D float32 transfer goes through the kernels K4/K5
 (ops/transfer_kernels.py), counterparts of the reference's Pallas pair
 pallas_restrict_tiled/pallas_prolong_tiled: on a CUDA tensor they launch
 ``csrc/structured_transfer.cu``, on a CPU tensor they run their plain
-versions, the reference's chain of per-axis 0/1 selection matmuls plus one
-contraction with the weights (``torch.tensordot``/``einsum`` in exact
-float32, TF32 off, see mfmg_torch/__init__.py).  Other dimensions and
+versions, the reference's per-axis window chain plus one contraction with
+the weights (per-axis gathers and overlap-adds around a ``torch.einsum`` in
+exact float32, TF32 off, see mfmg_torch/__init__.py).  Other dimensions and
 float64 run the plain chain, as the reference runs XLA.
 
 Coarser levels use ``GeneralWindowTransfer``: its dense matrix ``Rd`` below
@@ -133,26 +133,44 @@ def _gwt_restrict(tr: GeneralWindowTransfer, x):
     return torch.einsum(f"e{w}f{o},{o}f{w}->{o}e", tr.W, p).reshape(-1)
 
 
-def _gwt_prolong(tr: GeneralWindowTransfer, xc):
+def _gwt_prolong(tr: GeneralWindowTransfer, xc, between=None):
     """Exact adjoint of _gwt_restrict: per-window contributions, then an
-    overlap-add over the window offsets into the padded grid."""
-    dim = len(tr.in_grid)
+    overlap-add over the window offsets into the padded grid, first over
+    every axis but the last, then over the last.  ``between`` (identity by
+    default) maps the partial sums between the two stages: the reduced
+    fused tail rounds them to bf16 there, as the reference does."""
+    dim, lead = len(tr.in_grid), len(tr.in_grid) - 1
     pads = _gwt_pads(tr)
     w, o = "abc"[:dim], "zyx"[:dim]
     C = torch.einsum(f"e{w}f{o},{o}e->{o}f{w}", tr.W,
                      xc.reshape(tr.out_grid + (tr.n_out,)))
+
+    def rows(d, t):
+        return slice(t, t + tr.stride[d] * (tr.out_grid[d] - 1) + 1, tr.stride[d])
+
     padded = tuple(n + lo + hi for n, (lo, hi) in zip(tr.in_grid, pads))
-    yp = torch.zeros(padded + (tr.n_in,), dtype=xc.dtype, device=xc.device)
-    for t in itertools.product(*[range(k) for k in tr.window_shape]):
-        sl = tuple(slice(t[d], t[d] + tr.stride[d] * (tr.out_grid[d] - 1) + 1,
-                         tr.stride[d]) for d in range(dim))
-        yp[sl] += C[(Ellipsis,) + tuple(t)]
-    y = torch.zeros(tr.in_grid + (tr.n_in,), dtype=xc.dtype, device=xc.device)
+    wl = tr.window_shape[-1]
+    P = xc.new_zeros(padded[:lead] + (tr.out_grid[-1], tr.n_in, wl))
+    for t in itertools.product(*[range(k) for k in tr.window_shape[:lead]]):
+        P[tuple(rows(d, t[d]) for d in range(lead))] += \
+            C[(Ellipsis,) + t + (slice(None),)]
+    P = _unpad(P, pads[:lead], tr.in_grid[:lead])
+    if between is not None:
+        P = between(P)
+    Y = xc.new_zeros(tr.in_grid[:lead] + (padded[-1], tr.n_in))
+    for t in range(wl):
+        Y[(slice(None),) * lead + (rows(lead, t),)] += P[..., t]
+    return _unpad(Y, [(0, 0)] * lead + [pads[-1]], tr.in_grid).reshape(-1)
+
+
+def _unpad(yp, pads, sizes):
+    """yp with its leading len(sizes) axes, padded by pads[d] = (lo, hi),
+    cut back to sizes (zeros where a negative hi cropped the grid)."""
     src = tuple(slice(lo, min(P, lo + n))
-                for (lo, _), P, n in zip(pads, padded, tr.in_grid))
-    dst = tuple(slice(0, s.stop - s.start) for s in src)
-    y[dst] = yp[src]
-    return y.reshape(-1)
+                for (lo, _), P, n in zip(pads, yp.shape, sizes))
+    y = yp.new_zeros(tuple(sizes) + tuple(yp.shape[len(sizes):]))
+    y[tuple(slice(0, s.stop - s.start) for s in src)] = yp[src]
+    return y
 
 
 def general_window_transfer_from_csr(R_l, in_grid, n_in, out_grid, n_out,

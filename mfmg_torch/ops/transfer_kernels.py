@@ -10,11 +10,12 @@ Counterpart of mfmg_tpu/ops/pallas_transfer.py:
 W is the (c, wz, wy, wx, gz, gy, gx) weight array of a 3-D
 ``StructuredTransfer`` (windows w per axis at stride w - 1 over a fine grid
 of g * (w - 1) + 1 nodes), float32 or bfloat16; the vectors are float32 and
-the coarse one is site-major (az, ay, ax, e).  The plain versions are the
-per-axis 0/1 selection-matmul chain of mfmg_tpu/ops/structured_transfer.py
-(``torch.tensordot``/``einsum``, exact float32 with TF32 off), for any
-dimension; the kernels (``csrc/structured_transfer.cu``) gather the windows
-directly.  The TPU kernels' padded (c, gax, n_tiles*AZT*gay) layout and
+the coarse one is site-major (az, ay, ax, e).  The plain versions follow
+the per-axis chain of mfmg_tpu/ops/structured_transfer.py, for any
+dimension: its 0/1 selection matmuls become per-axis gathers
+(``index_select``) and their adjoint overlap-adds (``index_add_``), around
+one ``einsum`` with W (exact float32, TF32 off); the kernels
+(``csrc/structured_transfer.cu``) gather the windows directly.  The TPU kernels' padded (c, gax, n_tiles*AZT*gay) layout and
 their tiling geometry are not ported.
 
 Each wrapper takes its plain version for a tensor on the CPU, launches its
@@ -32,63 +33,50 @@ from mfmg_torch.ops import stencil_kernels
 _LT, _LB = "ijk", "uvw"
 
 
-def selection_matrix(naa: int, w: int, s: int, g: int) -> np.ndarray:
-    """((a, t) -> grid) window-selection operator: S[a*w + t, a*s + t] = 1."""
-    S = np.zeros((naa * w, g), dtype=np.float64)
-    a = np.repeat(np.arange(naa), w)
-    t = np.tile(np.arange(w), naa)
-    S[a * w + t, a * s + t] = 1.0
-    return S
+def _window_index(a: int, w: int, device) -> torch.Tensor:
+    """Grid index a * (w - 1) + t of window (a, t) along one axis, in (a, t)
+    order: the nonzero columns of the reference's 0/1 selection matrix."""
+    return (torch.arange(a, device=device)[:, None] * (w - 1)
+            + torch.arange(w, device=device)).reshape(-1)
 
 
-_SELECTIONS = {}
-
-
-def _selections(window_shape, agg_shape, grid_shape, dtype, device):
-    """The per-axis selection matrices, made once per geometry, dtype and
-    device (a copy from the host on every call would wait for the stream)."""
-    key = (tuple(window_shape), tuple(agg_shape), tuple(grid_shape), dtype,
-           torch.device(device))
-    if key not in _SELECTIONS:
-        _SELECTIONS[key] = [
-            torch.from_numpy(selection_matrix(a, w, w - 1, g)).to(
-                dtype=dtype, device=device)
-            for a, w, g in zip(agg_shape, window_shape, grid_shape)]
-    return _SELECTIONS[key]
+def _specs(dim: int):
+    """einsum subscripts of W (e, window, agglomerate) and of the windows in
+    their interleaved (u, i, v, j, w, k) order."""
+    return ("e" + _LT[:dim] + _LB[:dim],
+            "".join(_LB[d] + _LT[d] for d in range(dim)))
 
 
 # ------------------------------------------------------------ plain versions
 
 def structured_restrict_plain(W, x, window_shape, agg_shape, grid_shape):
-    """Plain K4: per-axis selection tensordots cut the windows out of the
-    grid, one einsum contracts them with W (in x's dtype)."""
+    """Plain K4: per-axis gathers cut the windows out of the grid (the
+    reference's selection matmuls), one einsum contracts them with W (in
+    x's dtype)."""
     dim = len(agg_shape)
     t = x.reshape(grid_shape)
-    for d, S in enumerate(_selections(window_shape, agg_shape, grid_shape,
-                                      x.dtype, x.device)):
-        t = torch.movedim(torch.tensordot(S, t, dims=([1], [d])), 0, d)
+    for d, (a, w) in enumerate(zip(agg_shape, window_shape)):
+        t = t.index_select(d, _window_index(a, w, x.device))
     shape = []
     for d in range(dim):
         shape += [agg_shape[d], window_shape[d]]
-    xw = t.reshape(shape)                       # (u, i, v, j, w, k)
-    spec = ("e" + _LT[:dim] + _LB[:dim] + ","
-            + "".join(_LB[d] + _LT[d] for d in range(dim))
-            + "->" + _LB[:dim] + "e")
-    return torch.einsum(spec, W.to(x.dtype), xw).reshape(-1)
+    ws, xs = _specs(dim)
+    return torch.einsum(f"{ws},{xs}->{_LB[:dim]}e", W.to(x.dtype),
+                        t.reshape(shape)).reshape(-1)
 
 
 def structured_prolong_plain(W, xc, window_shape, agg_shape, grid_shape):
-    """Plain K5: the adjoint chain, one einsum into the windows, then the
-    transposed selection tensordots overlap-add them onto the grid."""
+    """Plain K5: the adjoint chain, one einsum into the windows, then
+    per-axis scatter-adds overlap-add them onto the grid."""
     dim = len(agg_shape)
     xcg = xc.reshape(tuple(agg_shape) + (W.shape[0],))
-    spec = ("e" + _LT[:dim] + _LB[:dim] + "," + _LB[:dim] + "e->"
-            + "".join(_LB[d] + _LT[d] for d in range(dim)))
-    t = torch.einsum(spec, W.to(xc.dtype), xcg).reshape(
-        tuple(a * w for a, w in zip(agg_shape, window_shape)))
-    for d, S in enumerate(_selections(window_shape, agg_shape, grid_shape,
-                                      xc.dtype, xc.device)):
-        t = torch.movedim(torch.tensordot(S, t, dims=([0], [d])), 0, d)
+    ws, xs = _specs(dim)
+    t = torch.einsum(f"{ws},{_LB[:dim]}e->{xs}", W.to(xc.dtype), xcg)
+    t = t.reshape(tuple(a * w for a, w in zip(agg_shape, window_shape)))
+    for d, (a, w, g) in enumerate(zip(agg_shape, window_shape, grid_shape)):
+        shape = list(t.shape)
+        shape[d] = g
+        t = t.new_zeros(shape).index_add_(d, _window_index(a, w, xc.device), t)
     return t.reshape(-1)
 
 

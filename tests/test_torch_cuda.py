@@ -31,7 +31,8 @@ from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops import transfer_kernels as ttk
 from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
-from mfmg_torch.solve.smoothers import (FusedChebyshevSmoother, build_smoother,
+from mfmg_torch.solve.smoothers import (ChebyshevSmoother,
+                                        FusedChebyshevSmoother, build_smoother,
                                         fuse_chebyshev)
 
 pytestmark = pytest.mark.cuda
@@ -207,6 +208,43 @@ def test_q2_hierarchy_runs_its_kernels(cuda):
         hg.levels[0].fused = ft
     assert tk.LAUNCHES["structured_restrict"] == 1
     assert tk.LAUNCHES["structured_prolong"] == 1
+
+
+def _one_sided(prob, dtype):
+    host = tst.stencil_from_cell_matrices(prob.mesh, prob.A_loc, prob.constrained,
+                                          prob.diag_raw, dtype=dtype)
+    return tst.stencil_to_device(tst.StencilOperator(
+        host.coeffs, host.offsets, host.grid_shape, None), "cpu")
+
+
+def test_one_sided_q2_cube_runs_k3_and_the_tail(cuda):
+    """The Q2 cube at 33^3 with its fine operator kept one-sided, as the
+    reference runs it wherever the host sums the planes asymmetrically: the
+    plain Chebyshev smoother stays, six K3 launches per V-cycle and CG
+    apply, the full-mode tail (9^3 windows) once per V-cycle, no K1/K2; the
+    V-cycle (1e-5) and the PCG count as on the CPU with the same operator
+    and tail."""
+    prob = LaplaceProblem.hyper_cube(3, 4, degree=2, material_property="linear")
+    h = Hierarchy(prob, _main_config(), device="cpu")
+    h.levels[0].op = _one_sided(prob, torch.bfloat16)
+    h._exact_op_cache = _one_sided(prob, torch.float32)
+    b = np.random.default_rng(9).uniform(size=prob.n_dofs).astype(np.float32)
+    h.levels[0].fused = tfc.build_fused_tail(h.levels, 1, reduced_storage=True)
+    yc = h.vmult(b)
+    _, ic = h.solve_cg(b, tol=1e-5, maxiter=50)
+    h.levels[0].fused = None
+    h.to(cuda)
+    assert isinstance(h.levels[0].smoother, ChebyshevSmoother)
+    ft = h.levels[0].fused
+    assert ft is not None and ft.fine_window == (9, 9, 9)
+    tk.reset_launch_counts()
+    _, ig = h.solve_cg(b, tol=1e-5, maxiter=50)
+    n = ig["iterations"] + 1
+    assert tk.LAUNCHES["stencil_apply"] == 6 * n
+    assert tk.LAUNCHES["fused_tail"] == n
+    assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
+    assert ig["iterations"] == ic["iterations"]
+    assert _rel(h.vmult(b).cpu(), yc) <= 1e-5
 
 
 def test_distorted_q2_runs_k3_k4_k5(cuda):

@@ -13,8 +13,8 @@ and K2's plain version is held to the resident pallas_cheb_smooth there
 (tests/test_torch_smoothers.py).
 
 Tolerances: float64 planes and x 1e-12 ||y||_inf (only the summation order
-differs); bf16 planes with float32 x 1e-6 ||y||_inf (both accumulate in
-float32 on the same bf16 planes); the Chebyshev step 1e-5 relative on x and
+differs); bf16 or float32 planes with float32 x 1e-6 ||y||_inf (both
+accumulate in float32 on the same planes); the Chebyshev step 1e-5 relative on x and
 1e-4 on the residual, the bounds tests/test_pallas.py holds the tiled kernel
 to against the plain smoother (float32, chained applies).
 """
@@ -134,18 +134,19 @@ def test_port_extracts_the_same_one_sided_stencil(degree, n_ref, one_sided):
 
 
 @pytest.mark.parametrize("bz", [8, 16])
-@pytest.mark.parametrize("dtype", ["f64", "bf16"])
+@pytest.mark.parametrize("dtype", ["f64", "bf16", "f32"])
 def test_k3_plain_matches_tiled(bz, dtype):
     """Row 9 (pallas_stencil_apply_tiled, the one-sided apply over z-tiles,
     bz 8 and 16 on the 17^3 grid with its ragged last tile), as
     tests/test_pallas.py runs it: K3's plain version on the same planes;
-    float64 1e-12, bf16 planes with float32 x 1e-6."""
+    float64 1e-12; bf16 planes (the preconditioner's) and float32 planes
+    (the outer CG's) with float32 x 1e-6."""
     jp = JLaplace.hyper_cube(3, 4, material_property="linear")
     J = jst.stencil_from_csr(jp.A, jp.mesh, dtype=jnp.float64)
     assert J.grid_shape[0] % bz != 0
     c = np.asarray(J.coeffs)
-    if dtype == "bf16":
-        c = c.astype(ml_dtypes.bfloat16)
+    if dtype in ("bf16", "f32"):
+        c = c.astype(ml_dtypes.bfloat16 if dtype == "bf16" else np.float32)
         x, tol = _x(jp.n_dofs, 3, np.float32), 1e-6
     else:
         x, tol = _x(jp.n_dofs, 3), 1e-12

@@ -11,8 +11,8 @@ rounded weights on the port's).  A Q2 transfer (9^3 windows at stride 8) is
 held against the reference's XLA chain, whose Pallas form does not tile it.
 
 Tolerance: 1e-6 relative (2-norm).  Both sides sum exact float32 products of
-the same weights and values (0/1 selections are exact, the reference's
-CPU matmuls run in float32) in another order; observed 5e-8 to 1.1e-7.
+the same weights and values (the port's gathers and the reference's 0/1
+selections are exact, its CPU matmuls run in float32) in another order; observed 5e-8 to 1.1e-7.
 Adjointness <R x, y> = <x, R^T y> to 1e-6 of ||R x|| ||y||.
 """
 
