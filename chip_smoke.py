@@ -7,8 +7,9 @@ each phase prints its wall time):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
  2. build the CUDA kernels from mfmg_torch/csrc (nvcc, sm_90a), timed;
  3. kernels against their plain PyTorch versions at the 65^3 main-path
-    shapes: K1 (bf16 and f32 planes) and K2 (with and without the residual),
-    with the median time of each over 50 runs (CUDA events), K1's library
+    shapes: K1 (bf16 and f32 planes) and K2 (with and without the residual;
+    its blocked form, timed in turns beside the chain it replaces), with the
+    median time of each over 50 runs (CUDA events), K1's library
     yardstick (one cuSPARSE CSR SpMV of the assembled float32 matrix), and
     the fused coarse tail in both modes (full tail, sub-cycle), both
     level-1 -> 2 forms (dense, windowed) and both storages (f32, bf16) on
@@ -22,7 +23,8 @@ each phase prints its wall time):
     tail against its plain version at these shapes (and the windowed
     level-1 -> 2 form, timed beside the dense one), the median ms per
     V-cycle with the tail and with the generic recursion in turns, and the
-    PCG count with K2's plain version as the smoother;
+    PCG count with K2's plain version as the smoother, and the V-cycle
+    with K2's blocked form against the chain, in turns;
  6. the main path at 129^3 (2,146,689 dofs): the same with the sub-cycle-mode
     tail (windowed level-1 -> 2 inside the kernel) and the fine transfer
     through K4/K5 (once each per V-cycle), setup seconds per stage, peak
@@ -48,7 +50,9 @@ each phase prints its wall time):
     then the path with every fine apply through K3 and the fine transfer
     through K4/K5.
 Each path is driven with the launch counts set to 0 just before it and read
-just after; it fails if one of its kernels was never launched.  The line
+just after; it fails if one of its kernels was never launched, or if K2 ran
+another form than its rule gives (the blocked form on the Q1 paths, the
+chain on the Q2 cube's 62 pairs; counted per form).  The line
 before the last is the kernel table as JSON, one row per TPU kernel of the
 reference (launches from the main paths' runs; bound_ms from the bytes and
 operations of this run's inputs at 3.35 TB/s and 67 TFLOP/s float32, the
@@ -410,13 +414,30 @@ def main():
                       f"> {K2_RES_TOL}")
                 err = max(err, float((got[1] - ref[1]).abs().max()))
                 msg += f", residual rel {er:.3e}"
-            ms = median_ms(lambda: tk.cheb_smooth(*args))
-            pms = median_ms(lambda: tk.cheb_smooth_plain(*args), batch=1)
+            form = tk.k2_form(tuple(op.pos_offsets), fsm.degree)
             key = f"cheb_smooth/{tag}/" + ("with_residual" if want_res
                                            else "no_residual")
-            variants[key] = dict(max_abs_err=err, rel_err=ex, ms=ms, plain_ms=pms)
+            v = dict(max_abs_err=err, rel_err=ex, form=form)
+            if form == "blocked":
+                # the chain on the same inputs, in turns: the form it replaces
+                ch = tk.cheb_smooth(*args, form="chain")
+                torch.cuda.synchronize()
+                v["chain_rel_err"] = rel2(ch[0], ref[0])
+                check(v["chain_rel_err"] <= K2_X_TOL, f"K2 chain {tag}: x rel err "
+                      f"{v['chain_rel_err']:.3e} > {K2_X_TOL}")
+                t = {"blocked": [], "chain": []}
+                for f in ("blocked", "chain", "chain", "blocked"):
+                    t[f].append(median_ms(lambda: tk.cheb_smooth(*args, form=f)))
+                v.update(ms=float(np.mean(t["blocked"])), ms_turns=t["blocked"],
+                         chain_ms=float(np.mean(t["chain"])), chain_ms_turns=t["chain"])
+                msg += f", chain {v['chain_ms']:.4f} ms {t['chain']}"
+            else:
+                v["ms"] = median_ms(lambda: tk.cheb_smooth(*args))
+            v["plain_ms"] = median_ms(lambda: tk.cheb_smooth_plain(*args), batch=1)
+            variants[key] = v
             k2_err = max(k2_err, err)
-            print(f"{msg}, kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+            print(f"{msg}, {form} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms",
+                  flush=True)
         return k2_err
 
     class PlainChebyshev(torch.nn.Module):
@@ -438,6 +459,16 @@ def main():
 
         def apply_with_residual(self, op, b, x):
             return self._run(op, b, x, True)
+
+    class ChainChebyshev(PlainChebyshev):
+        """The same fused smoother through K2's chain form: the form the
+        blocked one replaces, for the V-cycle's A/B."""
+
+        def _run(self, op, b, x, want_res):
+            f = self.fsm
+            return tk.cheb_smooth(op.planes, x, b, f.inv_diag, f.coef,
+                                  op.pos_offsets, op.grid_shape, f.degree,
+                                  want_res, form="chain")
 
     def tail_variants(levels, windowed, reduced):
         if windowed:
@@ -578,10 +609,17 @@ def main():
         # smooth, the residual) and one per CG apply (the first residual,
         # one per iteration); symmetric, two K2 per V-cycle and one K1 per
         # CG apply
-        want = (dict(stencil_apply=6 * n_cyc, stencil_apply_sym=0, cheb_smooth=0)
-                if hier.levels[0].op.sym_pos is None else
-                dict(stencil_apply=0, stencil_apply_sym=n_cyc,
-                     cheb_smooth=2 * n_cyc))
+        # (the symmetric K2 calls all of the form its rule gives)
+        op0 = hier.levels[0].op
+        if op0.sym_pos is None:
+            want = dict(stencil_apply=6 * n_cyc, stencil_apply_sym=0, cheb_smooth=0,
+                        cheb_smooth_blocked=0, cheb_smooth_chain=0)
+        else:
+            form = tk.k2_form(tuple(op0.pos_offsets), hier.levels[0].smoother.degree)
+            want = dict(stencil_apply=0, stencil_apply_sym=n_cyc,
+                        cheb_smooth=2 * n_cyc, cheb_smooth_blocked=0,
+                        cheb_smooth_chain=0)
+            want[f"cheb_smooth_{form}"] = 2 * n_cyc
         got = {k: launches[k] for k in want}
         check(got == want, f"{label}: fine-level launches {got}, not {want}")
         # same-call A/B: the tail and the generic recursion, in turns
@@ -606,11 +644,29 @@ def main():
             hier.levels[0].fused = ft
         # K2's plain version as the smoother, for the iteration count
         fsm = hier.levels[0].smoother
+        ab_k2, dev_k2 = {}, {}
         if isinstance(fsm, FusedChebyshevSmoother):
             hier.levels[0].smoother = PlainChebyshev(fsm)
             pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
                                                        maxiter=PCG_MAX)[1]
             hier.levels[0].smoother = fsm
+            if tk.k2_form(tuple(op0.pos_offsets), fsm.degree) == "blocked":
+                # the V-cycle (with the tail where there is one) with K2's
+                # blocked form and with the chain it replaces, in turns
+                chain = ChainChebyshev(fsm)
+                ab_k2 = {"blocked": [], "chain": []}
+                for key in ("blocked", "chain", "chain", "blocked"):
+                    hier.levels[0].smoother = fsm if key == "blocked" else chain
+                    ab_k2[key].append(median_ms(lambda: hier.vmult(bd), batch=2))
+                for key in ("blocked", "chain"):
+                    hier.levels[0].smoother = fsm if key == "blocked" else chain
+                    dev_k2[key] = device_ms_per_cycle(hier, bd)[0]
+                hier.levels[0].smoother = chain
+                pcg["k2_chain"] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
+                hier.levels[0].smoother = fsm
+                print(f"  V-cycle ms, K2 blocked vs chain (in turns): {ab_k2}; "
+                      f"device ms/cycle: " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in dev_k2.items()), flush=True)
         print(f"  V-cycle ms (CUDA events, medians in turns tail/generic/"
               f"generic/tail): {ab}; device ms/cycle (profiler): "
               + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
@@ -629,7 +685,9 @@ def main():
                        device_ms_per_vcycle=dev_ms, device_top=dev_top,
                        pcg_iterations_other={k: v["iterations"]
                                              for k, v in pcg.items()},
-                       peak_device_gib=peak / 2**30, launches=launches)
+                       peak_device_gib=peak / 2**30, launches=launches,
+                       ms_per_vcycle_k2_forms=ab_k2,
+                       device_ms_per_vcycle_k2_forms=dev_k2)
         return hier, summary, tr, dev_rows
 
     # ---- 2. build -----------------------------------------------------
@@ -719,7 +777,8 @@ def main():
     # ---- 5. the main path at 65^3 --------------------------------------
     with Phase("5 main path 65^3"):
         hier, summary65, tr65, _ = run_main_path(
-            "65^3", prob, True, ("stencil_apply_sym", "cheb_smooth", "fused_tail"))
+            "65^3", prob, True, ("stencil_apply_sym", "cheb_smooth",
+                                 "cheb_smooth_blocked", "fused_tail"))
         check(tr65 <= TRUE_RES_MAX, f"true relres {tr65:.3e} > {TRUE_RES_MAX}")
         ft65 = hier.levels[0].fused
         v65 = check_tail("fused_correction_apply/65^3", ft65, True,
@@ -742,7 +801,8 @@ def main():
               flush=True)
         hier7, summary129, tr129, rows129 = run_main_path(
             "129^3", prob7, False, ("stencil_apply_sym", "cheb_smooth",
-                                    "fused_tail", "structured_restrict",
+                                    "cheb_smooth_blocked", "fused_tail",
+                                    "structured_restrict",
                                     "structured_prolong"))
         check(tr129 <= TRUE_RES_MAX_LARGE,
               f"129^3 true relres {tr129:.3e} > {TRUE_RES_MAX_LARGE}")
@@ -838,7 +898,8 @@ def main():
               f"{'symmetric' if sym_q else 'one-sided'} on this host", flush=True)
         hierq, summaryq, trq, _ = run_main_path(
             "Q2 65^3", probq, True,
-            ("stencil_apply_sym", "cheb_smooth", "fused_tail") if sym_q
+            ("stencil_apply_sym", "cheb_smooth", "cheb_smooth_chain", "fused_tail")
+            if sym_q
             else ("stencil_apply", "fused_tail"))
         check(trq <= TRUE_RES_MAX_Q2,
               f"Q2 true relres {trq:.3e} > {TRUE_RES_MAX_Q2}")

@@ -1,5 +1,7 @@
-// Index arithmetic of the fine-level windowed transfer, shared by K4/K5
-// (structured_transfer.cu) and the full-mode coarse tail (fused_tail.cu).
+// Index arithmetic of the fine-level windowed transfer, shared by K4
+// (structured_transfer.cu) and the full-mode coarse tail (fused_tail.cu);
+// window_prolong_at, one fine point's gather, is the tail's (K5 owns its
+// points by agglomerate rows instead).
 //
 // The fine grid (nz, ny, nx) is covered by the agglomerate grid (gz, gy, gx)
 // of windows w per axis at stride s = w - 1 (neighbouring windows share one

@@ -10,7 +10,11 @@ Counterpart of mfmg_tpu/ops/pallas_stencil.py:
 * K2 ``cheb_smooth`` replaces ``pallas_cheb_smooth`` (and covers
   ``pallas_cheb_smooth_tiled``): one whole deal.II Chebyshev step
   x <- x - p(D^-1 A) D^-1 (A x - b), with the V-cycle residual A x_s - b on
-  request.
+  request.  It has two forms, chosen by one rule on the offsets and the
+  degree (``k2_form``): the blocked form, one launch per step over tiles
+  planned by ``cheb_blocked_plan``, for the Q1 stencil's 13 positive
+  offsets at degree <= 3; the chain of one fused launch per apply for the
+  rest (the Q2 cube's 62 pairs of radius 2).
 * K3 ``stencil_apply`` replaces ``pallas_stencil_apply`` (and covers
   ``pallas_stencil_apply_tiled``): the one-sided apply y = sum_o C_o
   x(i+o) over all offset planes, for operators without the symmetric-pair
@@ -34,10 +38,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,10 +58,21 @@ MAX_POS = 62                      # MFMG_MAX_POS in csrc/stencil_common.cuh
 MAX_OFF, MAX_RADIUS = 343, 3      # MFMG_MAX_OFF/RADIUS in csrc/stencil_apply.cu
 
 # launches of each CUDA wrapper (one per call that reached its kernel);
-# "fused_tail" counts both wrappers of ops/fused_cycle.py
-LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "fused_tail": 0,
-            "stencil_apply": 0, "structured_restrict": 0,
-            "structured_prolong": 0}
+# "fused_tail" counts both wrappers of ops/fused_cycle.py; "cheb_smooth"
+# counts K2's calls of either form, "cheb_smooth_blocked"/"_chain" each form's
+LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "cheb_smooth_blocked": 0,
+            "cheb_smooth_chain": 0, "fused_tail": 0, "stencil_apply": 0,
+            "structured_restrict": 0, "structured_prolong": 0}
+
+# K2's blocked form (csrc/cheb_smooth.cu): the blocks wanted per SM, the
+# shortest z chunk, the most frame rows (kFrameRows, a warp each; a row is at
+# most 32 points), and the H100's SM count (the plan's default where no card
+# is asked).  The three values were the fastest of those timed on an H100
+# at 65^3 and 129^3 (PERF.md).
+K2_BLOCKS_PER_SM = 2
+K2_MIN_CHUNK = 4
+K2_FRAME_ROWS = 16
+H100_SMS = 132
 
 _lib = None
 
@@ -169,12 +186,20 @@ def stencil_apply(planes: torch.Tensor, x: torch.Tensor, offsets,
 
 def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                 inv_diag: torch.Tensor, coef: torch.Tensor, pos_offsets,
-                grid_shape, degree: int, want_res: bool = False):
+                grid_shape, degree: int, want_res: bool = False,
+                form: str | None = None):
     """K2: (x_s,) or (x_s, A x_s - b) for one Chebyshev step; coef is the
-    (2 * degree,) float32 recurrence array [alphas..., betas...]."""
+    (2 * degree,) float32 recurrence array [alphas..., betas...].  form:
+    "blocked" or "chain", by default ``k2_form``'s rule; the blocked form
+    raises for offsets the rule sends to the chain."""
     _check_stencil(planes, x, pos_offsets, grid_shape)
     if degree < 1:
         raise ValueError(f"Chebyshev degree must be >= 1, got {degree}")
+    rule = k2_form(tuple(pos_offsets), degree)
+    form = rule if form is None else form
+    if form not in ("blocked", "chain") or (form == "blocked" and rule != form):
+        raise ValueError(f"K2 form {form!r} for these offsets at degree "
+                         f"{degree} (the rule gives {rule!r})")
     for name, t in (("b", b), ("inv_diag", inv_diag)):
         _check_like(name, t, x)
     if (coef.dtype != torch.float32 or coef.shape != (2 * degree,)
@@ -185,22 +210,94 @@ def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return cheb_smooth_plain(planes, x, b, inv_diag, coef, pos_offsets,
                                  grid_shape, degree, want_res)
-    r, p, dx0, xs = (torch.empty_like(x) for _ in range(4))
-    dx1 = torch.empty_like(x) if degree > 2 else dx0
+    xs = torch.empty_like(x)
     res = torch.empty_like(x) if want_res else None
     gz, gy, gx = grid_shape
     lib = _library()
     with torch.cuda.device(x.device):
-        err = lib.mfmg_cheb_smooth(
-            planes.data_ptr(), int(planes.dtype == torch.bfloat16),
-            x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(), coef.data_ptr(),
-            degree, r.data_ptr(), p.data_ptr(), dx0.data_ptr(), dx1.data_ptr(),
-            xs.data_ptr(), None if res is None else res.data_ptr(),
-            gz, gy, gx, len(pos_offsets), _offset_table(pos_offsets),
-            _stream(x))
-    _raise_on(err, "cheb_smooth")
+        if form == "blocked":
+            plan = cheb_blocked_plan(tuple(grid_shape), degree, want_res,
+                                     _sm_count(x.device))
+            err = lib.mfmg_cheb_smooth_blocked(
+                planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+                x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(),
+                coef.data_ptr(), degree, xs.data_ptr(),
+                None if res is None else res.data_ptr(), gz, gy, gx,
+                len(pos_offsets), _offset_table(pos_offsets), plan.ty,
+                plan.tx, plan.cz, _stream(x))
+        else:
+            r, p, dx0 = (torch.empty_like(x) for _ in range(3))
+            dx1 = torch.empty_like(x) if degree > 2 else dx0
+            err = lib.mfmg_cheb_smooth(
+                planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+                x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(),
+                coef.data_ptr(), degree, r.data_ptr(), p.data_ptr(),
+                dx0.data_ptr(), dx1.data_ptr(), xs.data_ptr(),
+                None if res is None else res.data_ptr(), gz, gy, gx,
+                len(pos_offsets), _offset_table(pos_offsets), _stream(x))
+    _raise_on(err, f"cheb_smooth ({form})")
     LAUNCHES["cheb_smooth"] += 1
+    LAUNCHES[f"cheb_smooth_{form}"] += 1
     return (xs, res) if want_res else (xs,)
+
+
+# The positive half of the Q1 27-point stencil, in the order the stencil
+# extraction gives it (lexicographic): the offsets K2's blocked form takes.
+Q1_POS = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
+               if o > (0, 0, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def k2_form(pos_offsets, degree: int) -> str:
+    """K2's dispatch rule: "blocked" for the Q1 positive offsets (Q1_POS,
+    in that order) at degree <= 3, else "chain"."""
+    return "blocked" if tuple(pos_offsets) == Q1_POS and degree <= 3 else "chain"
+
+
+class K2Plan(NamedTuple):
+    """Tiles of K2's blocked form: interior (ty, tx) per (y, x) tile, cz
+    z-slices per chunk, the halo (one point per recurrence level), and the
+    grid (x tiles, y tiles, z chunks)."""
+    ty: int
+    tx: int
+    cz: int
+    halo: int
+    grid: tuple
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def cheb_blocked_plan(grid_shape, degree: int, want_res: bool,
+                      n_sm: int = H100_SMS,
+                      frame_rows: int = K2_FRAME_ROWS) -> K2Plan:
+    """The tile schedule of K2's blocked form (csrc/cheb_smooth.cu).
+
+    A frame (the tile and ``halo`` points per side) is at most 32 points
+    wide (a warp's lanes) and ``frame_rows`` rows high (a row per warp); the
+    tiles split each axis evenly, so only the last tile of an axis is
+    ragged, by less than the tile count.  The z chunks are as many as bring
+    the blocks to ``K2_BLOCKS_PER_SM`` per SM, no shorter than
+    ``K2_MIN_CHUNK`` slices."""
+    gz, gy, gx = grid_shape
+    halo = degree + int(want_res)
+    tx = _cdiv(gx, _cdiv(gx, 32 - 2 * halo))
+    ty_max = frame_rows - 2 * halo
+    if ty_max < 1:
+        raise ValueError(f"K2's blocked form: a halo of {halo} leaves no tile "
+                         f"rows in a frame of {frame_rows}")
+    ty = _cdiv(gy, _cdiv(gy, ty_max))
+    tiles = _cdiv(gx, tx) * _cdiv(gy, ty)
+    n_chunks = max(1, min(_cdiv(gz, K2_MIN_CHUNK), K2_BLOCKS_PER_SM * n_sm // tiles))
+    cz = _cdiv(gz, n_chunks)
+    return K2Plan(ty, tx, cz, halo, (_cdiv(gx, tx), _cdiv(gy, ty), _cdiv(gz, cz)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_stencil(planes, x, pos_offsets, grid_shape):
@@ -344,6 +441,10 @@ def _library():
                                          vp, vp, vp, i, i, i, i,
                                          ctypes.POINTER(i), vp]
         lib.mfmg_cheb_smooth.restype = i
+        lib.mfmg_cheb_smooth_blocked.argtypes = [vp, i, vp, vp, vp, vp, i, vp,
+                                                 vp, i, i, i, i,
+                                                 ctypes.POINTER(i), i, i, i, vp]
+        lib.mfmg_cheb_smooth_blocked.restype = i
         ip = ctypes.POINTER(i)
         lib.mfmg_fused_tail.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, vp,
                                         vp, vp, vp, vp, vp, ip, ip, ip, ip, vp]

@@ -25,6 +25,8 @@ kernel for a CUDA tensor, and raises on anything else; each launch counts in
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -100,31 +102,39 @@ def structured_prolong(W, xc, window_shape, agg_shape, grid_shape):
     if xc.device.type == "cpu":
         return structured_prolong_plain(W, xc, window_shape, agg_shape,
                                         grid_shape)
-    y = torch.empty(int(np.prod(grid_shape)), dtype=torch.float32,
-                    device=xc.device)
+    y = torch.empty(_sizes(tuple(window_shape), tuple(agg_shape),
+                           tuple(grid_shape), W.shape[0])[1],
+                    dtype=torch.float32, device=xc.device)
     _launch("structured_prolong", W, xc, y, window_shape, agg_shape,
             grid_shape)
     return y
 
 
-def _check(W, v, window_shape, agg_shape, grid_shape, coarse: bool) -> int:
-    """Shapes, dtypes, contiguity and devices; returns the coarse length."""
+@functools.lru_cache(maxsize=None)
+def _sizes(window_shape, agg_shape, grid_shape, c):
+    """(coarse length, fine length) of a valid 3-D geometry; raises
+    otherwise.  Cached: the checks cost the host more than a launch."""
     if not (len(window_shape) == len(agg_shape) == len(grid_shape) == 3):
         raise ValueError(f"the transfer kernels take 3-D grids, got "
                          f"{grid_shape}")
     if any(w < 2 or g != a * (w - 1) + 1
            for w, a, g in zip(window_shape, agg_shape, grid_shape)):
-        raise ValueError(f"windows {tuple(window_shape)} at stride w - 1 over "
-                         f"agglomerates {tuple(agg_shape)} do not tile the "
-                         f"grid {tuple(grid_shape)}")
-    c = W.shape[0]
-    want_w = (c,) + tuple(window_shape) + tuple(agg_shape)
+        raise ValueError(f"windows {window_shape} at stride w - 1 over "
+                         f"agglomerates {agg_shape} do not tile the grid "
+                         f"{grid_shape}")
+    return c * int(np.prod(agg_shape)), int(np.prod(grid_shape))
+
+
+def _check(W, v, window_shape, agg_shape, grid_shape, coarse: bool) -> int:
+    """Shapes, dtypes, contiguity and devices; returns the coarse length."""
+    geom = tuple(window_shape), tuple(agg_shape), tuple(grid_shape)
+    n_c, n_f = _sizes(*geom, W.shape[0])
+    want_w = (W.shape[0],) + geom[0] + geom[1]
     if (W.dtype not in (torch.float32, torch.bfloat16)
-            or tuple(W.shape) != want_w or not W.is_contiguous()):
+            or W.shape != want_w or not W.is_contiguous()):
         raise ValueError(f"W must be contiguous float32/bfloat16 {want_w}, "
                          f"got {W.dtype} {tuple(W.shape)}")
-    n_c = c * int(np.prod(agg_shape))
-    n = n_c if coarse else int(np.prod(grid_shape))
+    n = n_c if coarse else n_f
     if v.dtype != torch.float32 or v.shape != (n,) or not v.is_contiguous():
         raise ValueError(f"the vector must be contiguous float32 ({n},), got "
                          f"{v.dtype} {tuple(v.shape)}")
@@ -135,13 +145,17 @@ def _check(W, v, window_shape, agg_shape, grid_shape, coarse: bool) -> int:
     return n_c
 
 
+@functools.lru_cache(maxsize=None)
+def _geom_table(geom):
+    return stencil_kernels._ints(geom)
+
+
 def _launch(name, W, src, dst, window_shape, agg_shape, grid_shape):
-    geom = [*grid_shape, *agg_shape, *window_shape, W.shape[0]]
+    geom = (*grid_shape, *agg_shape, *window_shape, W.shape[0])
     lib = stencil_kernels._library()
     with torch.cuda.device(dst.device):
         err = getattr(lib, f"mfmg_{name}")(
             int(W.dtype == torch.bfloat16), W.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), stencil_kernels._ints(geom),
-            stencil_kernels._stream(dst))
+            dst.data_ptr(), _geom_table(geom), stencil_kernels._stream(dst))
     stencil_kernels._raise_on(err, name)
     stencil_kernels.LAUNCHES[name] += 1

@@ -10,6 +10,10 @@ an NVIDIA H100 run them with
 (``--noconftest``: tests/conftest.py configures JAX, which that machine
 does not need and may not have; this file imports no JAX.)
 
+K2 is held in both forms: the blocked form on Q1 planes (17^3, 33^3, a
+ragged 19x23x37 grid), the chain on the Q2 cube's 62 pairs and, when asked
+for, on Q1 planes.
+
 Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
 on the residual (the bounds of tests/test_pallas.py); K4/K5 and the fused
@@ -18,6 +22,7 @@ reference's kernel to: float sums over the same operands in another order.
 """
 
 import copy
+import itertools
 
 import numpy as np
 import pytest
@@ -30,7 +35,8 @@ from mfmg_torch.ops import fused_cycle as tfc
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops import transfer_kernels as ttk
-from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
+from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
+                                               StructuredTransfer)
 from mfmg_torch.solve.smoothers import (ChebyshevSmoother,
                                         FusedChebyshevSmoother, build_smoother,
                                         fuse_chebyshev)
@@ -68,27 +74,92 @@ def test_k1_matches_plain(cuda, n_ref, dtype):
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("n_ref", [4, 5], ids=["17^3", "33^3"])
-@pytest.mark.parametrize("degree", [1, 2, 3])
-def test_k2_matches_plain(cuda, n_ref, degree):
-    p, op, sm = _op(n_ref, torch.bfloat16, cuda)
+def _random_sym_planes(grid, pos, dtype, device, seed):
+    """Random positive planes of a symmetric stencil with a dominant
+    center, the reciprocal diagonal, and a Chebyshev recurrence."""
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(-1.0, 0.0, (1 + len(pos),) + grid)
+    planes[0] = 2.0 * len(pos) + rng.uniform(0.0, 1.0, grid)
+    planes = torch.from_numpy(planes.astype(np.float32)).to(dtype)
+    inv_diag = 1.0 / planes[0].to(torch.float32).reshape(-1)
+    return planes.to(device), inv_diag.to(device)
+
+
+def _k2_case(case, dtype, degree, device):
+    """(planes, pos_offsets, grid, inv_diag, coef, n): the Q1 main-path
+    stencil at 17^3 or 33^3 with its smoother, or random Q1 planes on a
+    ragged 19x23x37 grid."""
+    if case == "ragged":
+        grid = (19, 23, 37)
+        pos = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
+                    if o > (0, 0, 0))
+        planes, inv_diag = _random_sym_planes(grid, pos, dtype, device, degree)
+        coef = torch.tensor([0.9, 0.7, 0.5][:degree] + [0.0, 0.2, 0.1][:degree],
+                            dtype=torch.float32, device=device)
+        return planes, pos, grid, inv_diag, coef, int(np.prod(grid))
+    p, op, sm = _op(4 if case == "17^3" else 5, dtype, device)
     sm.degree = degree
     fused = fuse_chebyshev(sm, op)
+    return (op.planes, op.pos_offsets, op.grid_shape, fused.inv_diag, fused.coef,
+            p.n_dofs)
+
+
+def _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, device, form=None):
+    """K2 with and without the residual against its plain version: x to
+    1e-5, the residual to 1e-4 (relative 2-norms)."""
     rng = np.random.default_rng(1)
-    x, b = (torch.from_numpy(rng.uniform(size=p.n_dofs).astype(np.float32)).to(cuda)
+    x, b = (torch.from_numpy(rng.uniform(size=n).astype(np.float32)).to(device)
             for _ in range(2))
     for want_res in (False, True):
-        got = tk.cheb_smooth(op.planes, x, b, fused.inv_diag, fused.coef,
-                             op.pos_offsets, op.grid_shape, degree, want_res)
-        ref = tk.cheb_smooth_plain(op.planes, x, b, fused.inv_diag, fused.coef,
-                                   op.pos_offsets, op.grid_shape, degree,
-                                   want_res)
+        args = (planes, x, b, inv_diag, coef, pos, grid, degree, want_res)
+        got = tk.cheb_smooth(*args, form=form)
+        ref = tk.cheb_smooth_plain(*args)
         torch.cuda.synchronize()
-        assert float(torch.linalg.norm(got[0] - ref[0])) <= \
-            1e-5 * float(torch.linalg.norm(ref[0]))
+        assert torch.isfinite(got[0]).all()
+        assert _rel(got[0], ref[0]) <= 1e-5
         if want_res:
-            assert float(torch.linalg.norm(got[1] - ref[1])) <= \
-                1e-4 * float(torch.linalg.norm(ref[1]))
+            assert _rel(got[1], ref[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["17^3", "33^3", "ragged"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_matches_plain(cuda, case, degree, dtype):
+    """K2 on Q1 planes takes the blocked form, one launch per call."""
+    planes, pos, grid, inv_diag, coef, n = _k2_case(case, dtype, degree, cuda)
+    assert tk.k2_form(tuple(pos), degree) == "blocked"
+    before = dict(tk.LAUNCHES)
+    _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, cuda)
+    assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"] + 2
+    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"]
+
+
+@pytest.mark.parametrize("case", ["Q2-cube-33^3", "Q1-33^3"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_chain_matches_plain(cuda, case, dtype):
+    """The chain form at the Q2 cube's 62 pairs (its cell matrices
+    symmetrized, so that every host gives the pair planes), where the rule
+    sends K2, and on Q1 planes when asked for."""
+    if case == "Q1-33^3":
+        planes, pos, grid, inv_diag, coef, n = _k2_case("33^3", dtype, 2, cuda)
+        form = "chain"
+    else:
+        p = LaplaceProblem.hyper_cube(3, 4, degree=2, material_property="linear")
+        A_sym = 0.5 * (p.A_loc + np.swapaxes(p.A_loc, 1, 2))
+        host = tst.stencil_from_cell_matrices(p.mesh, A_sym, p.constrained,
+                                              p.diag_raw, dtype=dtype)
+        assert host.sym_pos is not None and len(host.sym_pos) == 62
+        sm = build_smoother(host, tcfg.SmootherConfig(type="chebyshev", degree=2),
+                            dtype=torch.float32)
+        op = tst.stencil_to_device(host, cuda)
+        fused = fuse_chebyshev(sm.to(cuda), op)
+        planes, pos, grid = op.planes, op.pos_offsets, op.grid_shape
+        inv_diag, coef, n, form = fused.inv_diag, fused.coef, p.n_dofs, None
+        assert tk.k2_form(tuple(pos), 2) == "chain"
+    before = dict(tk.LAUNCHES)
+    _hold_k2(planes, pos, grid, inv_diag, coef, n, 2, cuda, form=form)
+    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
+    assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"]
 
 
 # A V-cycle with the bf16-weight tail against the generic recursion: the bf16
@@ -148,13 +219,20 @@ def test_k3_matches_plain(cuda, degree, n_ref, dtype):
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("shape", ["Q1-33^3", "Q2-33^3"])
+@pytest.mark.parametrize("shape", ["Q1-33^3", "Q2-33^3", "ragged-5^3"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_k4_k5_match_plain(cuda, shape, bf16):
     """K4 and K5 against their plain versions on the level-0 transfer of a
-    main-path hierarchy (5^3 or 9^3 windows), float32 and bf16 weights; one
+    main-path hierarchy (5^3 or 9^3 windows) and on random weights over a
+    3x4x5 agglomerate grid (5^3 windows), float32 and bf16 weights; one
     launch each; adjoint to 1e-5."""
-    tr = (_hier(5) if shape.startswith("Q1") else _hier_q2(4)).levels[0].transfer
+    if shape == "ragged-5^3":
+        agg = (3, 4, 5)
+        W = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (2, 5, 5, 5) + agg).astype(np.float32)).to(cuda)
+        tr = StructuredTransfer(W, (5, 5, 5), agg, tuple(4 * a + 1 for a in agg))
+    else:
+        tr = (_hier(5) if shape.startswith("Q1") else _hier_q2(4)).levels[0].transfer
     W = tr.W.to(torch.bfloat16) if bf16 else tr.W
     g = (tr.window_shape, tr.agg_shape, tr.grid_shape)
     rng = np.random.default_rng(6)
