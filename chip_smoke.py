@@ -8,7 +8,7 @@ each phase prints its wall time):
  2. build the CUDA kernels from mfmg_torch/csrc (nvcc, sm_90a), timed;
  3. kernels against their plain PyTorch versions at the 65^3 main-path
     shapes: K1 (bf16 and f32 planes) and K2 (with and without the residual;
-    its blocked form, timed in turns beside the chain it replaces), with the
+    its two forms, blocked and chain, timed in turns), with the
     median time of each over 50 runs (CUDA events), K1's library
     yardstick (one cuSPARSE CSR SpMV of the assembled float32 matrix), and
     the fused coarse tail in both modes (full tail, sub-cycle), both
@@ -24,7 +24,8 @@ each phase prints its wall time):
     level-1 -> 2 form, timed beside the dense one), the median ms per
     V-cycle with the tail and with the generic recursion in turns, and the
     PCG count with K2's plain version as the smoother, and the V-cycle
-    with K2's blocked form against the chain, in turns;
+    with K2 as its rule routes it against either form for every call, in
+    turns;
  6. the main path at 129^3 (2,146,689 dofs): the same with the sub-cycle-mode
     tail (windowed level-1 -> 2 inside the kernel) and the fine transfer
     through K4/K5 (once each per V-cycle), setup seconds per stage, peak
@@ -51,8 +52,9 @@ each phase prints its wall time):
     through K4/K5.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
-another form than its rule gives (the blocked form on the Q1 paths, the
-chain on the Q2 cube's 62 pairs; counted per form).  The line
+another form than its rule gives (the blocked form for the step with the
+residual at 129^3, the chain for every other step; counted per form).  The
+line
 before the last is the kernel table as JSON, one row per TPU kernel of the
 reference (launches from the main paths' runs; bound_ms from the bytes and
 operations of this run's inputs at 3.35 TB/s and 67 TFLOP/s float32, the
@@ -393,50 +395,57 @@ def main():
         return v
 
     def check_k2(tag, op, x, b, fsm):
-        """K2 with and without the residual against its plain version;
-        returns the largest absolute error."""
+        """K2 with and without the residual against its plain version, in
+        the form its rule gives and, where the blocked kernel takes the
+        offsets, in the other form too (both timed in turns); returns the
+        largest absolute error."""
         k2_err = 0.0
         for want_res in (True, False):
             args = (op.planes, x, b, fsm.inv_diag, fsm.coef, op.pos_offsets,
                     op.grid_shape, fsm.degree, want_res)
-            got = tk.cheb_smooth(*args)
+            form = tk.k2_form(tuple(op.pos_offsets), fsm.degree, want_res,
+                              tuple(op.grid_shape))
+            both = tk._blocked_takes(tuple(op.pos_offsets), fsm.degree)
+            forms = (form, "chain" if form == "blocked" else "blocked") if both \
+                else (form,)
             ref = tk.cheb_smooth_plain(*args)
-            torch.cuda.synchronize()
-            ex = rel2(got[0], ref[0])
-            err = float((got[0] - ref[0]).abs().max())
-            check(bool(torch.isfinite(got[0]).all()), f"K2 {tag}: non-finite output")
-            check(ex <= K2_X_TOL, f"K2 {tag} res={want_res}: x rel err {ex:.3e} "
-                  f"> {K2_X_TOL}")
-            msg = f"K2 {tag} res={want_res}: max|dx| {err:.3e} (rel {ex:.3e})"
-            if want_res:
-                er = rel2(got[1], ref[1])
-                check(er <= K2_RES_TOL, f"K2 {tag}: residual rel err {er:.3e} "
-                      f"> {K2_RES_TOL}")
-                err = max(err, float((got[1] - ref[1]).abs().max()))
-                msg += f", residual rel {er:.3e}"
-            form = tk.k2_form(tuple(op.pos_offsets), fsm.degree)
             key = f"cheb_smooth/{tag}/" + ("with_residual" if want_res
                                            else "no_residual")
-            v = dict(max_abs_err=err, rel_err=ex, form=form)
-            if form == "blocked":
-                # the chain on the same inputs, in turns: the form it replaces
-                ch = tk.cheb_smooth(*args, form="chain")
+            v = dict(form=form, max_abs_err=0.0)
+            msg = f"K2 {tag} res={want_res}:"
+            for f in forms:
+                got = tk.cheb_smooth(*args) if f == form else tk._cheb_smooth(f, *args)
                 torch.cuda.synchronize()
-                v["chain_rel_err"] = rel2(ch[0], ref[0])
-                check(v["chain_rel_err"] <= K2_X_TOL, f"K2 chain {tag}: x rel err "
-                      f"{v['chain_rel_err']:.3e} > {K2_X_TOL}")
+                ex = rel2(got[0], ref[0])
+                err = float((got[0] - ref[0]).abs().max())
+                check(bool(torch.isfinite(got[0]).all()),
+                      f"K2 {f} {tag}: non-finite output")
+                check(ex <= K2_X_TOL, f"K2 {f} {tag} res={want_res}: x rel err "
+                      f"{ex:.3e} > {K2_X_TOL}")
+                msg += f" {f}: max|dx| {err:.3e} (rel {ex:.3e})"
+                if want_res:
+                    er = rel2(got[1], ref[1])
+                    check(er <= K2_RES_TOL, f"K2 {f} {tag}: residual rel err "
+                          f"{er:.3e} > {K2_RES_TOL}")
+                    err = max(err, float((got[1] - ref[1]).abs().max()))
+                    msg += f", residual rel {er:.3e};"
+                v[f"{f}_rel_err"] = ex
+                v["max_abs_err"] = max(v["max_abs_err"], err)
+            v["rel_err"] = v[f"{form}_rel_err"]
+            if both:
                 t = {"blocked": [], "chain": []}
                 for f in ("blocked", "chain", "chain", "blocked"):
-                    t[f].append(median_ms(lambda: tk.cheb_smooth(*args, form=f)))
-                v.update(ms=float(np.mean(t["blocked"])), ms_turns=t["blocked"],
-                         chain_ms=float(np.mean(t["chain"])), chain_ms_turns=t["chain"])
-                msg += f", chain {v['chain_ms']:.4f} ms {t['chain']}"
+                    t[f].append(median_ms(lambda: tk._cheb_smooth(f, *args)))
+                for f in t:
+                    v.update({f"{f}_ms": float(np.mean(t[f])), f"{f}_ms_turns": t[f]})
+                v["ms"] = v[f"{form}_ms"]
+                msg += f" blocked {t['blocked']} ms, chain {t['chain']} ms;"
             else:
                 v["ms"] = median_ms(lambda: tk.cheb_smooth(*args))
             v["plain_ms"] = median_ms(lambda: tk.cheb_smooth_plain(*args), batch=1)
             variants[key] = v
-            k2_err = max(k2_err, err)
-            print(f"{msg}, {form} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms",
+            k2_err = max(k2_err, v["max_abs_err"])
+            print(f"{msg} routed {form} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms",
                   flush=True)
         return k2_err
 
@@ -460,15 +469,19 @@ def main():
         def apply_with_residual(self, op, b, x):
             return self._run(op, b, x, True)
 
-    class ChainChebyshev(PlainChebyshev):
-        """The same fused smoother through K2's chain form: the form the
-        blocked one replaces, for the V-cycle's A/B."""
+    class FormChebyshev(PlainChebyshev):
+        """The same fused smoother through one form of K2 for every call,
+        for the V-cycle's A/B of the forms."""
+
+        def __init__(self, fsm, form):
+            super().__init__(fsm)
+            self.form = form
 
         def _run(self, op, b, x, want_res):
             f = self.fsm
-            return tk.cheb_smooth(op.planes, x, b, f.inv_diag, f.coef,
-                                  op.pos_offsets, op.grid_shape, f.degree,
-                                  want_res, form="chain")
+            return tk._cheb_smooth(self.form, op.planes, x, b, f.inv_diag, f.coef,
+                                   op.pos_offsets, op.grid_shape, f.degree,
+                                   want_res)
 
     def tail_variants(levels, windowed, reduced):
         if windowed:
@@ -607,19 +620,22 @@ def main():
               f"V-cycles")
         # the fine applies: one-sided, five K3 per V-cycle (two per degree-2
         # smooth, the residual) and one per CG apply (the first residual,
-        # one per iteration); symmetric, two K2 per V-cycle and one K1 per
-        # CG apply
-        # (the symmetric K2 calls all of the form its rule gives)
+        # one per iteration); symmetric, two K2 per V-cycle (the pre-smooth
+        # with the residual, the post-smooth without, each of the form its
+        # rule gives) and one K1 per CG apply
         op0 = hier.levels[0].op
         if op0.sym_pos is None:
             want = dict(stencil_apply=6 * n_cyc, stencil_apply_sym=0, cheb_smooth=0,
                         cheb_smooth_blocked=0, cheb_smooth_chain=0)
         else:
-            form = tk.k2_form(tuple(op0.pos_offsets), hier.levels[0].smoother.degree)
+            forms = [tk.k2_form(tuple(op0.pos_offsets), hier.levels[0].smoother.degree,
+                                want_res, tuple(op0.grid_shape))
+                     for want_res in (True, False)]
             want = dict(stencil_apply=0, stencil_apply_sym=n_cyc,
                         cheb_smooth=2 * n_cyc, cheb_smooth_blocked=0,
                         cheb_smooth_chain=0)
-            want[f"cheb_smooth_{form}"] = 2 * n_cyc
+            for form in forms:
+                want[f"cheb_smooth_{form}"] += n_cyc
         got = {k: launches[k] for k in want}
         check(got == want, f"{label}: fine-level launches {got}, not {want}")
         # same-call A/B: the tail and the generic recursion, in turns
@@ -650,23 +666,27 @@ def main():
             pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
                                                        maxiter=PCG_MAX)[1]
             hier.levels[0].smoother = fsm
-            if tk.k2_form(tuple(op0.pos_offsets), fsm.degree) == "blocked":
-                # the V-cycle (with the tail where there is one) with K2's
-                # blocked form and with the chain it replaces, in turns
-                chain = ChainChebyshev(fsm)
-                ab_k2 = {"blocked": [], "chain": []}
-                for key in ("blocked", "chain", "chain", "blocked"):
-                    hier.levels[0].smoother = fsm if key == "blocked" else chain
-                    ab_k2[key].append(median_ms(lambda: hier.vmult(bd), batch=2))
-                for key in ("blocked", "chain"):
-                    hier.levels[0].smoother = fsm if key == "blocked" else chain
-                    dev_k2[key] = device_ms_per_cycle(hier, bd)[0]
-                hier.levels[0].smoother = chain
-                pcg["k2_chain"] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
+            if tk._blocked_takes(tuple(op0.pos_offsets), fsm.degree):
+                # the V-cycle (with the tail where there is one) with K2 as
+                # its rule routes it and with either form for every call, in
+                # turns, wall and device time
+                sms = {"rule": fsm, "chain": FormChebyshev(fsm, "chain"),
+                       "blocked": FormChebyshev(fsm, "blocked")}
+                ab_k2 = {k: [] for k in sms}
+                dev_k2 = {k: [] for k in sms}
+                for turn in range(4):
+                    for key in list(sms)[::(-1) ** turn]:
+                        hier.levels[0].smoother = sms[key]
+                        ab_k2[key].append(median_ms(lambda: hier.vmult(bd), batch=2))
+                        if turn < 2:
+                            dev_k2[key].append(device_ms_per_cycle(hier, bd)[0])
+                for other in ("chain", "blocked"):
+                    hier.levels[0].smoother = sms[other]
+                    pcg[f"k2_{other}"] = hier.solve_cg(bh, tol=PCG_TOL,
+                                                       maxiter=PCG_MAX)[1]
                 hier.levels[0].smoother = fsm
-                print(f"  V-cycle ms, K2 blocked vs chain (in turns): {ab_k2}; "
-                      f"device ms/cycle: " + ", ".join(
-                          f"{k} {v:.4f}" for k, v in dev_k2.items()), flush=True)
+                print(f"  V-cycle ms, K2 by its rule / chain / blocked (in turns): "
+                      f"{ab_k2}; device ms/cycle: {dev_k2}", flush=True)
         print(f"  V-cycle ms (CUDA events, medians in turns tail/generic/"
               f"generic/tail): {ab}; device ms/cycle (profiler): "
               + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
@@ -778,7 +798,7 @@ def main():
     with Phase("5 main path 65^3"):
         hier, summary65, tr65, _ = run_main_path(
             "65^3", prob, True, ("stencil_apply_sym", "cheb_smooth",
-                                 "cheb_smooth_blocked", "fused_tail"))
+                                 "cheb_smooth_chain", "fused_tail"))
         check(tr65 <= TRUE_RES_MAX, f"true relres {tr65:.3e} > {TRUE_RES_MAX}")
         ft65 = hier.levels[0].fused
         v65 = check_tail("fused_correction_apply/65^3", ft65, True,
@@ -801,7 +821,8 @@ def main():
               flush=True)
         hier7, summary129, tr129, rows129 = run_main_path(
             "129^3", prob7, False, ("stencil_apply_sym", "cheb_smooth",
-                                    "cheb_smooth_blocked", "fused_tail",
+                                    "cheb_smooth_blocked", "cheb_smooth_chain",
+                                    "fused_tail",
                                     "structured_restrict",
                                     "structured_prolong"))
         check(tr129 <= TRUE_RES_MAX_LARGE,

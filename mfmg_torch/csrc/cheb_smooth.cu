@@ -25,8 +25,9 @@
 // residual reads them three times, and the r/p/dx intermediates go through
 // device memory.  The blocked form (below; the TPU's pallas_cheb_smooth_tiled
 // idea, rebuilt for an SM) does the whole step in one launch; the wrapper
-// (ops/stencil_kernels.py k2_form) sends the Q1 stencil at degree <= 3 to
-// it and everything else (the Q2 cube's 62 pairs of radius 2) to the chain.
+// (ops/stencil_kernels.py k2_form) sends the Q1 step with the residual at
+// degree <= 3 on a grid of more than 2^20 points to it, where it measured
+// faster (129^3), and everything else to the chain.
 #include "stencil_common.cuh"
 
 template <typename T>
@@ -137,9 +138,9 @@ cudaError_t launch_cheb_smooth(const void* planes_v, const float* x,
 //
 // What bounds both forms on an H100: not DRAM but the loads of each point's
 // apply (27 coefficients and 27 values), about five SM cycles per point and
-// apply.  The blocked form spends its halo's redundant applies (~1.3x at
-// 129^3) to save the chain's launches, allocations and DRAM passes; PERF.md
-// has the two side by side.  Keeping each level's value neighbourhoods in
+// apply.  The blocked form spends its halo's redundant applies (1.39x at
+// 129^3 with the residual, 1.17x without) to save the chain's launches and
+// DRAM passes; PERF.md has the two side by side.  Keeping each level's value neighbourhoods in
 // registers along z (9 loads in place of 27) is the next step.
 
 constexpr int kBlockedThreads = 512;

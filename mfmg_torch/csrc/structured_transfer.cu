@@ -31,8 +31,7 @@
 //   rows of y.  The block reads exactly the W entries of the points it owns,
 //   so W is read once overall; no atomics and no search over windows.  Where
 //   gx is a multiple of 4 (the main path) an item takes four ax, with one
-//   16-byte load of W per window and component; elsewhere one ax, three
-//   items per thread with their loads in flight together.
+//   16-byte load of W per window and component; elsewhere one ax.
 //   (One thread per fine point, searching the <= 8 windows that hold it,
 //   diverges inside a warp and scatters each warp-load of W over 4-5
 //   32-byte pieces.)
@@ -44,8 +43,7 @@
 
 constexpr int kRestrictLanes = 32;     // coarse outputs per block
 constexpr int kRestrictParts = 8;      // threads per output
-constexpr int kProlongMaxThreads = 512;
-constexpr int kItemsPerThread = 3;
+constexpr int kProlongThreads = 512;
 constexpr int kProlongMaxSmem = 48 * 1024;
 
 template <typename T>
@@ -70,31 +68,6 @@ structured_restrict_kernel(const T* __restrict__ W, const float* __restrict__ x,
     }
 }
 
-// Rows owned by agglomerate row ay: s, and s + 1 for the last.
-__host__ __device__ __forceinline__ int owned_rows(int a, int g, int s) {
-    return a == g - 1 ? s + 1 : s;
-}
-
-// Window sums of one block into win[row][ax][tx] are added into y's rows:
-// each fine column takes its own window and, at tx == 0, the lower
-// neighbour's tx = s term.
-__device__ __forceinline__ void prolong_write_rows(const float* win, float* __restrict__ y,
-                                                   const FineWindows& g, int iz, int ay,
-                                                   int ry) {
-    const int sy = g.wy - 1, sx = g.wx - 1;
-    float* yz = y + ((size_t)iz * g.ny + ay * sy) * g.nx;
-    for (int ix = threadIdx.x; ix < g.nx; ix += blockDim.x) {
-        const int ax = min(ix / sx, g.gx - 1), tx = ix - ax * sx;
-        const bool xn = tx == 0 && ax > 0;
-        for (int r = 0; r < ry; ++r) {
-            const float* w = win + (size_t)r * g.gx * g.wx;
-            float v = w[ax * g.wx + tx];
-            if (xn) v += w[(ax - 1) * g.wx + sx];
-            yz[(size_t)r * g.nx + ix] = v;
-        }
-    }
-}
-
 __device__ __forceinline__ float4 load_w4(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -105,17 +78,48 @@ __device__ __forceinline__ float4 load_w4(const __nv_bfloat16* p) {
     return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// K5 where gx is a multiple of 4 and c = CC in 1..4 (the main path: 129^3,
-// Q2).  A block owns fine plane iz and the agglomerate rows [ay0, ay0 +
-// nay): fine rows ay0 * sy + [0, nrows), nrows = nay * sy (+1 on the last
-// chunk).  An item is (fine row, tx, four consecutive ax); its weights come
-// as one 16-byte (8 for bf16) load per window and component, the coarse
-// values as CC 16-byte loads, and the block reads each weight plane's rows
-// (az, ay0 .. ay0 + nay) as one contiguous run.
-template <typename T, int CC>
-__global__ void __launch_bounds__(kProlongMaxThreads)
-structured_prolong_vec_kernel(const T* __restrict__ W, const float* __restrict__ xc,
-                              float* __restrict__ y, const FineWindows g, int ayc) {
+// One window's terms, summed over e, for V consecutive agglomerates a, ..,
+// a + V - 1 (their weights at w, e-stride estride).  V = 4: one 16-byte (8
+// for bf16) load of W per component and CC 16-byte loads of xc; V = 1: a
+// scalar load of each over the c components.
+template <typename T, int V, int CC>
+__device__ __forceinline__ void add_window(const T* __restrict__ w, const float* __restrict__ xc,
+                                           size_t a, size_t estride, int c, float (&acc)[V]) {
+    if constexpr (V == 4) {
+        const float4* xv = reinterpret_cast<const float4*>(xc + a * CC);
+        float xa[4 * CC];                   // xc[(a + i) * CC + e] at i * CC + e
+#pragma unroll
+        for (int i = 0; i < CC; ++i) {
+            const float4 t = __ldg(xv + i);
+            xa[4 * i] = t.x;
+            xa[4 * i + 1] = t.y;
+            xa[4 * i + 2] = t.z;
+            xa[4 * i + 3] = t.w;
+        }
+#pragma unroll
+        for (int e = 0; e < CC; ++e) {
+            const float4 wv = load_w4(w + e * estride);
+            acc[0] += wv.x * xa[e];
+            acc[1] += wv.y * xa[CC + e];
+            acc[2] += wv.z * xa[2 * CC + e];
+            acc[3] += wv.w * xa[3 * CC + e];
+        }
+    } else {
+        for (int e = 0; e < c; ++e) acc[0] += wload(w, e * estride) * __ldg(xc + a * c + e);
+    }
+}
+
+// K5.  A block owns fine plane iz and the agglomerate rows [ay0, ay0 + nay):
+// fine rows ay0 * sy + [0, nrows), nrows = nay * sy (+1 on the last chunk).
+// An item is (fine row, tx, V consecutive ax); it sums its <= 4 z/y windows
+// into win[row][ax][tx], and the block reads each weight plane's rows (az,
+// ay0 .. ay0 + nay) as one contiguous run.  V = 4 where gx is a multiple of
+// 4 and c = CC in 1..4 (the main path: 129^3, Q2); V = 1, CC = 0 (c at run
+// time) for any other geometry.
+template <typename T, int V, int CC>
+__global__ void __launch_bounds__(kProlongThreads)
+structured_prolong_kernel(const T* __restrict__ W, const float* __restrict__ xc,
+                          float* __restrict__ y, const FineWindows g, int ayc) {
     extern __shared__ float win[];          // [fine row][ax][tx]: window sums
     const int sz = g.wz - 1, sy = g.wy - 1, sx = g.wx - 1;
     const size_t n_sites = (size_t)g.gz * g.gy * g.gx;
@@ -124,44 +128,28 @@ structured_prolong_vec_kernel(const T* __restrict__ W, const float* __restrict__
     const int az = min(iz / sz, g.gz - 1), tz = iz - az * sz;
     const int nzw = tz == 0 && az > 0 ? 2 : 1;      // own window, lower neighbour's
     const int nrows = nay * sy + (ay0 + nay == g.gy);
-    const int g4 = g.gx / 4, pairs = g.wx * g4;
+    const int gv = g.gx / V, pairs = g.wx * gv;
     for (int q = threadIdx.x; q < nrows * pairs; q += blockDim.x) {
         const int R = q / pairs, p = q - R * pairs;
         const int ayl = min(R / sy, nay - 1), ay = ay0 + ayl, r = R - ayl * sy;
-        const int tx = p / g4, ax = 4 * (p - tx * g4);
+        const int tx = p / gv, ax = V * (p - tx * gv);
         const int nyw = r == 0 && ay > 0 ? 2 : 1;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        float acc[V] = {};
 #pragma unroll
         for (int k = 0; k < 4; ++k) {   // (own z, own y), (own, lower y), (lower z, ..)
             const int zw = k >> 1, yw = k & 1;
             if (zw < nzw && yw < nyw) {
-                const int a = ((az - zw) * g.gy + ay - yw) * g.gx + ax;
+                const size_t a = ((size_t)(az - zw) * g.gy + ay - yw) * g.gx + ax;
                 const size_t tt = ((size_t)(zw ? sz : tz) * g.wy + (yw ? sy : r)) * g.wx + tx;
-                const T* w = W + tt * n_sites + a;
-                const float4* xv = reinterpret_cast<const float4*>(xc + (size_t)a * CC);
-                float xa[4 * CC];           // xc[(a + i) * CC + e] at i * CC + e
-#pragma unroll
-                for (int i = 0; i < CC; ++i) {
-                    const float4 t = __ldg(xv + i);
-                    xa[4 * i] = t.x;
-                    xa[4 * i + 1] = t.y;
-                    xa[4 * i + 2] = t.z;
-                    xa[4 * i + 3] = t.w;
-                }
-#pragma unroll
-                for (int e = 0; e < CC; ++e) {
-                    const float4 wv = load_w4(w + e * estride);
-                    acc[0] += wv.x * xa[e];
-                    acc[1] += wv.y * xa[CC + e];
-                    acc[2] += wv.z * xa[2 * CC + e];
-                    acc[3] += wv.w * xa[3 * CC + e];
-                }
+                add_window<T, V, CC>(W + tt * n_sites + a, xc, a, estride, g.c, acc);
             }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) win[(R * g.gx + ax + i) * g.wx + tx] = acc[i];
+        for (int i = 0; i < V; ++i) win[(R * g.gx + ax + i) * g.wx + tx] = acc[i];
     }
     __syncthreads();
+    // each fine column takes its own window and, at tx == 0, the lower
+    // neighbour's tx = sx term; whole rows of y
     float* yz = y + ((size_t)iz * g.ny + ay0 * sy) * g.nx;
     for (int q = threadIdx.x; q < nrows * g.nx; q += blockDim.x) {
         const int R = q / g.nx, ix = q - R * g.nx;
@@ -173,73 +161,15 @@ structured_prolong_vec_kernel(const T* __restrict__ W, const float* __restrict__
     }
 }
 
-// K5 for any other geometry: an item is (row, tx, ax), kItemsPerThread of
-// them per thread at once.
-template <typename T>
-__global__ void __launch_bounds__(kProlongMaxThreads)
-structured_prolong_kernel(const T* __restrict__ W, const float* __restrict__ xc,
-                          float* __restrict__ y, const FineWindows g) {
-    extern __shared__ float win[];
-    const int sz = g.wz - 1, sy = g.wy - 1;
-    const size_t n_sites = (size_t)g.gz * g.gy * g.gx;
-    const size_t estride = (size_t)g.wz * g.wy * g.wx * n_sites;
-    const int ay = blockIdx.x, iz = blockIdx.y;
-    const int az = min(iz / sz, g.gz - 1), tz = iz - az * sz;
-    const int nzw = tz == 0 && az > 0 ? 2 : 1;
-    const int ry = owned_rows(ay, g.gy, sy);
-    const int pairs = g.wx * g.gx, items = ry * pairs;
-    for (int q0 = threadIdx.x; q0 < items; q0 += kItemsPerThread * blockDim.x) {
-        float acc[kItemsPerThread];
-        int slot[kItemsPerThread];
-#pragma unroll
-        for (int u = 0; u < kItemsPerThread; ++u) {
-            const int q = q0 + u * blockDim.x;
-            const int qq = q < items ? q : items - 1;     // a duplicate, not stored
-            const int r = qq / pairs, p = qq - r * pairs;
-            const int tx = p / g.gx, ax = p - tx * g.gx;
-            const int nyw = r == 0 && ay > 0 ? 2 : 1;
-            slot[u] = q < items ? (r * g.gx + ax) * g.wx + tx : -1;
-            acc[u] = 0.f;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                const int zw = k >> 1, yw = k & 1;
-                if (zw < nzw && yw < nyw) {
-                    const int a = ((az - zw) * g.gy + ay - yw) * g.gx + ax;
-                    const size_t tt =
-                        ((size_t)(zw ? sz : tz) * g.wy + (yw ? sy : r)) * g.wx + tx;
-                    const T* w = W + tt * n_sites + a;
-                    for (int e = 0; e < g.c; ++e)
-                        acc[u] += wload(w, e * estride) * __ldg(xc + (size_t)a * g.c + e);
-                }
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < kItemsPerThread; ++u)
-            if (slot[u] >= 0) win[slot[u]] = acc[u];
-    }
-    __syncthreads();
-    prolong_write_rows(win, y, g, iz, ay, ry);
-}
-
 template <typename T>
 void launch_prolong(const T* W, const float* xc, float* y, const FineWindows& g,
-                    cudaStream_t s) {
+                    int n_sm, cudaStream_t s) {
     const bool vec = g.gx % 4 == 0 && g.c >= 1 && g.c <= 4 &&
                      reinterpret_cast<uintptr_t>(xc) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(W) % (4 * sizeof(T)) == 0;
-    const int sy = g.wy - 1, row = g.gx * g.wx;     // floats of a fine row's sums
-    if (!vec) {
-        const size_t smem = sizeof(float) * (sy + 1) * row;
-        int threads = ((sy * row + kItemsPerThread * 32 - 1) / (kItemsPerThread * 32)) * 32;
-        threads = threads < 64 ? 64 : threads > kProlongMaxThreads ? kProlongMaxThreads : threads;
-        structured_prolong_kernel<T><<<dim3(g.gy, g.nz), threads, smem, s>>>(W, xc, y, g);
-        return;
-    }
     // agglomerate rows per block: at most as many as kProlongMaxSmem holds,
     // few enough for two blocks per SM, split evenly over a plane's blocks
-    int dev = 0, n_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    const int sy = g.wy - 1, row = g.gx * g.wx;     // floats of a fine row's sums
     const int fit = (kProlongMaxSmem / (int)sizeof(float) / row - 1) / sy;
     int chunks = (g.gy + fit - 1) / fit;
     const int want = (2 * n_sm + g.nz - 1) / g.nz;
@@ -248,12 +178,13 @@ void launch_prolong(const T* W, const float* xc, float* y, const FineWindows& g,
     chunks = (g.gy + ayc - 1) / ayc;
     const size_t smem = sizeof(float) * (ayc * sy + 1) * row;
     const dim3 grid(chunks, g.nz);
-    const int threads = kProlongMaxThreads;
-    switch (g.c) {
-    case 1: structured_prolong_vec_kernel<T, 1><<<grid, threads, smem, s>>>(W, xc, y, g, ayc); break;
-    case 2: structured_prolong_vec_kernel<T, 2><<<grid, threads, smem, s>>>(W, xc, y, g, ayc); break;
-    case 3: structured_prolong_vec_kernel<T, 3><<<grid, threads, smem, s>>>(W, xc, y, g, ayc); break;
-    default: structured_prolong_vec_kernel<T, 4><<<grid, threads, smem, s>>>(W, xc, y, g, ayc);
+    const int t = kProlongThreads;
+    switch (vec ? g.c : 0) {
+    case 0: structured_prolong_kernel<T, 1, 0><<<grid, t, smem, s>>>(W, xc, y, g, ayc); break;
+    case 1: structured_prolong_kernel<T, 4, 1><<<grid, t, smem, s>>>(W, xc, y, g, ayc); break;
+    case 2: structured_prolong_kernel<T, 4, 2><<<grid, t, smem, s>>>(W, xc, y, g, ayc); break;
+    case 3: structured_prolong_kernel<T, 4, 3><<<grid, t, smem, s>>>(W, xc, y, g, ayc); break;
+    default: structured_prolong_kernel<T, 4, 4><<<grid, t, smem, s>>>(W, xc, y, g, ayc);
     }
 }
 
@@ -279,18 +210,18 @@ int mfmg_structured_restrict(int w_bf16, const void* W, const float* x, float* o
     return (int)cudaGetLastError();
 }
 
-// y (nz*ny*nx) = R^T xc.
+// y (nz*ny*nx) = R^T xc; n_sm, the card's SM count, sizes the blocks.
 int mfmg_structured_prolong(int w_bf16, const void* W, const float* xc, float* y,
-                            const int* geom, void* stream) {
+                            const int* geom, int n_sm, void* stream) {
     const FineWindows g = make_fine_windows(geom);
     if (int err = check_fine_windows(g)) return err;
     // one agglomerate row's window sums (s + 1 fine rows) must fit
     if (sizeof(float) * g.wy * g.gx * g.wx > kProlongMaxSmem) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (w_bf16)
-        launch_prolong(static_cast<const __nv_bfloat16*>(W), xc, y, g, s);
+        launch_prolong(static_cast<const __nv_bfloat16*>(W), xc, y, g, n_sm, s);
     else
-        launch_prolong(static_cast<const float*>(W), xc, y, g, s);
+        launch_prolong(static_cast<const float*>(W), xc, y, g, n_sm, s);
     return (int)cudaGetLastError();
 }
 

@@ -10,11 +10,12 @@ Counterpart of mfmg_tpu/ops/pallas_stencil.py:
 * K2 ``cheb_smooth`` replaces ``pallas_cheb_smooth`` (and covers
   ``pallas_cheb_smooth_tiled``): one whole deal.II Chebyshev step
   x <- x - p(D^-1 A) D^-1 (A x - b), with the V-cycle residual A x_s - b on
-  request.  It has two forms, chosen by one rule on the offsets and the
-  degree (``k2_form``): the blocked form, one launch per step over tiles
-  planned by ``cheb_blocked_plan``, for the Q1 stencil's 13 positive
-  offsets at degree <= 3; the chain of one fused launch per apply for the
-  rest (the Q2 cube's 62 pairs of radius 2).
+  request.  It has two forms, chosen by one rule (``k2_form``): the blocked
+  form, one launch per step over tiles planned by ``cheb_blocked_plan``,
+  for the Q1 stencil's 13 positive offsets at degree <= 3, for a step with
+  the residual on a grid of more than ``K2_BLOCKED_MIN_POINTS``; the chain
+  of one fused launch per apply for the rest (the step without the
+  residual, smaller grids, the Q2 cube's 62 pairs of radius 2).
 * K3 ``stencil_apply`` replaces ``pallas_stencil_apply`` (and covers
   ``pallas_stencil_apply_tiled``): the one-sided apply y = sum_o C_o
   x(i+o) over all offset planes, for operators without the symmetric-pair
@@ -73,6 +74,14 @@ K2_BLOCKS_PER_SM = 2
 K2_MIN_CHUNK = 4
 K2_FRAME_ROWS = 16
 H100_SMS = 132
+# K2's dispatch (k2_form), from both forms timed in one call on an H100 at
+# 65^3 and 129^3 (PERF.md): the blocked form takes less device time only
+# for the step with the residual on the 129^3 grid, where the chain streams
+# the planes (60 MB in bf16, above the 50 MB L2) once per apply, three
+# times.  Without the residual (two applies) or at 65^3 (planes in L2) its
+# halo's redundant applies cost more than it saves.  The threshold lies
+# between the two grids measured.
+K2_BLOCKED_MIN_POINTS = 1 << 20
 
 _lib = None
 
@@ -186,20 +195,27 @@ def stencil_apply(planes: torch.Tensor, x: torch.Tensor, offsets,
 
 def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                 inv_diag: torch.Tensor, coef: torch.Tensor, pos_offsets,
-                grid_shape, degree: int, want_res: bool = False,
-                form: str | None = None):
+                grid_shape, degree: int, want_res: bool = False):
     """K2: (x_s,) or (x_s, A x_s - b) for one Chebyshev step; coef is the
-    (2 * degree,) float32 recurrence array [alphas..., betas...].  form:
-    "blocked" or "chain", by default ``k2_form``'s rule; the blocked form
-    raises for offsets the rule sends to the chain."""
+    (2 * degree,) float32 recurrence array [alphas..., betas...].  The form
+    is the one ``k2_form``'s rule gives."""
+    form = k2_form(tuple(pos_offsets), degree, want_res, tuple(grid_shape))
+    return _cheb_smooth(form, planes, x, b, inv_diag, coef, pos_offsets,
+                        grid_shape, degree, want_res)
+
+
+def _cheb_smooth(form: str, planes, x, b, inv_diag, coef, pos_offsets,
+                 grid_shape, degree: int, want_res: bool = False):
+    """K2 in the given form, "blocked" or "chain": ``cheb_smooth``'s body,
+    and the entry of the A/B harnesses that time one form beside the other
+    (chip_smoke.py, scripts/kernel_device_times.py, the card tests).  The
+    blocked form raises for offsets or a degree its kernel does not take."""
     _check_stencil(planes, x, pos_offsets, grid_shape)
     if degree < 1:
         raise ValueError(f"Chebyshev degree must be >= 1, got {degree}")
-    rule = k2_form(tuple(pos_offsets), degree)
-    form = rule if form is None else form
-    if form not in ("blocked", "chain") or (form == "blocked" and rule != form):
-        raise ValueError(f"K2 form {form!r} for these offsets at degree "
-                         f"{degree} (the rule gives {rule!r})")
+    if form not in ("blocked", "chain") or (
+            form == "blocked" and not _blocked_takes(tuple(pos_offsets), degree)):
+        raise ValueError(f"K2 form {form!r} for these offsets at degree {degree}")
     for name, t in (("b", b), ("inv_diag", inv_diag)):
         _check_like(name, t, x)
     if (coef.dtype != torch.float32 or coef.shape != (2 * degree,)
@@ -226,13 +242,16 @@ def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                 len(pos_offsets), _offset_table(pos_offsets), plan.ty,
                 plan.tx, plan.cz, _stream(x))
         else:
-            r, p, dx0 = (torch.empty_like(x) for _ in range(3))
-            dx1 = torch.empty_like(x) if degree > 2 else dx0
+            # r, p, dx0 (and dx1 above degree 2) in one scratch allocation
+            n = x.numel()
+            scratch = torch.empty((4 if degree > 2 else 3) * n,
+                                  dtype=torch.float32, device=x.device)
+            r, p, dx0 = (scratch.data_ptr() + 4 * n * i for i in range(3))
+            dx1 = dx0 + 4 * n if degree > 2 else dx0
             err = lib.mfmg_cheb_smooth(
                 planes.data_ptr(), int(planes.dtype == torch.bfloat16),
                 x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(),
-                coef.data_ptr(), degree, r.data_ptr(), p.data_ptr(),
-                dx0.data_ptr(), dx1.data_ptr(), xs.data_ptr(),
+                coef.data_ptr(), degree, r, p, dx0, dx1, xs.data_ptr(),
                 None if res is None else res.data_ptr(), gz, gy, gx,
                 len(pos_offsets), _offset_table(pos_offsets), _stream(x))
     _raise_on(err, f"cheb_smooth ({form})")
@@ -248,10 +267,18 @@ Q1_POS = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
 
 
 @functools.lru_cache(maxsize=None)
-def k2_form(pos_offsets, degree: int) -> str:
-    """K2's dispatch rule: "blocked" for the Q1 positive offsets (Q1_POS,
-    in that order) at degree <= 3, else "chain"."""
-    return "blocked" if tuple(pos_offsets) == Q1_POS and degree <= 3 else "chain"
+def k2_form(pos_offsets, degree: int, want_res: bool, grid_shape) -> str:
+    """K2's dispatch rule: "blocked" for a step with the residual on a grid
+    of more than K2_BLOCKED_MIN_POINTS points, over the Q1 positive offsets
+    (Q1_POS, in that order) at degree <= 3; else "chain"."""
+    big = int(np.prod(grid_shape)) > K2_BLOCKED_MIN_POINTS
+    return ("blocked" if want_res and big and _blocked_takes(pos_offsets, degree)
+            else "chain")
+
+
+def _blocked_takes(pos_offsets, degree: int) -> bool:
+    """The offsets and degrees the blocked kernel is compiled for."""
+    return tuple(pos_offsets) == Q1_POS and 1 <= degree <= 3
 
 
 class K2Plan(NamedTuple):
@@ -271,24 +298,19 @@ def _cdiv(a, b):
 
 @functools.lru_cache(maxsize=None)
 def cheb_blocked_plan(grid_shape, degree: int, want_res: bool,
-                      n_sm: int = H100_SMS,
-                      frame_rows: int = K2_FRAME_ROWS) -> K2Plan:
+                      n_sm: int = H100_SMS) -> K2Plan:
     """The tile schedule of K2's blocked form (csrc/cheb_smooth.cu).
 
-    A frame (the tile and ``halo`` points per side) is at most 32 points
-    wide (a warp's lanes) and ``frame_rows`` rows high (a row per warp); the
-    tiles split each axis evenly, so only the last tile of an axis is
-    ragged, by less than the tile count.  The z chunks are as many as bring
-    the blocks to ``K2_BLOCKS_PER_SM`` per SM, no shorter than
+    A frame (the tile and ``halo`` <= 4 points per side) is at most 32
+    points wide (a warp's lanes) and ``K2_FRAME_ROWS`` rows high (a row per
+    warp); the tiles split each axis evenly, so only the last tile of an
+    axis is ragged, by less than the tile count.  The z chunks are as many
+    as bring the blocks to ``K2_BLOCKS_PER_SM`` per SM, no shorter than
     ``K2_MIN_CHUNK`` slices."""
     gz, gy, gx = grid_shape
     halo = degree + int(want_res)
     tx = _cdiv(gx, _cdiv(gx, 32 - 2 * halo))
-    ty_max = frame_rows - 2 * halo
-    if ty_max < 1:
-        raise ValueError(f"K2's blocked form: a halo of {halo} leaves no tile "
-                         f"rows in a frame of {frame_rows}")
-    ty = _cdiv(gy, _cdiv(gy, ty_max))
+    ty = _cdiv(gy, _cdiv(gy, K2_FRAME_ROWS - 2 * halo))
     tiles = _cdiv(gx, tx) * _cdiv(gy, ty)
     n_chunks = max(1, min(_cdiv(gz, K2_MIN_CHUNK), K2_BLOCKS_PER_SM * n_sm // tiles))
     cz = _cdiv(gz, n_chunks)
@@ -451,9 +473,10 @@ def _library():
         lib.mfmg_fused_tail.restype = i
         lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, vp]
         lib.mfmg_stencil_apply.restype = i
-        for name in ("mfmg_structured_restrict", "mfmg_structured_prolong"):
-            getattr(lib, name).argtypes = [i, vp, vp, vp, ip, vp]
-            getattr(lib, name).restype = i
+        lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, vp]
+        lib.mfmg_structured_restrict.restype = i
+        lib.mfmg_structured_prolong.argtypes = [i, vp, vp, vp, ip, i, vp]
+        lib.mfmg_structured_prolong.restype = i
         lib.mfmg_cuda_error_string.argtypes = [i]
         lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -151,11 +151,13 @@ def _geom_table(geom):
 
 
 def _launch(name, W, src, dst, window_shape, agg_shape, grid_shape):
+    """K4 or K5; K5 also takes the card's SM count, which sizes its blocks."""
     geom = (*grid_shape, *agg_shape, *window_shape, W.shape[0])
     lib = stencil_kernels._library()
+    sms = (stencil_kernels._sm_count(dst.device),) if name == "structured_prolong" else ()
     with torch.cuda.device(dst.device):
         err = getattr(lib, f"mfmg_{name}")(
             int(W.dtype == torch.bfloat16), W.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), _geom_table(geom), stencil_kernels._stream(dst))
+            dst.data_ptr(), _geom_table(geom), *sms, stencil_kernels._stream(dst))
     stencil_kernels._raise_on(err, name)
     stencil_kernels.LAUNCHES[name] += 1

@@ -10,7 +10,7 @@ and prints both, each A/B in turns (A, B, B, A), on random inputs made from
 fixed seeds on the card:
 * K2, one degree-2 Chebyshev step on random Q1 planes (bf16, the V-cycle's
   storage) at 65^3 and 129^3, with and without the residual: the blocked
-  form against the chain it replaces;
+  form against the chain (the data of the rule ``k2_form``);
 * K5, y = R^T xc on random 5^3-window weights over 32^3 agglomerates (the
   129^3 level-0 transfer) and 9^3 windows over 8^3 (the Q2 cube's), f32
   and bf16 W, against one cuSPARSE CSR SpMV of R^T (f32; never used by the
@@ -75,7 +75,7 @@ def main():
         coef = torch.tensor([0.9, 0.7, 0.0, 0.2], device=dev)
         for want_res in (True, False):
             args = (planes, x, b, invd, coef, tk.Q1_POS, grid, 2, want_res)
-            t = in_turns({f: (lambda f=f: tk.cheb_smooth(*args, form=f))
+            t = in_turns({f: (lambda f=f: tk._cheb_smooth(f, *args))
                           for f in ("blocked", "chain")})
             print(f"K2 {grid[0]}^3 residual={want_res}: (device ms, event ms) {t}",
                   flush=True)

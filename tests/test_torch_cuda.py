@@ -11,8 +11,9 @@ an NVIDIA H100 run them with
 does not need and may not have; this file imports no JAX.)
 
 K2 is held in both forms: the blocked form on Q1 planes (17^3, 33^3, a
-ragged 19x23x37 grid), the chain on the Q2 cube's 62 pairs and, when asked
-for, on Q1 planes.
+ragged 19x23x37 grid; its rule takes it only at 129^3, which chip_smoke.py
+runs), the chain where the rule sends these grids, on Q1 planes and the Q2
+cube's 62 pairs.
 
 Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
@@ -106,13 +107,14 @@ def _k2_case(case, dtype, degree, device):
 
 def _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, device, form=None):
     """K2 with and without the residual against its plain version: x to
-    1e-5, the residual to 1e-4 (relative 2-norms)."""
+    1e-5, the residual to 1e-4 (relative 2-norms); through its rule, or in
+    the given form."""
     rng = np.random.default_rng(1)
     x, b = (torch.from_numpy(rng.uniform(size=n).astype(np.float32)).to(device)
             for _ in range(2))
     for want_res in (False, True):
         args = (planes, x, b, inv_diag, coef, pos, grid, degree, want_res)
-        got = tk.cheb_smooth(*args, form=form)
+        got = tk.cheb_smooth(*args) if form is None else tk._cheb_smooth(form, *args)
         ref = tk.cheb_smooth_plain(*args)
         torch.cuda.synchronize()
         assert torch.isfinite(got[0]).all()
@@ -125,11 +127,10 @@ def _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, device, form=None):
 @pytest.mark.parametrize("degree", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_matches_plain(cuda, case, degree, dtype):
-    """K2 on Q1 planes takes the blocked form, one launch per call."""
+    """K2's blocked form on Q1 planes, one launch per call."""
     planes, pos, grid, inv_diag, coef, n = _k2_case(case, dtype, degree, cuda)
-    assert tk.k2_form(tuple(pos), degree) == "blocked"
     before = dict(tk.LAUNCHES)
-    _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, cuda)
+    _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, cuda, form="blocked")
     assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"] + 2
     assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"]
 
@@ -137,12 +138,11 @@ def test_k2_matches_plain(cuda, case, degree, dtype):
 @pytest.mark.parametrize("case", ["Q2-cube-33^3", "Q1-33^3"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_chain_matches_plain(cuda, case, dtype):
-    """The chain form at the Q2 cube's 62 pairs (its cell matrices
-    symmetrized, so that every host gives the pair planes), where the rule
-    sends K2, and on Q1 planes when asked for."""
+    """The chain form, where the rule sends K2 at 33^3: on Q1 planes and
+    at the Q2 cube's 62 pairs (its cell matrices symmetrized, so that every
+    host gives the pair planes)."""
     if case == "Q1-33^3":
         planes, pos, grid, inv_diag, coef, n = _k2_case("33^3", dtype, 2, cuda)
-        form = "chain"
     else:
         p = LaplaceProblem.hyper_cube(3, 4, degree=2, material_property="linear")
         A_sym = 0.5 * (p.A_loc + np.swapaxes(p.A_loc, 1, 2))
@@ -154,10 +154,11 @@ def test_k2_chain_matches_plain(cuda, case, dtype):
         op = tst.stencil_to_device(host, cuda)
         fused = fuse_chebyshev(sm.to(cuda), op)
         planes, pos, grid = op.planes, op.pos_offsets, op.grid_shape
-        inv_diag, coef, n, form = fused.inv_diag, fused.coef, p.n_dofs, None
-        assert tk.k2_form(tuple(pos), 2) == "chain"
+        inv_diag, coef, n = fused.inv_diag, fused.coef, p.n_dofs
+    assert all(tk.k2_form(tuple(pos), 2, r, tuple(grid)) == "chain"
+               for r in (False, True))
     before = dict(tk.LAUNCHES)
-    _hold_k2(planes, pos, grid, inv_diag, coef, n, 2, cuda, form=form)
+    _hold_k2(planes, pos, grid, inv_diag, coef, n, 2, cuda)
     assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
     assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"]
 

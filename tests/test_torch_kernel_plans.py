@@ -16,7 +16,8 @@ there is no GPU:
   point per level, from the values the previous level left in the block's
   frame.  Values a block never computed or loaded are NaN in the model, so
   a halo one point short shows as NaN in the output.  Held against
-  ``cheb_smooth_plain`` on a 19x23x37 grid with random planes.
+  ``cheb_smooth_plain`` with random planes on 19x23x37 and 13x41x67 grids
+  (2-3 tiles per axis, ragged last tiles and z chunks).
 * K2's dispatch rule ``k2_form``.
 
 Tolerances: the models sum the same float64 (K2) or float32 (K5) products
@@ -217,18 +218,19 @@ def _random_sym_case(grid_shape, seed):
     return t[0], t[1], t[2], invd, pos
 
 
-@pytest.mark.parametrize("frame_rows", [tk.K2_FRAME_ROWS, 11],
-                         ids=["default-plan", "small-tiles"])
+@pytest.mark.parametrize("grid", [(19, 23, 37), (13, 41, 67)],
+                         ids=["19x23x37", "13x41x67"])
 @pytest.mark.parametrize("degree", [1, 2, 3])
 @pytest.mark.parametrize("want_res", [False, True], ids=["no-res", "res"])
-def test_k2_blocked_model_matches_plain(frame_rows, degree, want_res):
-    grid = (19, 23, 37)
+def test_k2_blocked_model_matches_plain(grid, degree, want_res):
     planes, x, b, invd, pos = _random_sym_case(grid, degree)
     coef = torch.tensor([0.9, 0.7, 0.5][:degree] + [0.0, 0.2, 0.1][:degree],
                         dtype=torch.float64)
-    plan = tk.cheb_blocked_plan(grid, degree, want_res, frame_rows=frame_rows)
+    plan = tk.cheb_blocked_plan(grid, degree, want_res)
     assert plan.halo == degree + int(want_res)
-    assert plan.ty + 2 * plan.halo <= frame_rows and plan.tx + 2 * plan.halo <= 32
+    assert all(n > 1 for n in plan.grid), "one tile on an axis"
+    assert plan.ty + 2 * plan.halo <= tk.K2_FRAME_ROWS
+    assert plan.tx + 2 * plan.halo <= 32
     got = cheb_blocked_model(planes, x, b, invd, coef, pos, grid, degree,
                              want_res, plan)
     ref = tk.cheb_smooth_plain(planes, x, b, invd, coef, pos, grid, degree,
@@ -241,9 +243,12 @@ def test_k2_blocked_model_matches_plain(frame_rows, degree, want_res):
 def test_k2_plan_tiles_split_evenly():
     """The plan's tiles cover each axis with only the last one ragged, a
     frame is at most 32 points wide and K2_FRAME_ROWS high, and the blocks
-    fill the SMs about K2_BLOCKS_PER_SM times at 129^3; there the degree-2
-    step's frame (the redundant plane reads) stays under twice its
-    interior."""
+    fill the SMs about K2_BLOCKS_PER_SM times at 129^3.  There, for the
+    degree-2 step with the residual (3 levels), the block reads each plane
+    slice over level 1's region (the tile and 2 points per side, cz + 4
+    slices): 1.81x the interior, above the 1.5x aimed at because a frame
+    is at most 16 rows (a warp per row, 512 threads); its applies over the
+    shrinking regions are 1.39x the chain's."""
     for grid in ((129, 129, 129), (65, 65, 65), (19, 23, 37)):
         for degree, res in itertools.product((1, 2, 3), (False, True)):
             p = tk.cheb_blocked_plan(grid, degree, res)
@@ -253,30 +258,47 @@ def test_k2_plan_tiles_split_evenly():
             assert p.tx + 2 * p.halo <= 32
             assert p.ty + 2 * p.halo <= tk.K2_FRAME_ROWS
     p = tk.cheb_blocked_plan((129,) * 3, 2, True)
-    frame = (p.ty + 2 * p.halo) * (p.tx + 2 * p.halo)
-    assert frame < 2 * p.ty * p.tx
+    interior = p.ty * p.tx * p.cz
+
+    def region(m):                       # level L - m: margin m, in points
+        return (p.ty + 2 * m) * (p.tx + 2 * m) * (p.cz + 2 * m)
+
+    assert region(p.halo - 1) <= 1.85 * interior
+    assert sum(region(m) for m in range(p.halo)) <= 1.4 * p.halo * interior
     n_blocks = int(np.prod(p.grid))
     assert tk.H100_SMS <= n_blocks <= (tk.K2_BLOCKS_PER_SM + 1) * tk.H100_SMS
 
 
 def test_k2_form_rule():
-    """Q1 planes (the 13 positive offsets of radius 1, in their order) go
-    to the blocked form at degrees 1-3; the Q2 cube's 62 pairs of radius 2,
-    and degree 4, to the chain."""
+    """A step with the residual on Q1 planes (the 13 positive offsets of
+    radius 1, in their order) at degrees 1-3 goes to the blocked form on a
+    grid of more than K2_BLOCKED_MIN_POINTS points (129^3, not 65^3); the
+    step without the residual, smaller grids, the Q2 cube's 62 pairs of
+    radius 2 and degree 4 go to the chain."""
     prob = LaplaceProblem.hyper_cube(3, 2, material_property="linear")
     op = tst.stencil_from_cell_matrices(prob.mesh, prob.A_loc, prob.constrained,
                                         prob.diag_raw, dtype=torch.float32)
     assert op.sym_pos is not None and len(op.pos_offsets) == 13
-    for degree in (1, 2, 3):
-        assert tk.k2_form(op.pos_offsets, degree) == "blocked"
-    assert tk.k2_form(op.pos_offsets, 4) == "chain"
+    assert tuple(op.pos_offsets) == tk.Q1_POS
+    small, g65, g129 = op.grid_shape, (65,) * 3, (129,) * 3
+    for degree, res, grid in itertools.product((1, 2, 3), (False, True),
+                                               (small, g65, g129)):
+        want = "blocked" if grid == g129 and res else "chain"
+        assert tk.k2_form(op.pos_offsets, degree, res, grid) == want
+    assert 65 ** 3 <= tk.K2_BLOCKED_MIN_POINTS < 129 ** 3
     q2 = tuple(o for o in itertools.product(range(-2, 3), repeat=3)
                if o > (0, 0, 0))
-    assert len(q2) == 62 and tk.k2_form(q2, 2) == "chain"
-    # the kernel's offsets are compile-time: another order or subset of the
-    # radius-1 offsets goes to the chain
-    assert tk.k2_form(op.pos_offsets[::-1], 2) == "chain"
-    assert tk.k2_form(op.pos_offsets[:7], 2) == "chain"
+    for res in (False, True):
+        assert tk.k2_form(op.pos_offsets, 4, res, g129) == "chain"
+        assert len(q2) == 62 and tk.k2_form(q2, 2, res, g129) == "chain"
+        # the kernel's offsets are compile-time: another order or subset of
+        # the radius-1 offsets goes to the chain
+        assert tk.k2_form(op.pos_offsets[::-1], 2, res, g129) == "chain"
+        assert tk.k2_form(op.pos_offsets[:7], 2, res, g129) == "chain"
+    with pytest.raises(ValueError, match="form 'blocked'"):
+        x = torch.zeros(int(np.prod(small)))
+        tk._cheb_smooth("blocked", torch.zeros((14,) + small), x, x, x,
+                        torch.zeros(4), tk.Q1_POS[::-1], small, 2)
 
 
 def test_k2_wrapper_counts_nothing_on_the_cpu():
