@@ -13,7 +13,8 @@ each phase prints its wall time):
     yardstick (one cuSPARSE CSR SpMV of the assembled float32 matrix), and
     the fused coarse tail in both modes (full tail, sub-cycle), both
     level-1 -> 2 forms (dense, windowed) and both storages (f32, bf16) on
-    the 17^3 and 33^3 hierarchies;
+    the 17^3 and 33^3 hierarchies (every tail check also launches it twice
+    and requires the same bits);
  4. a small-input reference: the 17^3 main-path hierarchy on the GPU against
     the same hierarchy on the CPU (plain versions, the same bf16 tail), and
     against the CPU's generic recursion within the bf16 storage's gap;
@@ -368,7 +369,8 @@ def main():
                 library_spmv(name, A, v, got)
 
     def check_tail(name, ft, full, rng, time_it=False):
-        """One mode of a tail against its plain version on card tensors."""
+        """One mode of a tail against its plain version on card tensors, and
+        against itself (two launches, the same bits)."""
         if full:
             x, res = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in
                       (rng.uniform(size=ft.n_fine), rng.standard_normal(ft.n_fine)))
@@ -378,9 +380,11 @@ def main():
             b1 = torch.from_numpy(rng.standard_normal(ft.n1).astype(np.float32)).to(dev)
             run = lambda: fc.fused_subcycle_apply(ft, b1)                # noqa: E731
             plain = lambda: fc.fused_subcycle_apply_plain(ft, b1)        # noqa: E731
-        got, ref = run(), plain()
+        got, ref, again = run(), plain(), run()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        # fixed-order sums without atomics: a second launch repeats the bits
+        check(torch.equal(got, again), f"{name}: two launches differ")
         rel = rel2(got, ref)
         err = float((got - ref).abs().max())
         check(rel <= TAIL_TOL, f"{name}: rel err {rel:.3e} > {TAIL_TOL}")

@@ -1,7 +1,7 @@
-// Index arithmetic of the fine-level windowed transfer, shared by K4
+// Index arithmetic of the fine-level windowed transfer, shared by K4/K5
 // (structured_transfer.cu) and the full-mode coarse tail (fused_tail.cu);
-// window_prolong_at, one fine point's gather, is the tail's (K5 owns its
-// points by agglomerate rows instead).
+// window_restrict_rows is K4's, window_prolong_at, one fine point's gather,
+// the tail's (K5 owns its points by agglomerate rows instead).
 //
 // The fine grid (nz, ny, nx) is covered by the agglomerate grid (gz, gy, gx)
 // of windows w per axis at stride s = w - 1 (neighbouring windows share one
@@ -56,30 +56,38 @@ __device__ __forceinline__ float window_restrict_rows(const T* __restrict__ W,
     return acc;
 }
 
-// Prolongation at fine point i (xc site-major).
-template <typename T>
+// Prolongation at fine point i (xc site-major): the <= 2 windows per axis
+// holding i, a = i / s and, where i lies on a window boundary, a - 1 (local
+// offset s), in increasing a; the absent ones add zero (their loads
+// clamped), so that all loads issue together.  kC: c at compile time, 0 for
+// g.c.
+template <int kC, typename T>
 __device__ __forceinline__ float window_prolong_at(const T* __restrict__ W,
                                                    const float* xc,
                                                    const FineWindows& g, int i) {
+    const int c = kC ? kC : g.c;
     const int sz = g.wz - 1, sy = g.wy - 1, sx = g.wx - 1;
-    const int n_sites = g.gz * g.gy * g.gx;
-    const int fw3 = g.wz * g.wy * g.wx;
-    const int ix = i % g.nx, t = i / g.nx, iy = t % g.ny, iz = t / g.ny;
+    const int n_sites = g.gz * g.gy * g.gx, fw3 = g.wz * g.wy * g.wx;
+    const int ix = i % g.nx, u = i / g.nx, iy = u % g.ny, iz = u / g.ny;
     float acc = 0.f;
-    // window offsets i - a * s lie in [0, s]: a in [floor((i - 1) / s), i / s]
-    for (int az = max(floor_div(iz - 1, sz), 0); az <= min(iz / sz, g.gz - 1); ++az) {
-        const int tz = iz - az * sz;
-        if (tz > sz) continue;
-        for (int ay = max(floor_div(iy - 1, sy), 0); ay <= min(iy / sy, g.gy - 1); ++ay) {
-            const int ty = iy - ay * sy;
-            if (ty > sy) continue;
-            for (int ax = max(floor_div(ix - 1, sx), 0); ax <= min(ix / sx, g.gx - 1); ++ax) {
-                const int tx = ix - ax * sx;
-                if (tx > sx) continue;
-                const int a = (az * g.gy + ay) * g.gx + ax;
-                const int tt = (tz * g.wy + ty) * g.wx + tx;
-                for (int e = 0; e < g.c; ++e)
-                    acc += wload(W, ((size_t)e * fw3 + tt) * n_sites + a) * xc[a * g.c + e];
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz) {
+        const int az = iz / sz - 1 + dz, tz = iz - az * sz;
+        const bool okz = az >= 0 && az < g.gz && tz <= sz;
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+            const int ay = iy / sy - 1 + dy, ty = iy - ay * sy;
+            const bool oky = okz && ay >= 0 && ay < g.gy && ty <= sy;
+#pragma unroll
+            for (int dx = 0; dx < 2; ++dx) {
+                const int ax = ix / sx - 1 + dx, tx = ix - ax * sx;
+                const bool ok = oky && ax >= 0 && ax < g.gx && tx <= sx;
+                const int a = ok ? (az * g.gy + ay) * g.gx + ax : 0;
+                const int tt = ok ? (tz * g.wy + ty) * g.wx + tx : 0;
+                for (int e = 0; e < c; ++e) {
+                    const float wv = wload(W, ((size_t)e * fw3 + tt) * n_sites + a);
+                    acc += ok ? wv * xc[a * c + e] : 0.f;
+                }
             }
         }
     }

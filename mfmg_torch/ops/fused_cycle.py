@@ -22,15 +22,20 @@ existed for Mosaic's legal-op set and are not ported.
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU,
 launches the kernel for a CUDA tensor, and raises on anything else; each
-launch counts in ``stencil_kernels.LAUNCHES["fused_tail"]``.  The plain
-versions compute the reference's ``_subcycle_math`` literally with the
-port's block-stencil and transfer math, on the stored (possibly
-bf16-rounded) operands in the vectors' dtype.  With bf16 weights the
+launch counts in ``stencil_kernels.LAUNCHES["fused_tail"]``.  The launch
+follows ``tail_plan`` (which block owns which level-1 sites, lanes per
+output, the shared-memory layout).  The plain versions compute the
+reference's ``_subcycle_math`` literally with the port's block-stencil and
+transfer math, on the stored (possibly bf16-rounded) operands in the
+vectors' dtype.  With bf16 weights the
 windowed level-1 -> 2 correction also rounds four of its vectors to bf16,
 where the reference's reduced tail rounds them (``_windowed_correction``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +59,9 @@ FUSED_DENSE_MAX_ELEMS = 4_000_000
 # 129^3 the sub-cycle; lifting it is a ROADMAP question).
 FULL_TAIL_MAX_BYTES = 30 * 1024 * 1024
 MAX_OFFSETS = 27                  # MFMG_TAIL_MAX_OFF in csrc/fused_tail.cu
+TAIL_THREADS = 512                # kTailThreads in csrc/fused_tail.cu
+# Shared memory a block may use on an H100 (227 KB of the SM's 256 KB).
+H100_SMEM_PER_BLOCK = 232_448
 
 
 def full_tail_fits(n_comp, agg_shape, window_shape, grid_shape,
@@ -131,7 +139,8 @@ def build_fused_tail(levels, n_smoothing_steps: int = 1,
     """Pattern-match a 3-level tail (structured fine transfer + block-stencil
     L1 + Chebyshev + window transfer + direct coarse L2) and bake the fused
     operands on the levels' device (fused_cycle.py:492-614).  Returns None
-    when the structure does not fit (the generic recursion stays).
+    when the structure does not fit, or the kernel's plan does not fit an
+    H100 block's shared memory (the generic recursion stays).
 
     reduced_storage: the level-1 coefficients, Rd / W2 and the fine W are
     stored in bfloat16; invd, inv2 and the Chebyshev coefficients stay in
@@ -187,10 +196,15 @@ def build_fused_tail(levels, n_smoothing_steps: int = 1,
         W = ftr.W.to(wdt)
         fine_window, fine_grid = ftr.window_shape, ftr.grid_shape
 
-    return FusedTail(op.coeffs.to(wdt), op.offsets, grid, c,
-                     sm.inv_diag.to(dtype), cheb_coef, sm.degree,
-                     n_smoothing_steps, inv2, Rd=Rd, W2=W2, win=win, W=W,
-                     fine_window=fine_window, fine_grid=fine_grid)
+    ft = FusedTail(op.coeffs.to(wdt), op.offsets, grid, c,
+                   sm.inv_diag.to(dtype), cheb_coef, sm.degree,
+                   n_smoothing_steps, inv2, Rd=Rd, W2=W2, win=win, W=W,
+                   fine_window=fine_window, fine_grid=fine_grid)
+    try:
+        plan_of(ft)                   # the kernel's shared memory must hold it
+    except ValueError:
+        return None
+    return ft
 
 
 # ------------------------------------------------------------ plain versions
@@ -265,6 +279,102 @@ def fused_correction_apply_plain(ft: FusedTail, x: torch.Tensor,
     return x - fine.prolong(fused_subcycle_apply_plain(ft, fine.restrict(res)))
 
 
+# --------------------------------------------------------------------- plan
+
+class TailPlan(NamedTuple):
+    """The decomposition of csrc/fused_tail.cu (its struct Plan, in order).
+
+    ``blocks`` of TAIL_THREADS, block b owning the level-1 sites
+    [b * sites, (b + 1) * sites) (the last block ragged); lanes per output
+    (each a power of two <= 32): ``group`` per site gathering an apply's
+    neighbour values, ``fine_group`` per (e, a) in the fine restriction,
+    ``row_parts`` per coarse row in the dense partial restriction,
+    ``col_parts`` per column in the dense prolongation.  Shared memory
+    (bytes): the block's own b1, residual and p at 0, x2 at ``off_x2``, the
+    fine window's entry offsets at ``off_tab`` (full mode), the applies'
+    gathered neighbour values at ``off_vb`` (n_off * c floats per group),
+    and, where staged, the coefficient chunks (``cstride`` apart, one per
+    offset) at ``off_coef`` and the Rd column chunks (``rstride`` apart,
+    one per coarse row) at ``off_rd``; a chunk is the 16-byte-aligned cover
+    of its bytes."""
+    blocks: int
+    sites: int
+    group: int
+    fine_group: int
+    row_parts: int
+    col_parts: int
+    stage_coeffs: int
+    stage_rd: int
+    cstride: int
+    rstride: int
+    off_coef: int
+    off_rd: int
+    off_x2: int
+    off_tab: int
+    off_vb: int
+    smem_bytes: int
+
+
+def _lanes(n_threads: int, n_items: int) -> int:
+    """The largest power of two <= 32 with n_items groups of it in
+    n_threads lanes (at least 1)."""
+    g = 1
+    while g < 32 and 2 * g * n_items <= n_threads:
+        g *= 2
+    return g
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(grid, n_comp: int, n_off: int, n2: int, dense: bool,
+              weight_bytes: int, table: int = 0,
+              n_sm: int = stencil_kernels.H100_SMS) -> TailPlan:
+    """Plan the tail's launch: the level-1 sites spread evenly over at most
+    one block per SM (every SM takes part in the phases over the fine
+    grid); lanes per output as many as the block's threads allow, at most a
+    warp; the block's coefficients, then its Rd columns, staged in shared
+    memory where they fit in an H100 block's.  ``table``: the entries of the
+    fine window (0 without one), whose offsets the kernel tabulates."""
+    n_sites, c, T = int(np.prod(grid)), int(n_comp), TAIL_THREADS
+    sites = -(-n_sites // n_sm)
+    blocks = -(-n_sites // sites)
+    sites = -(-n_sites // blocks)
+    cstride = _r16(sites * c * c * weight_bytes) + 16
+    rstride = _r16(sites * c * weight_bytes) + 16
+    off_x2 = _r16(3 * sites * c * 4)
+    off_tab = off_x2 + _r16(4 * n2)
+    off_vb = off_tab + _r16(4 * table)
+    group = _lanes(T, sites)
+    # the gather buffer must fit: more lanes per site (more passes) if not
+    while group < 32 and off_vb + 4 * (T // group) * n_off * c > H100_SMEM_PER_BLOCK:
+        group *= 2
+    off_coef = off_vb + _r16(4 * (T // group) * n_off * c)
+    if off_coef > H100_SMEM_PER_BLOCK:
+        raise ValueError(f"the tail's shared memory ({off_coef} bytes) exceeds "
+                         f"{H100_SMEM_PER_BLOCK} at c = {c}")
+    stage_coeffs = int(off_coef + n_off * cstride <= H100_SMEM_PER_BLOCK)
+    off_rd = off_coef + stage_coeffs * n_off * cstride
+    stage_rd = int(dense and off_rd + n2 * rstride <= H100_SMEM_PER_BLOCK)
+    return TailPlan(blocks, sites, group, _lanes(T, sites * c),
+                    _lanes(T, n2), _lanes(T, sites * c), stage_coeffs, stage_rd,
+                    cstride, rstride, off_coef, off_rd, off_x2, off_tab, off_vb,
+                    off_rd + stage_rd * n2 * rstride)
+
+
+def plan_of(ft: FusedTail, n_sm: int = stencil_kernels.H100_SMS) -> TailPlan:
+    table = 0 if ft.fine_window is None else int(np.prod(ft.fine_window))
+    return tail_plan(ft.grid, ft.n_comp, len(ft.offsets), ft.n2, ft.Rd is not None,
+                     ft.coeffs.element_size(), table, n_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: TailPlan):
+    return stencil_kernels._ints(plan)
+
+
 # ------------------------------------------------------------------ wrappers
 
 def fused_subcycle_apply(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
@@ -312,8 +422,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None):
-    bf16 = ft.coeffs.dtype == torch.bfloat16
+def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None,
+            stamps=None):
+    """One launch of csrc/fused_tail.cu; with ``stamps`` (a zeroed int64
+    (1 + marks x blocks) tensor) through the kernel instance that records
+    phase stamps, an entry of the measurement scripts only."""
     for name in ("coeffs", "Rd", "W2", "W"):
         t = getattr(ft, name)
         if t is not None and (t.dtype != ft.coeffs.dtype or not t.is_contiguous()):
@@ -322,6 +435,10 @@ def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None):
     if not ft.coeffs.is_contiguous() or len(ft.offsets) > MAX_OFFSETS:
         raise ValueError(f"the kernel takes contiguous coefficients and at "
                          f"most {MAX_OFFSETS} offsets")
+    for t in (ft.coeffs, ft.Rd):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the kernel stages coefficients and Rd with 16-byte "
+                             "copies: they must start on 16 bytes")
     dense = ft.Rd is not None
     if dense:
         l2 = [ft.n2, 0] + [0] * 12
@@ -337,17 +454,23 @@ def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None):
                              f"over agglomerates {ft.grid} do not tile the "
                              f"fine grid {ft.fine_grid}")
         fine = list(ft.fine_grid) + list(ft.fine_window)
-    scratch = torch.empty(7 * ft.n1 + 2 * ft.n2, dtype=torch.float32,
-                          device=out.device)
-    ints, lib = stencil_kernels._ints, stencil_kernels._library()
-    with torch.cuda.device(out.device):
-        err = lib.mfmg_fused_tail(
-            int(bf16), int(full), int(dense), _ptr(ft.coeffs), _ptr(ft.invd),
-            _ptr(ft.cheb_coef), _ptr(ft.Rd), _ptr(ft.W2), _ptr(ft.inv2),
-            _ptr(ft.W) if full else None, _ptr(b1), _ptr(x), _ptr(res),
-            out.data_ptr(), scratch.data_ptr(),
+    plan = plan_of(ft, stencil_kernels._sm_count(out.device))
+    scratch = torch.empty(5 * ft.n1 + (plan.blocks + 2) * ft.n2,
+                          dtype=torch.float32, device=out.device)
+    ints = stencil_kernels._ints
+    args = [int(ft.coeffs.dtype == torch.bfloat16), int(full), int(dense),
+            _ptr(ft.coeffs), _ptr(ft.invd), _ptr(ft.cheb_coef), _ptr(ft.Rd),
+            _ptr(ft.W2), _ptr(ft.inv2), _ptr(ft.W) if full else None, _ptr(b1),
+            _ptr(x), _ptr(res), out.data_ptr(), scratch.data_ptr(),
             ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
             stencil_kernels._offset_table(ft.offsets), ints(l2), ints(fine),
-            stencil_kernels._stream(out))
+            _plan_ints(plan)]
+    lib = stencil_kernels._library()
+    with torch.cuda.device(out.device):
+        if stamps is None:
+            err = lib.mfmg_fused_tail(*args, stencil_kernels._stream(out))
+        else:
+            err = lib.mfmg_fused_tail_stamped(*args, stamps.data_ptr(),
+                                              stencil_kernels._stream(out))
     stencil_kernels._raise_on(err, "fused_tail")
     stencil_kernels.LAUNCHES["fused_tail"] += 1

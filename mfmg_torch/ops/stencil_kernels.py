@@ -469,8 +469,10 @@ def _library():
         lib.mfmg_cheb_smooth_blocked.restype = i
         ip = ctypes.POINTER(i)
         lib.mfmg_fused_tail.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, vp,
-                                        vp, vp, vp, vp, vp, ip, ip, ip, ip, vp]
+                                        vp, vp, vp, vp, vp, ip, ip, ip, ip, ip, vp]
         lib.mfmg_fused_tail.restype = i
+        lib.mfmg_fused_tail_stamped.argtypes = lib.mfmg_fused_tail.argtypes[:-1] + [vp, vp]
+        lib.mfmg_fused_tail_stamped.restype = i
         lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, vp]
         lib.mfmg_stencil_apply.restype = i
         lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, vp]

@@ -20,6 +20,11 @@ contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
 on the residual (the bounds of tests/test_pallas.py); K4/K5 and the fused
 tail 1e-5 relative (2-norm), the bound tests/test_fused_cycle.py holds the
 reference's kernel to: float sums over the same operands in another order.
+The windowed random tails' coarse correction is ~0.13% of their output
+(a hierarchy's 4-69%, scripts/tail_share.py), so a bf16 rounding of that
+form that flips under the other order stays at roundoff there; the same
+flip moves the 129^3 hierarchy's output by up to 2.2e-4
+(scripts/tail_rounding.py).
 """
 
 import copy
@@ -30,6 +35,7 @@ import pytest
 import torch
 
 import mfmg_torch.config as tcfg
+from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import Hierarchy, LaplaceProblem
 from mfmg_torch.amge.hierarchy import LevelData
 from mfmg_torch.ops import fused_cycle as tfc
@@ -424,18 +430,57 @@ def _rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-@pytest.mark.parametrize("n_ref", [4, 5], ids=["17^3", "33^3"])
-@pytest.mark.parametrize("reduced", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("windowed", [False, True], ids=["dense", "windowed"])
-def test_fused_tail_matches_plain(cuda, n_ref, reduced, windowed):
-    """Both modes (sub-cycle, full tail) of one tail against the plain
-    versions on the same card tensors; one launch per call."""
-    h = _hier(n_ref)
-    ft = _tail(list(h.levels), windowed, reduced)
-    rng = np.random.default_rng(n_ref)
+# Random tails (_torch_tails.random_tail) beside the hierarchies' own: a
+# ragged level-1 grid (13 x 17 x 11 sites: 128 blocks of 19, the last of
+# 18) and a grid of 12 sites over 9^3 fine windows, at degrees 1-3 and two
+# smoothing steps; and tails whose plan leaves the coefficients, Rd or both
+# in global memory (UNSTAGED_TAILS, c = 4, bf16 weights, 3^3 fine windows).
+_SMALL_WINDOWS = dict(window=(4, 4, 4), stride=(2, 2, 2), t0=(-1, -1, -1))
+_RANDOM_TAILS = {
+    f"ragged-{'dense' if dense else 'windowed'}-{'bf16' if bf16 else 'f32'}-d{d}-nss{nss}":
+    dict(grid=(13, 17, 11), fine_window=(5, 5, 5), dense=dense, bf16=bf16, degree=d,
+         nss=nss, **_SMALL_WINDOWS)
+    for dense, bf16 in itertools.product((True, False), (False, True))
+    for d, nss in ((1, 1), (3, 1), (2, 2))
+}
+_RANDOM_TAILS["2x3x2-9^3-dense-bf16"] = dict(grid=(2, 3, 2), fine_window=(9, 9, 9),
+                                             **_SMALL_WINDOWS)
+_RANDOM_TAILS.update({f"unstaged-{k}": dict(fine_window=(3, 3, 3), **kw)
+                      for k, (kw, _) in UNSTAGED_TAILS.items()})
+_TAIL_CASES = [f"{n}-{r}-{w}" for n in ("17^3", "33^3") for r in ("f32", "bf16")
+               for w in ("dense", "windowed")] + list(_RANDOM_TAILS)
+
+
+def _tail_case(case, cuda):
+    if case in _RANDOM_TAILS:
+        ft = random_tail(device=cuda, **_RANDOM_TAILS[case])
+        if case.startswith("unstaged-"):
+            p = tfc.plan_of(ft, tk._sm_count(cuda))
+            staged = UNSTAGED_TAILS[case.removeprefix("unstaged-")][1]
+            assert (p.stage_coeffs, p.stage_rd) == staged
+        return ft
+    n, r, w = case.split("-")
+    h = _hier({"17^3": 4, "33^3": 5}[n])
+    return _tail(list(h.levels), w == "windowed", r == "bf16")
+
+
+def _tail_inputs(ft, seed, cuda):
+    rng = np.random.default_rng(seed)
     b1 = torch.from_numpy(rng.standard_normal(ft.n1).astype(np.float32)).to(cuda)
     x, res = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in
               (rng.uniform(size=ft.n_fine), rng.standard_normal(ft.n_fine)))
+    return b1, x, res
+
+
+@pytest.mark.parametrize("case", _TAIL_CASES)
+def test_fused_tail_matches_plain(cuda, case):
+    """Both modes (sub-cycle, full tail) of one tail against the plain
+    versions on the same card tensors; one launch per call.  The tails of
+    the 17^3 and 33^3 hierarchies (dense and windowed L1 -> L2, f32 and bf16
+    weights) and random tails over a ragged level-1 grid at degrees 1-3 and
+    two smoothing steps, and tails that leave weights in global memory."""
+    ft = _tail_case(case, cuda)
+    b1, x, res = _tail_inputs(ft, 4, cuda)
     before = tk.LAUNCHES["fused_tail"]
     got = tfc.fused_subcycle_apply(ft, b1)
     out = tfc.fused_correction_apply(ft, x, res)
@@ -443,6 +488,21 @@ def test_fused_tail_matches_plain(cuda, n_ref, reduced, windowed):
     assert tk.LAUNCHES["fused_tail"] == before + 2
     assert _rel(got, tfc.fused_subcycle_apply_plain(ft, b1)) <= TAIL_TOL
     assert _rel(out, tfc.fused_correction_apply_plain(ft, x, res)) <= TAIL_TOL
+
+
+@pytest.mark.parametrize("case", ["33^3-bf16-dense", "33^3-bf16-windowed",
+                                  "ragged-windowed-bf16-d2-nss2"]
+                         + [f"unstaged-{k}" for k in UNSTAGED_TAILS])
+def test_fused_tail_repeats_bit_for_bit(cuda, case):
+    """Every sum of the kernel runs in a fixed order without atomics: two
+    launches on the same inputs give the same bits, in both modes."""
+    ft = _tail_case(case, cuda)
+    b1, x, res = _tail_inputs(ft, 5, cuda)
+    for run in (lambda: tfc.fused_subcycle_apply(ft, b1),
+                lambda: tfc.fused_correction_apply(ft, x, res)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_cuda_hierarchy_runs_the_tail(cuda):

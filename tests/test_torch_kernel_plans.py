@@ -1,9 +1,10 @@
-"""The decompositions of K2's blocked form and of K5, modelled on the CPU.
+"""The decompositions of K2's blocked form, of K5 and of the fused coarse
+tail, modelled on the CPU.
 
-The CUDA kernels (mfmg_torch/csrc/cheb_smooth.cu, structured_transfer.cu)
-run only on the card; these plain models follow their index arithmetic
-block by block, so that the tiling and ownership logic is checked where
-there is no GPU:
+The CUDA kernels (mfmg_torch/csrc/cheb_smooth.cu, structured_transfer.cu,
+fused_tail.cu) run only on the card; these plain models follow their index
+arithmetic block by block, so that the tiling and ownership logic is
+checked where there is no GPU:
 
 * K5 (y = R^T xc) owner computes: a block owns one fine z plane and one
   agglomerate row ay; every fine point takes its own window's term and, on
@@ -19,10 +20,28 @@ there is no GPU:
   ``cheb_smooth_plain`` with random planes on 19x23x37 and 13x41x67 grids
   (2-3 tiles per axis, ragged last tiles and z chunks).
 * K2's dispatch rule ``k2_form``.
+* The fused tail (``fused_cycle.tail_plan``): block b owns the level-1
+  sites [b * sites, (b + 1) * sites) for the whole launch and keeps their
+  b1, residual and Chebyshev p to itself; d, x and r1 go through global
+  vectors that start as NaN, so a site no block owns, or a value read
+  before a phase wrote it, shows as NaN in the output.  An apply sums in
+  offset order (its G lanes per site only gather).  Every split sum follows
+  the kernel: each lane adds its share in increasing index (the fine
+  window's entries in the fine restriction; the block's columns of the
+  dense partial restriction; the blocks, window entries or columns of a
+  warp's coarse row; the coarse rows of a dense prolongation), then the lanes meet in the xor butterfly of
+  __shfl_xor_sync; with bf16 weights the windowed form rounds r1, b2, x2 and
+  each x window's z/y sum.  Held against ``fused_subcycle_apply_plain`` and
+  ``fused_correction_apply_plain`` on random tails (``_torch_tails.random_tail``) over
+  ragged level-1 grids, dense and windowed, f32 and bf16 weights, degree
+  1-3, one and two smoothing steps.
 
 Tolerances: the models sum the same float64 (K2) or float32 (K5) products
 as the plain versions in another order: 1e-12 relative for K2 in float64,
-1e-6 relative (2-norm) for K5 in float32 (observed ~1e-7).
+1e-6 relative (2-norm) for K5 in float32 (observed ~1e-7).  The tail model
+runs in float64 against the plain versions in float64 and is held to
+chip_smoke.py's TAIL_TOL, 1e-5 relative (2-norm) (observed ~1e-15: the
+same products in another order, and the bf16 rounding points agree).
 """
 
 import itertools
@@ -31,12 +50,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import LaplaceProblem
+from mfmg_torch.ops import fused_cycle as fc
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops import transfer_kernels as ttk
 
-K2_TOL, K5_TOL = 1e-12, 1e-6
+K2_TOL, K5_TOL, TAIL_TOL = 1e-12, 1e-6, 1e-5
 
 
 def _rel(a, b):
@@ -312,3 +333,322 @@ def test_k2_wrapper_counts_nothing_on_the_cpu():
     ref = tk.cheb_smooth_plain(planes, x, b, invd, coef, pos, grid, 2, True)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert all(v == 0 for v in tk.LAUNCHES.values())
+
+
+# ------------------------------------------------------------ the fused tail
+
+def _lane_sums(terms, G):
+    """(G, ...) sums of terms (n, ...) over a group of G lanes: lane l adds
+    terms l, l + G, ... in that order, as a kernel's strided loop does."""
+    lanes = []
+    for lane in range(G):
+        acc = torch.zeros_like(terms[0])
+        for t in terms[lane::G]:
+            acc = acc + t
+        lanes.append(acc)
+    return torch.stack(lanes)
+
+
+def _butterfly(lanes):
+    """Lane 0's value after the __shfl_xor_sync butterfly over dim 0."""
+    v, m = lanes, lanes.shape[0] // 2
+    while m:
+        v = v + v[torch.arange(v.shape[0]) ^ m]
+        m //= 2
+    return v[0]
+
+
+def _split_sum(terms, G):
+    return _butterfly(_lane_sums(terms, G))
+
+
+def tail_model(ft, plan, full, b1=None, x=None, res=None):
+    """csrc/fused_tail.cu phase by phase, block by block, in ft's dtype."""
+    dt = ft.invd.dtype
+    gz, gy, gx = ft.grid
+    c, n_sites, n1, n2 = ft.n_comp, int(np.prod(ft.grid)), ft.n1, ft.n2
+    d, nss, warp = ft.degree, ft.nss, 32
+    C = ft.coeffs.to(dt).reshape(len(ft.offsets), n_sites, c, c)
+    coef, invd = ft.cheb_coef.to(dt), ft.invd
+    alphas, betas = coef[:d], coef[d:]
+    rnd_on = ft.W2 is not None and ft.W2.dtype == torch.bfloat16
+
+    def rnd(v):
+        return v.to(torch.bfloat16).to(dt) if rnd_on else v
+
+    owned = torch.zeros(n_sites, dtype=torch.int64)
+    blocks = []
+    for b in range(plan.blocks):
+        s0 = b * plan.sites
+        ns = min(plan.sites, n_sites - s0)
+        assert ns >= 1, "a block without sites"
+        owned[s0:s0 + ns] += 1
+        blocks.append((s0, ns))
+    assert (owned == 1).all(), "a site not owned exactly once"
+
+    def nan(n):
+        return torch.full((n,), float("nan"), dtype=dt)
+
+    D, X, R = [nan(n1), nan(n1)], [nan(n1), nan(n1)], nan(n1)
+    part = torch.full((plan.blocks, n2), float("nan"), dtype=dt)
+    sm = [dict(B=None, R=None, P=None) for _ in blocks]
+
+    def own(b):
+        s0, ns = blocks[b]
+        return slice(s0 * c, (s0 + ns) * c)
+
+    def apply(b, v):
+        """(A v) at block b's sites: the plan's lanes only gather the
+        neighbour values; one lane per output sums them in offset order."""
+        s0, ns = blocks[b]
+        s = torch.arange(s0, s0 + ns)
+        az, ay, ax = s // (gy * gx), (s // gx) % gy, s % gx
+        vg = v.reshape(n_sites, c)
+        terms = []
+        for o, (dz, dy, dx) in enumerate(ft.offsets):
+            bz, by, bx = az + dz, ay + dy, ax + dx
+            ok = ((bz >= 0) & (bz < gz) & (by >= 0) & (by < gy)
+                  & (bx >= 0) & (bx < gx))
+            nb = torch.where(ok, (bz * gy + by) * gx + bx, 0)
+            t = torch.einsum("sef,sf->se", C[o, s0:s0 + ns], vg[nb])
+            terms.append(torch.where(ok[:, None], t, torch.zeros_like(t)))
+        return _split_sum(torch.stack(terms), 1).reshape(-1)
+
+    def cheb_first(b, r, x_sub, x_out):
+        o = own(b)
+        z = invd[o] * r
+        sm[b]["P"] = z
+        dd = alphas[0] * z
+        if d == 1:
+            x_out[o] = dd if x_sub is None else x_sub[o] - dd
+        else:
+            D[0][o] = dd
+
+    def cheb_step(i, src_key, x_sub, x_out):
+        d_in, d_out = D[(i - 1) % 2].clone(), D[i % 2]
+        for b in range(len(blocks)):
+            o = own(b)
+            z = invd[o] * (sm[b][src_key] - apply(b, d_in))
+            pn = z + betas[i] * sm[b]["P"]
+            sm[b]["P"] = pn
+            dn = d_in[o] + alphas[i] * pn
+            if i == d - 1:
+                x_out[o] = dn if x_sub is None else x_sub[o] - dn
+            else:
+                d_out[o] = dn
+
+    def residual(v, round_it, x_out):
+        v = v.clone()
+        for b in range(len(blocks)):
+            r = apply(b, v) - sm[b]["B"]
+            if round_it:
+                r = rnd(r)
+            sm[b]["R"] = r
+            R[own(b)] = r
+            if x_out is not None:
+                cheb_first(b, r, v, x_out)
+
+    def smooth(x_in, x_out):
+        residual(x_in, False, x_out)
+        for i in range(1, d):
+            cheb_step(i, "R", x_in, x_out)
+
+    # phase 0: b1 at own sites, the first pointwise step
+    if full:
+        (wz, wy, wx), (nz, ny, nx) = ft.fine_window, ft.fine_grid
+        W = ft.W.to(dt)
+        rg = res.reshape(nz, ny, nx)
+    for b, (s0, ns) in enumerate(blocks):
+        if not full:
+            sm[b]["B"] = b1[own(b)].clone()
+        else:
+            a = torch.arange(s0, s0 + ns)
+            az, ay, ax = a // (gy * gx), (a // gx) % gy, a % gx
+            terms = []                  # the window's entries t = (tz, ty, tx)
+            for tz, ty, tx in itertools.product(range(wz), range(wy), range(wx)):
+                xv = rg[az * (wz - 1) + tz, ay * (wy - 1) + ty, ax * (wx - 1) + tx]
+                terms.append(W[:, tz, ty, tx, az, ay, ax].T * xv[:, None])
+            sm[b]["B"] = _split_sum(torch.stack(terms), plan.fine_group).reshape(-1)
+        cheb_first(b, sm[b]["B"], None, X[0])
+    xc, xn = X
+    for i in range(1, d):
+        cheb_step(i, "B", None, xc)
+    for _ in range(nss - 1):
+        smooth(xc, xn)
+        xc, xn = xn, xc
+
+    # coarse correction
+    residual(xc, True, None)
+    b2, x2 = nan(n2), nan(n2)
+    if ft.Rd is not None:
+        Rd = ft.Rd.to(dt)
+        for b in range(len(blocks)):
+            terms = Rd[:, own(b)].T * sm[b]["R"][:, None]       # (cols, n2)
+            part[b] = _split_sum(terms, plan.row_parts)
+        b2 = _split_sum(part, warp)
+    else:
+        tr = ft.coarse_transfer(dt)
+        w = ft.win
+        (wz2, wy2, wx2), (sz2, sy2, sx2), (tz0, ty0, tx0) = (
+            w["window_shape"], w["stride"], w["t0"])
+        W2 = ft.W2.to(dt).reshape(n2, -1)
+        Rg = R.reshape(gz, gy, gx, c)
+        k = torch.arange(n2)
+        S = k // w["n_out"]
+        oz, oy, ox = w["out_grid"]
+        sz, sy, sx = S // (oy * ox), (S // ox) % oy, S % ox
+        terms = []
+        for q in range(W2.shape[1]):
+            f, t = q % c, q // c
+            tx, ty, tz = t % wx2, (t // wx2) % wy2, t // (wx2 * wy2)
+            bz, by, bx = sz * sz2 + tz0 + tz, sy * sy2 + ty0 + ty, sx * sx2 + tx0 + tx
+            ok = ((bz >= 0) & (bz < gz) & (by >= 0) & (by < gy)
+                  & (bx >= 0) & (bx < gx))
+            v = Rg[bz.clamp(0, gz - 1), by.clamp(0, gy - 1), bx.clamp(0, gx - 1), f]
+            terms.append(torch.where(ok, W2[:, q] * v, torch.zeros_like(v)))
+        b2 = rnd(_split_sum(torch.stack(terms), warp))
+        assert tr.n_out == w["n_out"]
+    x2 = rnd(_split_sum((ft.inv2.to(dt) * b2[None, :]).T, warp))
+    for b, (s0, ns) in enumerate(blocks):
+        o = own(b)
+        if ft.Rd is not None:
+            xc[o] = xc[o] - _split_sum(Rd[:, o] * x2[:, None], plan.col_parts)
+            continue
+        # windowed: each (site, f) sums each x window over its z and y
+        # windows, rounds, then adds the x windows
+        x2g = x2.reshape(-1, w["n_out"])
+        W2g = ft.W2.to(dt).reshape((-1, w["n_out"]) + w["window_shape"] + (c,))
+        for j in range(s0 * c, (s0 + ns) * c):
+            f, bs = j % c, j // c
+            bz, by, bx = bs // (gy * gx), (bs // gx) % gy, bs % gx
+            acc = 0.0
+            for sxx in range(ox):
+                tx = bx - sxx * sx2 - tx0
+                if not 0 <= tx < wx2:
+                    continue
+                zy = torch.zeros((), dtype=dt)
+                for szz, syy in itertools.product(range(oz), range(oy)):
+                    tz, ty = bz - szz * sz2 - tz0, by - syy * sy2 - ty0
+                    if 0 <= tz < wz2 and 0 <= ty < wy2:
+                        Sx = (szz * oy + syy) * ox + sxx
+                        for e2 in range(w["n_out"]):
+                            zy = zy + W2g[Sx, e2, tz, ty, tx, f] * x2g[Sx, e2]
+                acc = acc + rnd(zy)
+            xc[j] = xc[j] - acc
+    for k in range(nss):
+        target = nan(n1)
+        smooth(xc, target)
+        xc = target
+    if not full:
+        return xc
+    return x - ft.fine_transfer(dt).prolong(xc)
+
+
+_TAIL_CASES = {
+    # level-1 grid, fine windows, SMs of the plan: a warp per site and per
+    # (e, a) (3 sites per block; 1 over 9^3 fine windows, as on the Q2
+    # cube), and 8 lanes per site with the last block ragged
+    "3x4x5-5^3": ((3, 4, 5), (5, 5, 5), 20),
+    "5x7x9-3^3": ((5, 7, 9), (3, 3, 3), 8),
+    "2x3x2-9^3": ((2, 3, 2), (9, 9, 9), tk.H100_SMS),
+}
+
+
+@pytest.mark.parametrize("case", list(_TAIL_CASES))
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "windowed"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("degree,nss", [(1, 1), (2, 1), (3, 1), (2, 2)],
+                         ids=["d1", "d2", "d3", "d2-nss2"])
+def test_tail_model_matches_plain(case, dense, bf16, degree, nss):
+    grid, fw, n_sm = _TAIL_CASES[case]
+    ft = random_tail(grid, 2, dense=dense, fine_window=fw, degree=degree,
+                     nss=nss, bf16=bf16, window=(4, 4, 4), stride=(2, 2, 2),
+                     t0=(-1, -1, -1), dtype=torch.float64, seed=degree)
+    plan = fc.plan_of(ft, n_sm)
+    if case == "5x7x9-3^3":
+        assert (plan.blocks, plan.sites, plan.group) == (8, 40, 8)
+    rng = np.random.default_rng(7)
+    b1 = torch.from_numpy(rng.standard_normal(ft.n1))
+    x = torch.from_numpy(rng.uniform(size=ft.n_fine))
+    res = torch.from_numpy(rng.standard_normal(ft.n_fine))
+    for full in (False, True):
+        got = (tail_model(ft, plan, True, x=x, res=res) if full
+               else tail_model(ft, plan, False, b1=b1))
+        ref = (fc.fused_correction_apply_plain(ft, x, res) if full
+               else fc.fused_subcycle_apply_plain(ft, b1))
+        assert not torch.isnan(got).any(), "a value no block computed"
+        assert _rel(got, ref) <= TAIL_TOL
+
+
+def test_tail_plan_at_the_main_shapes():
+    """At the 65^3, 129^3 and Q2-cube shapes (c = 2, 27 offsets), bf16 and
+    f32 weights: at most one block per SM, every site owned once (the last
+    block ragged at 129^3), the groups of lanes filling the block, and the
+    dynamic shared memory within the H100's 227 KB per block with the
+    coefficients (and the dense Rd columns) staged there."""
+    # (level-1 grid, n2, dense, the fine window's entries: 5^3, none in the
+    # sub-cycle mode at 129^3, 9^3)
+    shapes = {"65^3": ((16,) * 3, 256, True, 125),
+              "129^3": ((32,) * 3, 2048, False, 0), "Q2": ((8,) * 3, 32, True, 729)}
+    for name, (grid, n2, dense, table) in shapes.items():
+        n_sites = int(np.prod(grid))
+        for wb in (2, 4):
+            p = fc.tail_plan(grid, 2, 27, n2, dense, wb, table)
+            assert 1 <= p.blocks <= tk.H100_SMS
+            assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
+            assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK
+            assert p.stage_coeffs and p.stage_rd == int(dense)
+            for g, items in ((p.group, p.sites), (p.fine_group, 2 * p.sites),
+                             (p.row_parts, n2), (p.col_parts, 2 * p.sites)):
+                assert g in (1, 2, 4, 8, 16, 32)
+                assert g == 32 or 2 * g * items > fc.TAIL_THREADS
+                assert g == 1 or g * items <= fc.TAIL_THREADS
+            assert p.off_x2 >= 3 * p.sites * 2 * 4
+            assert p.off_tab >= p.off_x2 + 4 * n2
+            assert p.off_vb >= p.off_tab + 4 * table
+            assert p.off_coef >= p.off_vb + 4 * (fc.TAIL_THREADS // p.group) * 27 * 2
+            assert p.cstride >= 2 * 2 * p.sites * wb + 15
+            assert p.off_rd >= p.off_coef + 27 * p.cstride
+    # 65^3: 128 blocks of 32 sites, 16 lanes per site, 8 per (e, a) of the
+    # fine restriction (125 window entries: 16 per lane); the Q2 cube: 128
+    # blocks of 4 sites, a warp per site and per (e, a) (729 entries: 23 per
+    # lane); 129^3: 132 blocks, the last of 149 sites
+    p65 = fc.tail_plan((16,) * 3, 2, 27, 256, True, 2)
+    assert (p65.blocks, p65.sites, p65.group, p65.fine_group) == (128, 32, 16, 8)
+    pq = fc.tail_plan((8,) * 3, 2, 27, 32, True, 2)
+    assert (pq.blocks, pq.sites, pq.group, pq.fine_group) == (128, 4, 32, 32)
+    p129 = fc.tail_plan((32,) * 3, 2, 27, 2048, False, 2)
+    assert (p129.blocks, p129.sites) == (132, 249)
+    assert 32 ** 3 - 131 * 249 == 149
+    # beyond the card's shared memory the weights stay in global memory;
+    # where not even the block's own vectors fit, there is no plan (and
+    # build_fused_tail leaves the generic recursion)
+    big = fc.tail_plan((64,) * 3, 2, 27, 16384, False, 4)
+    assert not big.stage_coeffs and big.smem_bytes <= fc.H100_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.tail_plan((64,) * 3, 8, 27, 16384, False, 4)
+
+
+@pytest.mark.parametrize("case", list(UNSTAGED_TAILS))
+def test_tail_plan_leaves_what_does_not_fit(case):
+    """Tails whose weights do not all fit an H100 block's shared memory
+    (the card test test_fused_tail_unstaged_matches_plain runs them): the
+    plan stages what fits, in order coefficients then Rd, owns every site
+    once and stays within 227 KB."""
+    kw, staged = UNSTAGED_TAILS[case]
+    ft = random_tail(fine_window=(3, 3, 3), **kw)
+    p = fc.plan_of(ft)
+    assert (p.stage_coeffs, p.stage_rd) == staged
+    assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK
+    n_sites = int(np.prod(ft.grid))
+    assert p.blocks <= tk.H100_SMS
+    assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
+    coef_bytes = len(ft.offsets) * p.cstride
+    rd_bytes = ft.n2 * p.rstride
+    # what is not staged would not have fit beside what is
+    if not p.stage_coeffs:
+        assert p.off_coef + coef_bytes > fc.H100_SMEM_PER_BLOCK
+    if ft.Rd is not None and not p.stage_rd:
+        assert p.off_rd + rd_bytes > fc.H100_SMEM_PER_BLOCK
+    assert p.smem_bytes == (p.off_rd + p.stage_rd * rd_bytes
+                            if ft.Rd is not None else p.off_rd)
