@@ -10,7 +10,9 @@ each phase prints its wall time):
     shapes: K1 (bf16 and f32 planes) and K2 (with and without the residual;
     its two forms, blocked and chain, timed in turns), with the
     median time of each over 50 runs (CUDA events), K1's library
-    yardstick (one cuSPARSE CSR SpMV of the assembled float32 matrix), and
+    yardstick (one cuSPARSE CSR SpMV of the assembled float32 matrix); K1
+    and K2's chain at 171 pairs on a Q3 stencil (49^3 nodes, its planes
+    symmetrized: radius 3, the kernels' largest offset table); and
     the fused coarse tail in both modes (full tail, sub-cycle), both
     level-1 -> 2 forms (dense, windowed) and both storages (f32, bf16) on
     the 17^3 and 33^3 hierarchies (every tail check also launches it twice
@@ -65,6 +67,7 @@ non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -280,6 +283,8 @@ def main():
     from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
     from mfmg_torch.solve.smoothers import (FusedChebyshevSmoother,
                                             build_smoother, fuse_chebyshev)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _torch_stencils import symmetrize
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -757,6 +762,33 @@ def main():
         k2_work65 = k2_work(op.planes, prob.n_dofs, fused.degree, True)
         del ops, hosts, fused, x, b
 
+        # K1 and K2's chain at 171 pairs: a Q3 stencil with its planes
+        # symmetrized (C_{-o}[i] := C_o[i - o]), radius 3
+        prob3 = LaplaceProblem.hyper_cube(3, 4, degree=3, material_property="linear")
+        host3 = st.stencil_from_cell_matrices(prob3.mesh, prob3.A_loc, prob3.constrained,
+                                              prob3.diag_raw, dtype=torch.float64)
+        c3 = symmetrize(host3.coeffs.numpy(), host3.offsets, host3.grid_shape)
+        pos3 = st.detect_symmetry(c3, host3.offsets, host3.grid_shape)
+        check(pos3 is not None and len(pos3) == 171,
+              f"the symmetrized Q3 stencil has {None if pos3 is None else len(pos3)} "
+              f"positive offsets, not 171")
+        rng3 = np.random.default_rng(15)
+        x3 = torch.from_numpy(rng3.uniform(-1, 1, prob3.n_dofs).astype(np.float32)).to(dev)
+        b3 = torch.from_numpy(rng3.uniform(size=prob3.n_dofs).astype(np.float32)).to(dev)
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            h3 = st.StencilOperator(torch.from_numpy(c3).to(dt), host3.offsets,
+                                    host3.grid_shape, pos3)
+            sm3 = build_smoother(h3, cfg.SmootherConfig(type="chebyshev", degree=2),
+                                 dtype=torch.float32)
+            op3 = st.stencil_to_device(h3, dev)
+            check_k1(f"stencil_apply_sym/Q3 171 pairs/{name}", op3.planes, x3,
+                     op3.pos_offsets, op3.grid_shape)
+            if name == "bf16":
+                k2_err = max(k2_err, check_k2("Q3 49^3 171 pairs", op3, x3, b3,
+                                              fuse_chebyshev(sm3.to(dev), op3)))
+            del h3, sm3, op3
+        del prob3, host3, c3, x3, b3
+
         # the tail in both modes, forms and storages at small sizes
         for n_ref in (4, 5):
             h = Hierarchy(LaplaceProblem.hyper_cube(3, n_ref,
@@ -1022,7 +1054,7 @@ def main():
 
     k1v, k1tv = variants["stencil_apply_sym/f32"], variants["stencil_apply_tiled_sym/f32"]
     kernels = [
-        row("stencil_apply_sym", "mfmg_torch/csrc/stencil_apply_sym.cu",
+        row("stencil_apply_sym", "mfmg_torch/csrc/stencil_apply.cu",
             "mfmg_tpu/ops/pallas_stencil.py:611", l65["stencil_apply_sym"],
             k1v, k1_work65, k1v["library_ms"],
             err=max(v["max_abs_err"] for k, v in variants.items()
@@ -1037,7 +1069,7 @@ def main():
         row("fused_subcycle_apply", "mfmg_torch/csrc/fused_tail.cu",
             "mfmg_tpu/ops/fused_cycle.py:376", l129["fused_tail"], v129,
             tail_work129, None),
-        row("stencil_apply_tiled_sym", "mfmg_torch/csrc/stencil_apply_sym.cu",
+        row("stencil_apply_tiled_sym", "mfmg_torch/csrc/stencil_apply.cu",
             "mfmg_tpu/ops/pallas_stencil.py:139", l129["stencil_apply_sym"],
             k1tv, k1_work129, k1tv["library_ms"],
             err=max(k1tv["max_abs_err"],

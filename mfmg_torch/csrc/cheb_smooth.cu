@@ -15,7 +15,7 @@
 //                    which is safe because it is pointwise; dx is
 //                    double-buffered because the apply reads neighbours)
 //   the last launch writes x_s = x - dx instead of dx;
-//   with a residual: one K1 launch, res = A x_s - b.
+//   with a residual: one more launch (cheb_residual_kernel), res = A x_s - b.
 // The recurrence coefficients [a_0..a_{deg-1}, b_0..b_{deg-1}] are a device
 // array read at run time, never compile-time constants, so a new setup never
 // needs a new build.
@@ -30,11 +30,20 @@
 // faster (129^3), and everything else to the chain.
 #include "stencil_common.cuh"
 
+// The chain's residual, res = A x_s - b: one thread per point in the gather
+// form (K1's first kernel; K1 itself is now the tiled csrc/stencil_apply.cu).
 template <typename T>
-cudaError_t launch_stencil_apply_sym(const void* planes, const float* x,
-                                     const float* b, float* y, int gz, int gy,
-                                     int gx, const PosOffsets& o,
-                                     cudaStream_t stream);
+__global__ void __launch_bounds__(kThreads)
+cheb_residual_kernel(const T* __restrict__ planes, const float* __restrict__ x,
+                     const float* __restrict__ b, float* __restrict__ y,
+                     int gz, int gy, int gx, const __grid_constant__ StencilOffsets o) {
+    const int n = gz * gy * gx;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    int iz, iy, ix;
+    grid_coords(i, gy, gx, iz, iy, ix);
+    y[i] = apply_at(planes, x, i, iz, iy, ix, gz, gy, gx, n, o) - b[i];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -42,7 +51,7 @@ cheb_first_kernel(const T* __restrict__ planes, const float* __restrict__ x,
                   const float* __restrict__ b, const float* __restrict__ invd,
                   const float* __restrict__ coef, float* __restrict__ r,
                   float* __restrict__ p, float* __restrict__ out, int last,
-                  int gz, int gy, int gx, const __grid_constant__ PosOffsets o) {
+                  int gz, int gy, int gx, const __grid_constant__ StencilOffsets o) {
     const int n = gz * gy * gx;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -63,7 +72,7 @@ cheb_step_kernel(const T* __restrict__ planes, const float* __restrict__ dx_in,
                  const float* __restrict__ invd, const float* __restrict__ coef,
                  int step, int degree, const float* __restrict__ x,
                  float* __restrict__ out, int last,
-                 int gz, int gy, int gx, const __grid_constant__ PosOffsets o) {
+                 int gz, int gy, int gx, const __grid_constant__ StencilOffsets o) {
     const int n = gz * gy * gx;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -82,7 +91,7 @@ cudaError_t launch_cheb_smooth(const void* planes_v, const float* x,
                                const float* coef, int degree, float* r,
                                float* p, float* dx0, float* dx1, float* xs,
                                float* res, int gz, int gy, int gx,
-                               const PosOffsets& o, cudaStream_t s) {
+                               const StencilOffsets& o, cudaStream_t s) {
     const T* planes = static_cast<const T*>(planes_v);
     const int n = gz * gy * gx;
     float* dx[2] = {dx0, dx1};
@@ -99,9 +108,10 @@ cudaError_t launch_cheb_smooth(const void* planes_v, const float* x,
         e = cudaGetLastError();
         if (e != cudaSuccess) return e;
     }
-    if (res != nullptr)
-        return launch_stencil_apply_sym<T>(planes_v, xs, b, res, gz, gy, gx, o, s);
-    return cudaSuccess;
+    if (res == nullptr) return cudaSuccess;
+    cheb_residual_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(planes, xs, b, res,
+                                                             gz, gy, gx, o);
+    return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ blocked form
@@ -358,9 +368,9 @@ int mfmg_cheb_smooth(const void* planes, int planes_bf16, const float* x,
                      int degree, float* r, float* p, float* dx0, float* dx1,
                      float* xs, float* res, int gz, int gy, int gx, int n_pos,
                      const int* offs, void* stream) {
-    if (n_pos < 0 || n_pos > MFMG_MAX_POS || degree < 1)
+    StencilOffsets o;
+    if (!make_offsets(n_pos, offs, MFMG_MAX_POS, o) || degree < 1)
         return (int)cudaErrorInvalidValue;
-    const PosOffsets o = make_offsets(n_pos, offs);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t e = planes_bf16
         ? launch_cheb_smooth<__nv_bfloat16>(planes, x, b, invd, coef, degree, r,

@@ -21,6 +21,13 @@ Counterpart of mfmg_tpu/ops/pallas_stencil.py:
   x(i+o) over all offset planes, for operators without the symmetric-pair
   form (Q2/Q3 elements, stencils read from an assembled matrix).
 
+K1 and K3 are one tiled kernel (``csrc/stencil_apply.cu``) over tiles of
+whole grid rows planned by ``stencil_tile_plan``; K2's chain keeps its
+thread-per-point apply.  All three take up to 171 positive (K1, K2) or 343
+one-sided (K3) offsets of radius <= 3: every stencil up to Q3.  The
+wrappers check those limits on either device, so the CPU refuses what the
+card would.
+
 The kernels are hand-written CUDA for Hopper (``csrc/*.cu``), compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
 plain C interface at first use (into ``mfmg_torch/_build/<source hash>/``)
@@ -55,8 +62,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_POS = 62                      # MFMG_MAX_POS in csrc/stencil_common.cuh
-MAX_OFF, MAX_RADIUS = 343, 3      # MFMG_MAX_OFF/RADIUS in csrc/stencil_apply.cu
+# MFMG_MAX_POS/OFF/RADIUS in csrc/stencil_common.cuh: a Q3 stencil's 171
+# positive (symmetric) or 343 (one-sided) offsets of radius 3
+MAX_POS, MAX_OFF, MAX_RADIUS = 171, 343, 3
+# K1/K3's tiles (csrc/stencil_apply.cu): the most points per tile
+# (kMaxTile: 256 threads of 4 points), the points per tile the plan
+# aims for, and the shared memory a block may take.  Tiles of 1024 points
+# took less device time than tiles of 512 or 256 at every shape timed on an
+# H100 (PERF.md), though they leave ~2.5 blocks per SM at 65^3.
+K13_MAX_TILE = 1024
+K13_TILE_POINTS = 1024
+H100_SMEM_PER_BLOCK = 227 * 1024
 
 # launches of each CUDA wrapper (one per call that reached its kernel);
 # "fused_tail" counts both wrappers of ops/fused_cycle.py; "cheb_smooth"
@@ -159,12 +175,13 @@ def stencil_apply_sym(planes: torch.Tensor, x: torch.Tensor, pos_offsets,
         return stencil_apply_sym_plain(planes, x, pos_offsets, grid_shape)
     y = torch.empty_like(x)
     gz, gy, gx = grid_shape
+    plan = _k13_plan(tuple(pos_offsets), True, tuple(grid_shape))
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mfmg_stencil_apply_sym(
             planes.data_ptr(), int(planes.dtype == torch.bfloat16),
             x.data_ptr(), None, y.data_ptr(), gz, gy, gx, len(pos_offsets),
-            _offset_table(pos_offsets), _stream(x))
+            _offset_table(pos_offsets), plan.rows, plan.cols, _stream(x))
     _raise_on(err, "stencil_apply_sym")
     LAUNCHES["stencil_apply_sym"] += 1
     return y
@@ -175,19 +192,20 @@ def stencil_apply(planes: torch.Tensor, x: torch.Tensor, offsets,
     """K3: y = sum_o C_o x(i + o) over the (n_off, gz, gy, gx) planes of a
     one-sided stencil (offsets of radius <= 3)."""
     _check_grid(planes, x, len(offsets), grid_shape)
-    if not _k3_takes(tuple(offsets)):
-        raise ValueError(f"K3 takes at most {MAX_OFF} offsets of radius <= "
-                         f"{MAX_RADIUS}, got {len(offsets)}")
+    if not offsets:
+        raise ValueError("a one-sided stencil needs at least one offset")
+    _check_takes(tuple(offsets), MAX_OFF, "K3")
     if x.device.type == "cpu":
         return stencil_apply_plain(planes, x, offsets, grid_shape)
     y = torch.empty_like(x)
     gz, gy, gx = grid_shape
+    plan = _k13_plan(tuple(offsets), False, tuple(grid_shape))
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mfmg_stencil_apply(
             planes.data_ptr(), int(planes.dtype == torch.bfloat16),
             x.data_ptr(), y.data_ptr(), gz, gy, gx, len(offsets),
-            _offset_table(offsets), _stream(x))
+            _offset_table(offsets), plan.rows, plan.cols, _stream(x))
     _raise_on(err, "stencil_apply")
     LAUNCHES["stencil_apply"] += 1
     return y
@@ -317,6 +335,52 @@ def cheb_blocked_plan(grid_shape, degree: int, want_res: bool,
     return K2Plan(ty, tx, cz, halo, (_cdiv(gx, tx), _cdiv(gy, ty), _cdiv(gz, cz)))
 
 
+class TilePlan(NamedTuple):
+    """Tiles of K1/K3 (csrc/stencil_apply.cu): ``rows`` whole grid rows of
+    one z slice per block, or where a row is longer than a tile, one
+    segment of ``cols`` points (rows 1); the block's shared memory (bytes)
+    and the block count."""
+    rows: int
+    cols: int
+    smem: int
+    blocks: int
+
+
+def tile_smem_bytes(n_vplanes, radius, rows, cols) -> int:
+    """Shared memory of a K1/K3 block (``tile_layout`` in
+    csrc/stencil_apply.cu): 16 bytes per virtual plane (its coefficient and
+    x offsets), then the x tile with its halo in 2r + 1 slices (floats)."""
+    xs = (2 * radius + 1) * (rows + 2 * radius) * (cols + 2 * radius)
+    return 16 * n_vplanes + 4 * xs
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_tile_plan(grid_shape, radius: int, n_vplanes: int) -> TilePlan:
+    """The tile schedule of K1/K3: tiles of about K13_TILE_POINTS points
+    (at most K13_MAX_TILE), whole rows where a row fits, split evenly so
+    that only the last tile of an axis is ragged; smaller tiles where the
+    block's shared memory would exceed the card's."""
+    gz, gy, gx = grid_shape
+    target = min(K13_TILE_POINTS, K13_MAX_TILE)
+    if gx <= target:
+        rows, cols = _cdiv(gy, _cdiv(gy, max(1, target // gx))), gx
+    else:
+        rows, cols = 1, _cdiv(gx, _cdiv(gx, target))
+    while tile_smem_bytes(n_vplanes, radius, rows, cols) > H100_SMEM_PER_BLOCK:
+        if rows > 1:
+            rows = _cdiv(rows, 2)
+        else:
+            cols = _cdiv(cols, 2)
+    return TilePlan(rows, cols, tile_smem_bytes(n_vplanes, radius, rows, cols),
+                    _cdiv(gx, cols) * _cdiv(gy, rows) * gz)
+
+
+@functools.lru_cache(maxsize=None)
+def _k13_plan(offsets, sym: bool, grid_shape) -> TilePlan:
+    n_v = 2 * len(offsets) + 1 if sym else len(offsets)
+    return stencil_tile_plan(grid_shape, _radius(offsets), n_v)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -324,9 +388,14 @@ def _sm_count(device) -> int:
 
 def _check_stencil(planes, x, pos_offsets, grid_shape):
     _check_grid(planes, x, 1 + len(pos_offsets), grid_shape)
-    if len(pos_offsets) > MAX_POS:
-        raise ValueError(f"{len(pos_offsets)} positive offsets exceed the "
-                         f"kernel's limit ({MAX_POS})")
+    _check_takes(tuple(pos_offsets), MAX_POS, "K1/K2")
+
+
+def _check_takes(offsets, max_n, name):
+    if not _kernel_takes(offsets, max_n):
+        raise ValueError(f"{name} takes at most {max_n} offsets of radius <= "
+                         f"{MAX_RADIUS}, got {len(offsets)} of radius "
+                         f"{_radius(offsets)}")
 
 
 def _check_grid(planes, x, n_planes, grid_shape):
@@ -369,9 +438,12 @@ def _ints(vals):
 # applies launch every few tens of microseconds, and rebuilding a 375-entry
 # table on every call costs the host as much.
 @functools.lru_cache(maxsize=None)
-def _k3_takes(offsets) -> bool:
-    return len(offsets) <= MAX_OFF and all(abs(c) <= MAX_RADIUS
-                                           for off in offsets for c in off)
+def _kernel_takes(offsets, max_n) -> bool:
+    return len(offsets) <= max_n and _radius(offsets) <= MAX_RADIUS
+
+
+def _radius(offsets) -> int:
+    return max((abs(c) for off in offsets for c in off), default=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -457,7 +529,7 @@ def _library():
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.mfmg_stencil_apply_sym.argtypes = [vp, i, vp, vp, vp, i, i, i, i,
-                                               ctypes.POINTER(i), vp]
+                                               ctypes.POINTER(i), i, i, vp]
         lib.mfmg_stencil_apply_sym.restype = i
         lib.mfmg_cheb_smooth.argtypes = [vp, i, vp, vp, vp, vp, i, vp, vp, vp,
                                          vp, vp, vp, i, i, i, i,
@@ -473,7 +545,8 @@ def _library():
         lib.mfmg_fused_tail.restype = i
         lib.mfmg_fused_tail_stamped.argtypes = lib.mfmg_fused_tail.argtypes[:-1] + [vp, vp]
         lib.mfmg_fused_tail_stamped.restype = i
-        lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, vp]
+        lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, i, i,
+                                           vp]
         lib.mfmg_stencil_apply.restype = i
         lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, vp]
         lib.mfmg_structured_restrict.restype = i

@@ -1,18 +1,16 @@
 """Device times of the port's kernels against their library yardsticks on
 an NVIDIA GPU, at the main paths' shapes.
 
-    python3 scripts/kernel_device_times.py
+    python3 scripts/kernel_device_times.py [--parent-csrc DIR] [--k13-only]
+                                           [--tile-points N]
 
 CUDA-event times of back-to-back calls (chip_smoke.py's "ms") include the
 wrappers' host work, which on the H100 machine exceeds a small kernel's
 device time; this script reads the device rows of torch.profiler instead
 and prints both, each A/B in turns (A, B, B, A):
-* K1 (the symmetric apply, float32 planes of the outer CG) on the Q1 65^3
-  and 129^3 operators (PERF.md rows 1 and 4) against one cuSPARSE CSR SpMV
-  of the assembled float32 matrix (zeros dropped);
-* K3 (the one-sided apply) on the distorted Q2 cube's 125 planes and on the
-  129^3 operator as 27 one-sided planes (rows 8 and 9), f32 and bf16 planes,
-  against cuSPARSE on the same float32 matrix;
+* K1 (the symmetric apply) and K3 (the one-sided apply) at every shape of
+  PERF.md rows 1, 4, 8 and 9 (below), against one cuSPARSE CSR SpMV of the
+  assembled float32 matrix (zeros dropped) where there is one;
 * K4, R x on random 5^3-window weights over 32^3 agglomerates (row 6), f32
   W, against cuSPARSE R;
 * K2, one degree-2 Chebyshev step on random Q1 planes (bf16, the V-cycle's
@@ -24,6 +22,16 @@ and prints both, each A/B in turns (A, B, B, A):
 * the fused coarse tail (rows 3 and 5) at the 65^3 full, 129^3 sub-cycle
   and Q2-cube full shapes (random operands, scripts/tail_phases.py), which
   has no library counterpart.
+With --parent-csrc DIR (an older csrc/, e.g. ``git archive <commit>
+mfmg_torch/csrc | tar -x -C .chip_scratch/parent``) it also builds that
+library and times its K1 and K3 (thread-per-point kernels whose C entry
+points take no tile plan) beside the current ones, in turns, at every K1/K3
+shape: K3 on the Q2 cube's 125 planes kept one-sided, the distorted Q2
+cube and the 129^3 operator as 27 one-sided planes; K1 at 13 pairs (Q1
+65^3 and 129^3), 62 (the Q2 cube, symmetrized) and 171 (the Q3 stencil on
+49^3 nodes, symmetrized), f32 and bf16 planes, with each shape's byte bound.
+--tile-points N also times K1/K3 with tiles of N points in place of the
+plan's rule (stencil_tile_plan); --k13-only skips the rest.
 The operators are the problems' own (LaplaceProblem.hyper_cube); weights
 and vectors are random from fixed seeds on the card.  The library calls are
 yardsticks, never used by the port.  Prints the card's name and power limit
@@ -32,6 +40,7 @@ first; needs one GPU.
 
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -67,9 +76,151 @@ def in_turns(fns):
     return out
 
 
+def load_parent_k13(csrc):
+    """K1/K3 of an older library (tail_phases.load_parent builds it): their
+    C entry points without the tile plan."""
+    import ctypes
+    import tail_phases as tp
+    lib = tp.load_parent(Path(csrc).resolve())
+    vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.mfmg_stencil_apply_sym.argtypes = [vp, i, vp, vp, vp, i, i, i, i, ip, vp]
+    lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, vp]
+    lib.mfmg_stencil_apply_sym.restype = lib.mfmg_stencil_apply.restype = i
+    return lib
+
+
+def parent_call(lib, sym, planes, x, offsets, grid):
+    """One launch of the parent's K1 (sym) or K3 into a new y."""
+    from mfmg_torch.ops import stencil_kernels as tk
+    y = torch.empty_like(x)
+    bf16 = int(planes.dtype == torch.bfloat16)
+    head = (planes.data_ptr(), bf16, x.data_ptr())
+    if sym:
+        err = lib.mfmg_stencil_apply_sym(*head, None, y.data_ptr(), *grid, len(offsets),
+                                         tk._offset_table(tuple(offsets)), tk._stream(x))
+    else:
+        err = lib.mfmg_stencil_apply(*head, y.data_ptr(), *grid, len(offsets),
+                                     tk._offset_table(tuple(offsets)), tk._stream(x))
+    if err:
+        raise RuntimeError(f"the parent's stencil kernel failed ({err})")
+    return y
+
+
+def k13_section(dev, parent, tile_points=None):
+    """K1 and K3 at their shapes: the current kernels, the parent's, and
+    cuSPARSE on the float32 matrix, in turns."""
+    import chip_smoke as cs
+    from _torch_stencils import symmetrize
+    from mfmg_torch import LaplaceProblem
+    from mfmg_torch.ops import stencil as st
+    from mfmg_torch.ops import stencil_kernels as tk
+
+    base = tk.K13_TILE_POINTS
+
+    def fixed_tiles(fn, points):
+        def run():
+            tk.K13_TILE_POINTS = points
+            tk.stencil_tile_plan.cache_clear()
+            tk._k13_plan.cache_clear()
+            try:
+                return fn()
+            finally:
+                tk.K13_TILE_POINTS = base
+                tk.stencil_tile_plan.cache_clear()
+                tk._k13_plan.cache_clear()
+        return run
+
+    def case(label, sym, planes, offsets, grid, A=None):
+        x = torch.rand(int(np.prod(grid)), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4))
+        kern = tk.stencil_apply_sym if sym else tk.stencil_apply
+        plain = tk.stencil_apply_sym_plain if sym else tk.stencil_apply_plain
+        fns = {"new": lambda: kern(planes, x, offsets, grid)}
+        y = fns["new"]()
+        ref = plain(planes, x, offsets, grid)
+        err = float((y - ref).abs().max() / ref.abs().max())
+        if tile_points:
+            fns[f"tiles of {tile_points}"] = fixed_tiles(fns["new"], tile_points)
+        if parent is not None and (not sym or len(offsets) <= 62):   # its cap
+            fns["parent"] = lambda: parent_call(parent, sym, planes, x, offsets, grid)
+            perr = float((fns["parent"]() - ref).abs().max() / ref.abs().max())
+            err = f"{err:.3e} (parent {perr:.3e})"
+        if A is not None:
+            fns["cuSPARSE"] = lambda: torch.mv(A, x)
+        work = (cs.k1_work if sym else cs.k3_work)(planes, x.numel())
+        b_ms, b_by = cs.bound(*work)
+        plan = tk._k13_plan(tuple(offsets), sym, tuple(grid))
+        print(f"{'K1' if sym else 'K3'} {label} {planes.dtype} ({len(offsets)} "
+              f"{'pairs' if sym else 'offsets'}): bound {b_ms:.5f} ms ({b_by}), "
+              f"plan {tuple(plan)}, rel err vs plain {err}; (device ms, event ms) "
+              f"{in_turns(fns)}", flush=True)
+
+    def operator(prob, dt):
+        return st.stencil_from_cell_matrices(prob.mesh, prob.A_loc, prob.constrained,
+                                             prob.diag_raw, dtype=dt)
+
+    # K3: the Q2 cube kept one-sided, the distorted Q2 cube, 129^3 as 27 planes
+    for label, kw in (("Q2 cube", {}), ("distorted Q2", dict(distort_random=True,
+                                                             seed=0))):
+        prob = LaplaceProblem.hyper_cube(3, 5, degree=2, material_property="linear", **kw)
+        host = operator(prob, torch.float32)
+        A = cs.csr_from_stencil(host, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            c = host.coeffs.to(dt).to(dev)
+            case(label, False, c, host.offsets, host.grid_shape,
+                 A if dt == torch.float32 else None)
+            del c
+        if label == "Q2 cube":
+            # K1 on the same cube's 62 pairs (symmetrized: bit-symmetric on
+            # any host)
+            cs_ = symmetrize(host.coeffs.double().numpy(), host.offsets, host.grid_shape)
+            pos = st.detect_symmetry(cs_, host.offsets, host.grid_shape)
+            op = st.stencil_to_device(st.StencilOperator(
+                torch.from_numpy(cs_).float(), host.offsets, host.grid_shape, pos), dev)
+            for dt in (torch.bfloat16, torch.float32):
+                case(label, True, op.planes.to(dt), op.pos_offsets, op.grid_shape,
+                     A if dt == torch.float32 else None)
+            del op, cs_
+        del prob, host, A
+    for n_ref in (6, 7):
+        prob = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
+        host = operator(prob, torch.float32)
+        A = cs.csr_from_stencil(host, dev)
+        sym = st.stencil_to_device(st.StencilOperator(
+            host.coeffs, host.offsets, host.grid_shape, host.sym_pos), dev)
+        label = f"Q1 {2 ** n_ref + 1}^3"
+        for dt in (torch.float32, torch.bfloat16):
+            case(label, True, sym.planes.to(dt), sym.pos_offsets, sym.grid_shape,
+                 A if dt == torch.float32 else None)
+            if n_ref == 7:
+                c = host.coeffs.to(dt).to(dev)
+                case(label + " as 27 one-sided planes", False, c, host.offsets,
+                     host.grid_shape, A if dt == torch.float32 else None)
+                del c
+        del prob, host, A, sym
+    # K1 at 171 pairs: the Q3 stencil on 49^3 nodes, symmetrized
+    prob = LaplaceProblem.hyper_cube(3, 4, degree=3, material_property="linear")
+    host = operator(prob, torch.float64)
+    c3 = symmetrize(host.coeffs.numpy(), host.offsets, host.grid_shape)
+    full = st.StencilOperator(torch.from_numpy(c3).float(), host.offsets, host.grid_shape)
+    op = st.stencil_to_device(st.StencilOperator(
+        torch.from_numpy(c3).float(), host.offsets, host.grid_shape,
+        st.detect_symmetry(c3, host.offsets, host.grid_shape)), dev)
+    A = cs.csr_from_stencil(full, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        case("Q3 49^3 symmetrized", True, op.planes.to(dt), op.pos_offsets,
+             op.grid_shape, A if dt == torch.float32 else None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent-csrc", type=Path)
+    ap.add_argument("--k13-only", action="store_true")
+    ap.add_argument("--tile-points", type=int)
+    args = ap.parse_args()
     import chip_smoke as cs
     from mfmg_torch.ops import stencil_kernels as tk
     from mfmg_torch.ops import transfer_kernels as ttk
@@ -78,52 +229,10 @@ def main():
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     tk._library()
-    from mfmg_torch import LaplaceProblem
-    from mfmg_torch.ops import stencil as st
-
-    def operator(prob, dt):
-        return st.stencil_from_cell_matrices(prob.mesh, prob.A_loc, prob.constrained,
-                                             prob.diag_raw, dtype=dt)
-
-    # K1 and K3 on the problems' own operators, against cuSPARSE
-    for n_ref in (6, 7):
-        prob = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
-        host = operator(prob, torch.float32)
-        A = cs.csr_from_stencil(host, dev)
-        x = torch.rand(prob.n_dofs, device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(2))
-        sym = st.stencil_to_device(st.StencilOperator(
-            host.coeffs, host.offsets, host.grid_shape, host.sym_pos), dev)
-        n = 2 ** n_ref + 1
-        t = in_turns({"K1": lambda: tk.stencil_apply_sym(sym.planes, x, sym.pos_offsets,
-                                                         sym.grid_shape),
-                      "cuSPARSE": lambda: torch.mv(A, x)})
-        print(f"K1 {n}^3 f32 (nnz {A.values().numel()}): (device ms, event ms) {t}",
-              flush=True)
-        if n_ref == 7:
-            for dt in (torch.float32, torch.bfloat16):
-                one = st.stencil_to_device(st.StencilOperator(
-                    host.coeffs.to(dt), host.offsets, host.grid_shape, None), dev)
-                t = in_turns({"K3": lambda: tk.stencil_apply(one.coeffs, x, one.offsets,
-                                                             one.grid_shape),
-                              "cuSPARSE": lambda: torch.mv(A, x)})
-                print(f"K3 129^3 as 27 one-sided planes {dt}: (device ms, event ms) {t}",
-                      flush=True)
-                del one
-        del prob, host, A, sym
-    probd = LaplaceProblem.hyper_cube(3, 5, degree=2, material_property="linear",
-                                      distort_random=True, seed=0)
-    A = cs.csr_from_stencil(operator(probd, torch.float32), dev)
-    x = torch.rand(probd.n_dofs, device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(3))
-    for dt in (torch.float32, torch.bfloat16):
-        op = st.stencil_to_device(operator(probd, dt), dev)
-        t = in_turns({"K3": lambda: tk.stencil_apply(op.coeffs, x, op.offsets,
-                                                     op.grid_shape),
-                      "cuSPARSE": lambda: torch.mv(A, x)})
-        print(f"K3 distorted Q2 ({len(op.offsets)} planes) {dt} (nnz "
-              f"{A.values().numel()}): (device ms, event ms) {t}", flush=True)
-    del probd, A, op
+    parent = load_parent_k13(args.parent_csrc) if args.parent_csrc else None
+    k13_section(dev, parent, args.tile_points)
+    if args.k13_only:
+        return
 
     for grid in ((65, 65, 65), (129, 129, 129)):
         g = torch.Generator(device=dev).manual_seed(0)

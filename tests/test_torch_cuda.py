@@ -13,7 +13,10 @@ does not need and may not have; this file imports no JAX.)
 K2 is held in both forms: the blocked form on Q1 planes (17^3, 33^3, a
 ragged 19x23x37 grid; its rule takes it only at 129^3, which chip_smoke.py
 runs), the chain where the rule sends these grids, on Q1 planes and the Q2
-cube's 62 pairs.
+cube's 62 pairs, and with K1 at 171 pairs on a symmetrized Q3 stencil.
+K1/K3's tiled kernel is held on ragged grids (x extents no multiple of a
+16-byte chunk), radius 1-3, dense and sparse offsets, row segments and a
+one-slice grid, and repeats its bits.
 
 Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
@@ -35,6 +38,7 @@ import pytest
 import torch
 
 import mfmg_torch.config as tcfg
+from _torch_stencils import cube_offsets, symmetrize
 from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import Hierarchy, LaplaceProblem
 from mfmg_torch.amge.hierarchy import LevelData
@@ -167,6 +171,83 @@ def test_k2_chain_matches_plain(cuda, case, dtype):
     _hold_k2(planes, pos, grid, inv_diag, coef, n, 2, cuda)
     assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
     assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"]
+
+
+def _q3_symmetric(dtype, device):
+    """The Q3 13^3 operator with its planes symmetrized (171 positive
+    offsets of radius 3) and its degree-2 smoother, fused."""
+    p = LaplaceProblem.hyper_cube(3, 2, degree=3, material_property="linear")
+    host = tst.stencil_from_cell_matrices(p.mesh, p.A_loc, p.constrained,
+                                          p.diag_raw, dtype=torch.float64)
+    c = symmetrize(host.coeffs.numpy(), host.offsets, host.grid_shape)
+    host = tst.StencilOperator(torch.from_numpy(c).to(dtype), host.offsets,
+                               host.grid_shape,
+                               tst.detect_symmetry(c, host.offsets, host.grid_shape))
+    assert host.sym_pos is not None and len(host.sym_pos) == 171
+    sm = build_smoother(host, tcfg.SmootherConfig(type="chebyshev", degree=2),
+                        dtype=torch.float32)
+    op = tst.stencil_to_device(host, device)
+    return p, op, fuse_chebyshev(sm.to(device), op)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_symmetric_q3_on_the_card(cuda, dtype):
+    """K1 and K2's chain at 171 pairs (a symmetrized Q3 stencil, radius 3)
+    against their plain versions: K1 to 1e-5 ||y||_inf, K2 1e-5 on x and
+    1e-4 on the residual; one launch each per call."""
+    p, op, fused = _q3_symmetric(dtype, cuda)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, p.n_dofs).astype(np.float32)).to(cuda)
+    before = dict(tk.LAUNCHES)
+    y = op(x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["stencil_apply_sym"] == before["stencil_apply_sym"] + 1
+    ref = tk.stencil_apply_sym_plain(op.planes, x, op.pos_offsets, op.grid_shape)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    _hold_k2(op.planes, op.pos_offsets, op.grid_shape, fused.inv_diag, fused.coef,
+             p.n_dofs, 2, cuda)
+    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
+
+
+K13_CASES = {
+    # name: (grid, radius, symmetric pairs (K1) or one-sided (K3), sparse)
+    "K3-r1-19x23x37": ((19, 23, 37), 1, False, False),
+    "K3-r2-19x23x37": ((19, 23, 37), 2, False, False),
+    "K3-r3-sparse-11x9x13": ((11, 9, 13), 3, False, True),
+    "K3-r2-row-segments-3x5x1100": ((3, 5, 1100), 2, False, False),
+    "K1-r1-19x23x37": ((19, 23, 37), 1, True, False),
+    "K1-r2-sparse-19x23x37": ((19, 23, 37), 2, True, True),
+    "K1-r3-13x7x29": ((13, 7, 29), 3, True, False),
+    "K1-r1-one-slice-1x5x6": ((1, 5, 6), 1, True, False),
+}
+
+
+@pytest.mark.parametrize("case", list(K13_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k13_tiles_match_plain(cuda, case, dtype):
+    """K1/K3's tiles on ragged grids whose x extent is no multiple of the
+    16-byte chunk (bf16 and f32 planes start at every phase of it), radius
+    1-3, dense and sparse offsets, whole-row tiles and row segments, one z
+    slice: random planes against the plain versions, 1e-5 ||y||_inf; two
+    launches give the same bits (fixed summation order, no atomics)."""
+    grid, radius, sym, sparse = K13_CASES[case]
+    offsets = cube_offsets(radius, sym, sparse)
+    rng = np.random.default_rng(len(offsets))
+    n = int(np.prod(grid))
+    n_planes = 1 + len(offsets) if sym else len(offsets)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (n_planes,) + grid)
+                              .astype(np.float32)).to(dtype).to(cuda)
+    x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    fn, plain, key = ((tk.stencil_apply_sym, tk.stencil_apply_sym_plain,
+                       "stencil_apply_sym") if sym else
+                      (tk.stencil_apply, tk.stencil_apply_plain, "stencil_apply"))
+    before = tk.LAUNCHES[key]
+    y, again = fn(planes, x, offsets, grid), fn(planes, x, offsets, grid)
+    ref = plain(planes, x, offsets, grid)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[key] == before + 2
+    assert torch.equal(y, again)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 # A V-cycle with the bf16-weight tail against the generic recursion: the bf16

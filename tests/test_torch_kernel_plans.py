@@ -1,10 +1,10 @@
-"""The decompositions of K2's blocked form, of K5 and of the fused coarse
-tail, modelled on the CPU.
+"""The decompositions of K2's blocked form, of K5, of K1/K3's tiles and of
+the fused coarse tail, modelled on the CPU.
 
 The CUDA kernels (mfmg_torch/csrc/cheb_smooth.cu, structured_transfer.cu,
-fused_tail.cu) run only on the card; these plain models follow their index
-arithmetic block by block, so that the tiling and ownership logic is
-checked where there is no GPU:
+stencil_apply.cu, fused_tail.cu) run only on the card; these plain models
+follow their index arithmetic block by block, so that the tiling and
+ownership logic is checked where there is no GPU:
 
 * K5 (y = R^T xc) owner computes: a block owns one fine z plane and one
   agglomerate row ay; every fine point takes its own window's term and, on
@@ -20,6 +20,15 @@ checked where there is no GPU:
   ``cheb_smooth_plain`` with random planes on 19x23x37 and 13x41x67 grids
   (2-3 tiles per axis, ragged last tiles and z chunks).
 * K2's dispatch rule ``k2_form``.
+* K1/K3 (``stencil_tile_plan``): a block owns whole grid rows of one z
+  slice (or a row segment), 256 threads take 4 of its points each, x is
+  staged over the tile and a halo of the radius (NaN until loaded, 0 outside
+  the grid), and every term reads its virtual plane's coefficient at the
+  point's index plus the plane's offset (K1's backward term at the flat
+  shift -d(o)); y starts as NaN.  Held against the plain versions in
+  float64 on ragged grids, radius 1-3, dense and sparse offsets, 1024-
+  and 256-point tiles (the latter with clamped duplicate points), row segments and a
+  one-slice grid (the clamped backward reads).
 * The fused tail (``fused_cycle.tail_plan``): block b owns the level-1
   sites [b * sites, (b + 1) * sites) for the whole launch and keeps their
   b1, residual and Chebyshev p to itself; d, x and r1 go through global
@@ -50,6 +59,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_stencils import cube_offsets
 from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import LaplaceProblem
 from mfmg_torch.ops import fused_cycle as fc
@@ -333,6 +343,148 @@ def test_k2_wrapper_counts_nothing_on_the_cpu():
     ref = tk.cheb_smooth_plain(planes, x, b, invd, coef, pos, grid, 2, True)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert all(v == 0 for v in tk.LAUNCHES.values())
+
+
+# ------------------------------------------------------------------ K1/K3
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _virtual_planes(offsets, sym, grid):
+    """K1/K3's terms in summation order: (stored plane, flat shift of the
+    coefficient read, offset of the x read)."""
+    gz, gy, gx = grid
+    if not sym:
+        return [(v, 0, off) for v, off in enumerate(offsets)]
+    out = [(0, 0, (0, 0, 0))]
+    for j, (dz, dy, dx) in enumerate(offsets):
+        out.append((j + 1, 0, (dz, dy, dx)))
+        out.append((j + 1, -((dz * gy + dy) * gx + dx), (-dz, -dy, -dx)))
+    return out
+
+
+def k13_tile_model(planes, x, offsets, grid, sym, plan):
+    """K1 (sym) or K3 block by block, as csrc/stencil_apply.cu runs them.
+
+    A block owns one tile of ``plan`` (whole rows of one z slice, or one row
+    segment): a contiguous run [i0, i0 + P), its points dealt to 256
+    threads, 4 each (thread t takes t + 256 k).  Its x tile (the tile and a halo of the radius r, in 2r + 1
+    slices) starts as NaN and takes x inside the grid and 0 outside, as the
+    kernel's 4-byte copies do.  Each virtual plane's coefficient is read at
+    the point's index plus the plane's offset (the backward term's flat
+    shift included; clamped at the planes' first element where an offset's
+    flat shift can exceed a plane);
+    a read outside the planes fails the model.  Sums in float64, in
+    virtual-plane order; y starts as NaN."""
+    gz, gy, gx = grid
+    n = gz * gy * gx
+    flat = planes.reshape(-1).numpy()
+    xv = x.numpy()
+    r = max((abs(c) for off in offsets for c in off), default=0)
+    rows_max, cols_max = plan.rows, plan.cols
+    n_xt, n_yt = _cdiv(gx, cols_max), _cdiv(gy, rows_max)
+    assert plan.blocks == n_xt * n_yt * gz
+    assert rows_max == 1 or cols_max >= gx, "a tile is not one run"
+    assert rows_max * cols_max <= tk.K13_MAX_TILE
+    clamp = sym and r * (gy * gx + gx + 1) > gz * gy * gx
+    sy = cols_max + 2 * r
+    sz = (rows_max + 2 * r) * sy
+    y = np.full(n, np.nan)
+    for blk in range(plan.blocks):
+        xt, yt, z = blk % n_xt, (blk // n_xt) % n_yt, blk // (n_xt * n_yt)
+        x0, y0 = xt * cols_max, yt * rows_max
+        cols, rows = min(cols_max, gx - x0), min(rows_max, gy - y0)
+        P = rows * cols
+        i0 = (z * gy + y0) * gx + x0
+        xs = np.full((2 * r + 1) * sz, np.nan)
+        kz, ky, kx = np.meshgrid(np.arange(2 * r + 1), np.arange(rows_max + 2 * r),
+                                 np.arange(sy), indexing="ij")
+        zz, yy, xx = z - r + kz, y0 - r + ky, x0 - r + kx
+        ok = (zz >= 0) & (zz < gz) & (yy >= 0) & (yy < gy) & (xx >= 0) & (xx < gx)
+        xs[kz * sz + ky * sy + kx] = np.where(
+            ok, xv[np.where(ok, (zz * gy + yy) * gx + xx, 0)], 0.0)
+        t, k = np.meshgrid(np.arange(256), np.arange(4), indexing="ij")
+        p = (t + k * 256).reshape(-1)
+        p = p[p < P]
+        assert np.array_equal(np.sort(p), np.arange(P)), "a point no thread takes"
+        xb = r * sz + (p // cols + r) * sy + p % cols + r
+        acc = np.zeros(p.size)
+        for pl, shift, (dz, dy, dx) in _virtual_planes(offsets, sym, grid):
+            e = pl * n + shift + i0 + p
+            if clamp:
+                e = np.maximum(e, 0)
+            assert e.min() >= 0 and e.max() < flat.size, "a read outside the planes"
+            acc += flat[e] * xs[xb + dz * sz + dy * sy + dx]
+        y[i0 + p] = acc
+    return torch.from_numpy(y)
+
+
+K13_MODEL_CASES = {
+    # name: (grid, radius, sym, sparse, plan override: None or (rows, cols))
+    "K3-r1-19x23x37": ((19, 23, 37), 1, False, False, None),
+    "K3-r2-sparse-7x9x11": ((7, 9, 11), 2, False, True, None),
+    "K3-r3-5x6x13": ((5, 6, 13), 3, False, False, None),
+    "K3-r2-row-segments": ((4, 5, 29), 2, False, False, (1, 10)),
+    "K1-r1-19x23x37": ((19, 23, 37), 1, True, False, None),
+    "K1-r2-sparse-9x7x11": ((9, 7, 11), 2, True, True, None),
+    "K1-r3-5x6x13": ((5, 6, 13), 3, True, False, None),
+    "K1-r1-row-segments": ((3, 4, 23), 1, True, False, (1, 7)),
+    "K1-r1-one-slice": ((1, 5, 6), 1, True, False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(K13_MODEL_CASES))
+@pytest.mark.parametrize("tile", [1024, 256], ids=["1024-point-tiles", "256-point-tiles"])
+def test_k13_tile_model_matches_plain(case, tile, monkeypatch):
+    """K1/K3's tiles, the points dealt to threads, x halos with zero fill,
+    and the backward term's shifted reads, against the plain versions in
+    float64 on ragged grids, radius 1-3, dense and sparse offsets, the
+    plan's whole-row tiles and row segments, one z slice (K1's reads
+    clamped at the planes' start); no NaN reaches the output (every point
+    written, no value read that was not loaded)."""
+    grid, radius, sym, sparse, override = K13_MODEL_CASES[case]
+    offsets = cube_offsets(radius, sym, sparse)
+    n = int(np.prod(grid))
+    n_v = 2 * len(offsets) + 1 if sym else len(offsets)
+    monkeypatch.setattr(tk, "K13_TILE_POINTS", tile)
+    plan = tk.stencil_tile_plan.__wrapped__(grid, radius, n_v)
+    if override is not None:
+        rows, cols = override
+        plan = plan._replace(rows=rows, cols=cols, blocks=_cdiv(grid[2], cols)
+                             * _cdiv(grid[1], rows) * grid[0])
+    rng = np.random.default_rng(len(offsets))
+    n_planes = 1 + len(offsets) if sym else len(offsets)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (n_planes,) + grid))
+    x = torch.from_numpy(rng.uniform(-1, 1, n))
+    got = k13_tile_model(planes, x, offsets, grid, sym, plan)
+    ref = (tk.stencil_apply_sym_plain if sym else tk.stencil_apply_plain)(
+        planes, x, offsets, grid)
+    assert not torch.isnan(got).any(), "a point no block wrote, or a NaN read"
+    assert float((got - ref).abs().max()) <= K2_TOL * float(ref.abs().max())
+
+
+def test_k13_plan_at_the_main_shapes():
+    """K1/K3's plan: whole-row tiles of at most K13_TILE_POINTS points, split
+    evenly over y (only the last one ragged), more blocks than SMs at the
+    main shapes, shared memory that lets 3 blocks share an SM (228 KB); a
+    row longer than a tile is cut into even segments, and Q3's 343 terms
+    fit."""
+    cases = [((65,) * 3, 2, 125), ((65,) * 3, 1, 27), ((129,) * 3, 1, 27),
+             ((65,) * 3, 3, 343), ((49,) * 3, 3, 343), ((13,) * 3, 3, 343)]
+    for grid, r, n_v in cases:
+        p = tk.stencil_tile_plan(grid, r, n_v)
+        gz, gy, gx = grid
+        assert p.cols == gx and p.rows * gx <= tk.K13_TILE_POINTS
+        n_yt = _cdiv(gy, p.rows)
+        last = gy - (n_yt - 1) * p.rows
+        assert 1 <= last and p.rows - last < n_yt
+        assert p.blocks == n_yt * gz
+        assert p.blocks >= 2 * tk.H100_SMS or gx < 65
+        assert 3 * p.smem <= 228 * 1024
+        assert p.smem == tk.tile_smem_bytes(n_v, r, p.rows, p.cols)
+    p = tk.stencil_tile_plan((3, 4, 1500), 3, 343)
+    assert p.rows == 1 and p.cols == 750 and p.smem <= tk.H100_SMEM_PER_BLOCK
 
 
 # ------------------------------------------------------------ the fused tail

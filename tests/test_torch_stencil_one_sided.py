@@ -35,6 +35,8 @@ from mfmg_tpu.ops.pallas_stencil import (cheb_tiled_geom, cheb_tiled_supported,
                                          pallas_stencil_apply,
                                          pallas_stencil_apply_tiled,
                                          unpad_vec_cheb)
+from _torch_stencils import symmetrize
+from mfmg_tpu.solve import smoothers as jsm
 from mfmg_torch.fem.laplace import LaplaceProblem as TLaplace
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
@@ -238,3 +240,69 @@ def test_k3_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         tk.stencil_apply(planes, x, far, J.grid_shape)
     assert tk.LAUNCHES["stencil_apply"] == 0
+
+
+# A symmetric Q3 stencil through K1's float32 path: the K1 wrapper's plain
+# version sums the 171 pairs, the reference its 343 one-sided planes in
+# another order.  The terms' absolute sum is up to 2.1 ||y||_inf here, so
+# 343 float32 roundings (6e-8 each) give at worst 4e-5 ||y||_inf and as a
+# random walk ~3e-6; observed 3.9e-7.
+SYM_Q3_F32_TOL = 2e-5
+
+
+def _symmetric_q3(np_dtype):
+    """The Q3-13^3 operator symmetrized (C_{-o}[i] := C_o[i - o]) in both
+    packages, on the same numpy planes: (jp, reference op, port op)."""
+    jp, J = _jax_op("Q3-13^3")
+    c = symmetrize(np.asarray(J.coeffs), J.offsets, J.grid_shape).astype(np_dtype)
+    pos = jst.detect_symmetry(c, J.offsets, J.grid_shape)
+    assert pos is not None and len(pos) == 171
+    Js = jst.StencilOperator(jnp.asarray(c), J.offsets, J.grid_shape, pos)
+    T = tst.StencilOperator(torch.from_numpy(c), J.offsets, J.grid_shape,
+                            tst.detect_symmetry(c, J.offsets, J.grid_shape))
+    T = tst.stencil_to_device(T, "cpu")
+    assert T.sym_pos == pos and T.planes.shape[0] == 1 + 171
+    return jp, Js, T
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_symmetric_q3_applies_with_171_pairs(dtype):
+    """The 171 positive planes of a symmetric Q3 stencil (radius 3) apply
+    through the port's dispatch: float32 x reaches the K1 wrapper (its CPU
+    branch, which refused more than 62 pairs before), float64 x the plain
+    version; both against mfmg_tpu's stencil_apply on the same planes,
+    1e-12 ||y||_inf in float64, SYM_Q3_F32_TOL in float32."""
+    np_dt = np.float64 if dtype == "f64" else np.float32
+    jp, Js, T = _symmetric_q3(np_dt)
+    x = _x(jp.n_dofs, 6, np_dt)
+    y_ref = np.asarray(jst.stencil_apply(Js, jnp.asarray(x)))
+    y = tst.stencil_apply(T, torch.from_numpy(x)).numpy()
+    tol = 1e-12 if dtype == "f64" else SYM_Q3_F32_TOL
+    assert np.abs(y - y_ref).max() <= tol * np.abs(y_ref).max()
+    assert tk.LAUNCHES["stencil_apply_sym"] == 0
+
+
+@pytest.mark.parametrize("want_res", [False, True], ids=["no-res", "res"])
+def test_symmetric_q3_chebyshev_step(want_res):
+    """One degree-2 Chebyshev step with 171 pairs: the K2 wrapper (its
+    plain version on CPU tensors) against mfmg_tpu's ChebyshevSmoother on
+    the same float32 planes, x 1e-5 and the residual 1e-4 relative (the
+    bounds of tests/test_torch_smoothers.py)."""
+    jp, Js, T = _symmetric_q3(np.float32)
+    inv_diag = (1.0 / T.planes[0].reshape(-1)).contiguous()
+    theta, delta = 1.1, 0.9
+    alphas, betas = _cheb_coeffs(theta, delta, 2)
+    coef = torch.tensor(list(alphas) + list(betas), dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    x, b = (rng.uniform(size=jp.n_dofs).astype(np.float32) for _ in range(2))
+    sm = jsm.ChebyshevSmoother(inv_diag=jnp.asarray(inv_diag.numpy()),
+                               theta=jnp.float32(theta), delta=jnp.float32(delta),
+                               degree=2)
+    xj = sm.apply(Js, jnp.asarray(b), jnp.asarray(x))
+    rj = np.asarray(jst.stencil_apply(Js, xj) - jnp.asarray(b))
+    got = tk.cheb_smooth(T.planes, torch.from_numpy(x), torch.from_numpy(b),
+                         inv_diag, coef, T.pos_offsets, T.grid_shape, 2, want_res)
+    xj = np.asarray(xj)
+    assert np.linalg.norm(got[0].numpy() - xj) <= 1e-5 * np.linalg.norm(xj)
+    if want_res:
+        assert np.linalg.norm(got[1].numpy() - rj) <= 1e-4 * np.linalg.norm(rj)
