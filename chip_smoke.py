@@ -16,7 +16,11 @@ each phase prints its wall time):
     the fused coarse tail in both modes (full tail, sub-cycle), both
     level-1 -> 2 forms (dense, windowed) and both storages (f32, bf16) on
     the 17^3 and 33^3 hierarchies (every tail check also launches it twice
-    and requires the same bits);
+    and requires the same bits); windowed bf16 random tails whose coarse
+    correction is a hierarchy-like share of the output (32^3 and 13x17x11
+    level-1 sites) held on seeds 7-11 to the float64 plain version with the
+    same bf16 rounding points, under the limit the rounding check measures
+    on each input (tests/_torch_tails.py rounding_limit);
  4. a small-input reference: the 17^3 main-path hierarchy on the GPU against
     the same hierarchy on the CPU (plain versions, the same bf16 tail), and
     against the CPU's generic recursion within the bf16 storage's gap;
@@ -36,8 +40,10 @@ each phase prints its wall time):
     pallas_stencil_apply_tiled_sym there), K2 (which stands for
     pallas_cheb_smooth_tiled), the tail, K3 on the 129^3 operator as 27
     one-sided planes (which stands for pallas_stencil_apply_tiled) and
-    K4/K5 (float32 and bf16 weights, with cuSPARSE yardsticks of R and R^T)
-    against their plain versions at these shapes; the V-cycle and its
+    K4/K5 (float32 and bf16 weights, with cuSPARSE yardsticks of R and R^T;
+    K4 and K5 repeat their bits) against their plain versions at these
+    shapes; the sub-cycle tail on seeds 7-11 against the float64 plain
+    version under its rounding limit (as in phase 3); the V-cycle and its
     device time with K4/K5 and with their plain versions, in turns;
  7. the Q2 paths (fe_degree 2, 65^3 nodes, 274,625 dofs, 125 offsets):
     (a) the main configuration on the Q2 cube, with the full-mode tail over
@@ -52,7 +58,7 @@ each phase prints its wall time):
     (b) the distorted Q2 cube with two levels, one-sided on every host: K3
     (bf16 and f32 planes, cuSPARSE yardstick) against its plain version,
     then the path with every fine apply through K3 and the fine transfer
-    through K4/K5.
+    through K4/K5, and K4/K5 (float32 and bf16 weights) at its transfer.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -284,6 +290,7 @@ def main():
     from mfmg_torch.solve.smoothers import (FusedChebyshevSmoother,
                                             build_smoother, fuse_chebyshev)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_tails as tt
     from _torch_stencils import symmetrize
 
     t_start = time.perf_counter()
@@ -357,11 +364,12 @@ def main():
                            ("prolong", xc, None if csr is None else csr[1])):
             fn = getattr(ttk, f"structured_{kind}")
             plain = getattr(ttk, f"structured_{kind}_plain")
-            got, ref = fn(W, v, *g), plain(W, v, *g)
+            got, ref, again = fn(W, v, *g), plain(W, v, *g), fn(W, v, *g)
             torch.cuda.synchronize()
             rel, err = rel2(got, ref), float((got - ref).abs().max())
             name = f"structured_{kind}/{tag}"
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+            check(torch.equal(got, again), f"{name}: two launches differ")
             check(rel <= XFER_TOL, f"{name}: rel err {rel:.3e} > {XFER_TOL}")
             ms = median_ms(lambda: fn(W, v, *g))
             pms = median_ms(lambda: plain(W, v, *g), batch=1)
@@ -401,6 +409,45 @@ def main():
         print(f"{name}: max|d| {err:.3e} (rel {rel:.3e})"
               + (f", kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms"
                  if time_it else ""), flush=True)
+        return v
+
+    def check_tail_rounding(name, ft, seeds=(7, 8, 9, 10, 11), time_it=False):
+        """The windowed bf16 sub-cycle tail against the float64 plain version
+        with the same rounding points, on every seed, under the limit
+        _torch_tails.rounding_limit measures on that input (the float32
+        plain version's gap and 8 float32-sized perturbations of the values
+        before their roundings, the largest times 4, plus TAIL_TOL; max
+        norm); two launches repeat their bits."""
+        v = dict(max_abs_err=0.0, rel_err=0.0, seeds={})
+        for seed in seeds:
+            b1 = torch.from_numpy(np.random.default_rng(seed).standard_normal(ft.n1)
+                                  .astype(np.float32)).to(dev)
+            got, again = fc.fused_subcycle_apply(ft, b1), fc.fused_subcycle_apply(ft, b1)
+            ref, limit, readings = tt.rounding_limit(ft, b1)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+            check(torch.equal(got, again), f"{name}: two launches differ")
+            rel = tt.rel_inf(got, ref)
+            share = tt.correction_share(ft, b1)
+            check(rel <= limit, f"{name} seed {seed}: |d|_inf/|ref|_inf {rel:.3e} > "
+                  f"its rounding limit {limit:.3e}")
+            v["seeds"][seed] = dict(rel_inf=rel, limit=limit, share=share,
+                                    plain_f32=readings["plain_f32"],
+                                    draws_max=max(readings["draws"]),
+                                    rel2_vs_plain32=rel2(got, fc.fused_subcycle_apply_plain(ft, b1)))
+            v["max_abs_err"] = max(v["max_abs_err"], float((got.double() - ref).abs().max()))
+            v["rel_err"] = max(v["rel_err"], rel)
+            print(f"{name} seed {seed}: rel_inf vs plain64 {rel:.3e} <= limit {limit:.3e} "
+                  f"(plain32 {readings['plain_f32']:.3e}, draws max "
+                  f"{max(readings['draws']):.3e}; coarse share {share:.3f}; rel2 vs "
+                  f"plain32 {v['seeds'][seed]['rel2_vs_plain32']:.3e})", flush=True)
+        if time_it:
+            b1 = torch.from_numpy(np.random.default_rng(seeds[0]).standard_normal(ft.n1)
+                                  .astype(np.float32)).to(dev)
+            v["ms"] = median_ms(lambda: fc.fused_subcycle_apply(ft, b1))
+            v["plain_ms"] = median_ms(lambda: fc.fused_subcycle_apply_plain(ft, b1), batch=1)
+            print(f"{name}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms", flush=True)
+        variants[name] = v
         return v
 
     def check_k2(tag, op, x, b, fsm):
@@ -806,6 +853,14 @@ def main():
                                    f"{'bf16' if reduced else 'f32'}",
                                    ft, full, np.random.default_rng(n_ref))
             del h
+        # windowed bf16 random tails whose coarse correction is a hierarchy-
+        # like share of the output (the 129^3 shape and a ragged grid)
+        for grid in ((32, 32, 32), (13, 17, 11)):
+            ft = tt.random_tail(grid, dense=False, inv2_scale=tt.HIERARCHY_INV2_SCALE,
+                                device=dev)
+            check_tail_rounding(f"fused_subcycle_apply/random {'x'.join(map(str, grid))}"
+                                f"/hierarchy-like", ft)
+            del ft
 
     # ---- 4. small-input reference: GPU hierarchy against CPU ----------
     with Phase("4 17^3 GPU against CPU"):
@@ -896,8 +951,9 @@ def main():
         summary129.update(ms_per_vcycle_transfer=ab_x,
                           device_ms_per_vcycle_transfer=dev_x)
         del bd7
-        v129 = check_tail("fused_subcycle_apply/129^3", ft129, False,
-                          np.random.default_rng(7), time_it=True)
+        # the windowed bf16 tail rounds r1, b2, x2 and the z/y sums: held to
+        # the float64 plain version with the same rounding points, seeds 7-11
+        v129 = check_tail_rounding("fused_subcycle_apply/129^3", ft129, time_it=True)
         ex7 = hier7._exact_fine_op()
         rng7 = np.random.default_rng(8)
         x7 = torch.from_numpy(rng7.uniform(-1, 1, prob7.n_dofs)
@@ -1039,7 +1095,13 @@ def main():
         check(ld["structured_restrict"] == ld["structured_prolong"] == n_cyc,
               f"K4/K5 launched {ld['structured_restrict']}/"
               f"{ld['structured_prolong']} times in {n_cyc} V-cycles")
-        del hierd
+        # K4/K5 at this path's own transfer (9^3 windows over 8^3 agglomerates)
+        trd0 = hierd.levels[0].transfer
+        check_xfer("Q2 distorted/f32", trd0, trd0.W, np.random.default_rng(16),
+                   csr=csr_from_transfer(trd0, dev))
+        check_xfer("Q2 distorted/bf16", trd0, trd0.W.to(torch.bfloat16),
+                   np.random.default_rng(16))
+        del hierd, trd0
 
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]

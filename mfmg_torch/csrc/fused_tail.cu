@@ -32,8 +32,13 @@
 //   (cp.async), which complete behind the first phase; every apply and both
 //   dense transfers then read them there.  Where they do not fit, the plan
 //   leaves them in global memory.  The block's own b1, residual and
-//   Chebyshev p stay in shared memory; d, x and r1, which neighbours read,
-//   go through global memory and are read after the phase's grid sync.
+//   Chebyshev p, x2 and the applies' gather buffer stay in shared memory
+//   where they fit; where not (large level-1 grids with many eigenvectors,
+//   e.g. 64^3 sites at c = 8), the plan places x2, then the gather buffer,
+//   then the block's vectors in global scratch of their own, and the kernel
+//   reads them there in the same order, so the sums and their bits do not
+//   depend on the placement.  d, x and r1, which neighbours read, go
+//   through global memory and are read after the phase's grid sync.
 // * Several lanes per output.  An apply gives each site a group of G lanes
 //   (G a power of two, as many as the block's threads allow) that gather
 //   the neighbour values together, then one lane per output sums them in
@@ -92,11 +97,14 @@ constexpr int kTailThreads = 512;   // TAIL_THREADS in ops/fused_cycle.py
 // (byte offsets: the block's own b1, residual and p at 0; a staged chunk is
 // the 16-byte-aligned cover of its bytes, cstride / rstride bytes apart; the
 // fine window's offsets at off_tab; the applies' gathered neighbour values,
-// n_off * c floats per group, at off_vb).
+// n_off * c floats per group, at off_vb).  stage_vecs, stage_x2, stage_vb:
+// 1 where the block's vectors, x2 and the gather buffer lie in shared
+// memory (the main paths' plans), 0 where they lie in global scratch.
 struct Plan {
     int blocks, sites, group, fine_group, row_parts, col_parts;
     int stage_coeffs, stage_rd, cstride, rstride;
     int off_coef, off_rd, off_x2, off_tab, off_vb, smem_bytes;
+    int stage_vecs, stage_x2, stage_vb;   // 0: in global scratch (gvec, x2, gvb)
 };
 
 struct TailParams {
@@ -124,13 +132,16 @@ struct TailParams {
     const float* res;
     float* out;                  // sub-cycle: x1 (n1); full: fine n
     // scratch: d (two), x (two), r1 (n1 each), the dense partials
-    // (blocks, n2), b2, x2 (n2 each)
+    // (blocks, n2), b2, x2 (n2 each); where the plan says so, each block's
+    // vectors (3 * sites * c) and gather buffer (T / group * n_off * c)
     float* D[2];
     float* X[2];
     float* R;
     float* part;
     float* b2;
     float* x2;
+    float* gvec;
+    float* gvb;
     Plan plan;
     // phase stamps (the stamped instance only)
     long long* stamps;
@@ -222,10 +233,13 @@ struct Tail {
     __device__ Tail(const TailParams& p_, Own w_, char* sm_)
         : p(p_), w(w_), sm(sm_) {
         const int n = p.plan.sites * p.c;
-        sB = reinterpret_cast<float*>(sm);
+        sB = p.plan.stage_vecs ? reinterpret_cast<float*>(sm)
+                               : p.gvec + (size_t)blockIdx.x * 3 * n;
         sR = sB + n;
         sP = sR + n;
-        sV = reinterpret_cast<float*>(sm + p.plan.off_vb);
+        sV = p.plan.stage_vb
+                 ? reinterpret_cast<float*>(sm + p.plan.off_vb)
+                 : p.gvb + (size_t)blockIdx.x * (blockDim.x / p.plan.group) * p.n_off * p.c;
     }
 
     // C[o, s0 + sl, e, 0] for o = 0, 1, ... in turn: the offsets' chunks
@@ -536,10 +550,15 @@ struct Tail {
         }
     }
 
-    // x1 -= R2^T x2 at own sites, x2 staged in shared memory first.
+    // x1 -= R2^T x2 at own sites, x2 staged in shared memory first (where
+    // the plan places it in global memory, read there).
     __device__ void prolong_coarse(float* x1) const {
-        float* sx2 = reinterpret_cast<float*>(sm + p.plan.off_x2);
-        for (int k = threadIdx.x; k < p.n2; k += blockDim.x) sx2[k] = p.x2[k];
+        const float* sx2 = p.x2;
+        if (p.plan.stage_x2) {
+            float* st = reinterpret_cast<float*>(sm + p.plan.off_x2);
+            for (int k = threadIdx.x; k < p.n2; k += blockDim.x) st[k] = p.x2[k];
+            sx2 = st;
+        }
         __syncthreads();
         const int c = p.c, ncol = w.ns * c;
         if (p.dense) {
@@ -753,10 +772,12 @@ int run_fused_tail(int weights_bf16, int full, int dense, const void* coeffs,
     q.stage_rd = plan[7]; q.cstride = plan[8]; q.rstride = plan[9];
     q.off_coef = plan[10]; q.off_rd = plan[11]; q.off_x2 = plan[12];
     q.off_tab = plan[13]; q.off_vb = plan[14]; q.smem_bytes = plan[15];
+    q.stage_vecs = plan[16]; q.stage_x2 = plan[17]; q.stage_vb = plan[18];
     // every block owns at least one site; lanes per output divide a warp
     const int lanes[4] = {q.group, q.fine_group, q.row_parts, q.col_parts};
     for (int G : lanes)
         if (G < 1 || G > 32 || (G & (G - 1))) return (int)cudaErrorInvalidValue;
+    if ((q.stage_vecs | q.stage_x2 | q.stage_vb) & ~1) return (int)cudaErrorInvalidValue;
     if (q.sites < 1 || q.blocks < 1 || (long long)(q.blocks - 1) * q.sites >= p.n_sites
         || (long long)q.blocks * q.sites < p.n_sites)
         return (int)cudaErrorInvalidValue;
@@ -769,7 +790,14 @@ int run_fused_tail(int weights_bf16, int full, int dense, const void* coeffs,
     p.R = s; s += p.n1;
     p.part = s; s += (size_t)q.blocks * p.n2;
     p.b2 = s; s += p.n2;
-    p.x2 = s;
+    p.x2 = s; s += p.n2;
+    // the blocks' vectors and gather buffers from 16-byte boundaries (the
+    // applies store float2 pairs)
+    const auto at16 = [&](float* t) { return scratch + (((size_t)(t - scratch) + 3) & ~(size_t)3); };
+    s = at16(s);
+    p.gvec = q.stage_vecs ? nullptr : s;
+    if (!q.stage_vecs) s = at16(s + (size_t)q.blocks * 3 * q.sites * p.c);
+    p.gvb = q.stage_vb ? nullptr : s;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t e = weights_bf16 ? launch_fused_tail<__nv_bfloat16, kStamp>(p, st)
                                  : launch_fused_tail<float, kStamp>(p, st);
@@ -785,9 +813,12 @@ extern "C" {
 //   l1   = {gz, gy, gx, c, n_off, degree, nss}, offs = n_off (dz, dy, dx)
 //   l2   = {n2, n2e, oz, oy, ox, wz, wy, wx, sz, sy, sx, tz0, ty0, tx0}
 //   fine = {nz, ny, nx, wz, wy, wx}
-//   plan = the 16 fields of Plan, in order (ops/fused_cycle.py tail_plan)
-// scratch holds 5 * n1 + (blocks + 2) * n2 floats; coeffs and Rd start on
-// 16 bytes.  Null pointers for the operands the mode and form do not use.
+//   plan = the 19 fields of Plan, in order (ops/fused_cycle.py tail_plan)
+// scratch holds 5 * n1 + (blocks + 2) * n2 floats, then, each from a
+// multiple of 4 floats and where the plan leaves them in global memory,
+// blocks * 3 * sites * c floats of the blocks' vectors and blocks * (512 /
+// group) * n_off * c of their gather buffers (ops/fused_cycle.py
+// scratch_floats); scratch, coeffs and Rd start on 16 bytes.  Null pointers for the operands the mode and form do not use.
 // Returns the first cudaError_t (0 on success).
 int mfmg_fused_tail(int weights_bf16, int full, int dense, const void* coeffs,
                     const float* invd, const float* coef, const void* Rd,

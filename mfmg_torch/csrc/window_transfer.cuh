@@ -1,7 +1,7 @@
 // Index arithmetic of the fine-level windowed transfer, shared by K4/K5
 // (structured_transfer.cu) and the full-mode coarse tail (fused_tail.cu);
-// window_restrict_rows is K4's, window_prolong_at, one fine point's gather,
-// the tail's (K5 owns its points by agglomerate rows instead).
+// window_prolong_at, one fine point's gather, is the tail's (K4 and K5 own
+// their sites and points by agglomerate rows instead).
 //
 // The fine grid (nz, ny, nx) is covered by the agglomerate grid (gz, gy, gx)
 // of windows w per axis at stride s = w - 1 (neighbouring windows share one
@@ -31,29 +31,6 @@ __device__ __forceinline__ float wload(const __nv_bfloat16* p, size_t i) {
 
 __device__ __forceinline__ int floor_div(int a, int b) {
     return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// Restriction of component e at agglomerate a over the window rows
-// r = tz * wy + ty in [r_begin, r_end) (all rows: [0, wz * wy)).
-template <typename T>
-__device__ __forceinline__ float window_restrict_rows(const T* __restrict__ W,
-                                                      const float* __restrict__ x,
-                                                      const FineWindows& g, int e,
-                                                      int a, int r_begin, int r_end) {
-    const int n_sites = g.gz * g.gy * g.gx;
-    const int ax = a % g.gx, u = a / g.gx, ay = u % g.gy, az = u / g.gy;
-    const float* x0 = x + ((size_t)(az * (g.wz - 1)) * g.ny + ay * (g.wy - 1)) * g.nx
-                        + ax * (g.wx - 1);
-    const size_t w0 = (size_t)e * g.wz * g.wy * g.wx * n_sites + a;
-    float acc = 0.f;
-    for (int r = r_begin; r < r_end; ++r) {
-        const int tz = r / g.wy, ty = r - tz * g.wy;
-        const float* xr = x0 + ((size_t)tz * g.ny + ty) * g.nx;
-        const size_t wr = w0 + (size_t)r * g.wx * n_sites;
-        for (int tx = 0; tx < g.wx; ++tx)
-            acc += wload(W, wr + (size_t)tx * n_sites) * __ldg(xr + tx);
-    }
-    return acc;
 }
 
 // Prolongation at fine point i (xc site-major): the <= 2 windows per axis

@@ -139,8 +139,10 @@ def build_fused_tail(levels, n_smoothing_steps: int = 1,
     """Pattern-match a 3-level tail (structured fine transfer + block-stencil
     L1 + Chebyshev + window transfer + direct coarse L2) and bake the fused
     operands on the levels' device (fused_cycle.py:492-614).  Returns None
-    when the structure does not fit, or the kernel's plan does not fit an
-    H100 block's shared memory (the generic recursion stays).
+    when the structure does not match, as the reference does (the generic
+    recursion stays); every tail that matches has a plan (``tail_plan``
+    places in global memory what an H100 block's shared memory does not
+    hold).
 
     reduced_storage: the level-1 coefficients, Rd / W2 and the fine W are
     stored in bfloat16; invd, inv2 and the Chebyshev coefficients stay in
@@ -196,21 +198,34 @@ def build_fused_tail(levels, n_smoothing_steps: int = 1,
         W = ftr.W.to(wdt)
         fine_window, fine_grid = ftr.window_shape, ftr.grid_shape
 
-    ft = FusedTail(op.coeffs.to(wdt), op.offsets, grid, c,
-                   sm.inv_diag.to(dtype), cheb_coef, sm.degree,
-                   n_smoothing_steps, inv2, Rd=Rd, W2=W2, win=win, W=W,
-                   fine_window=fine_window, fine_grid=fine_grid)
-    try:
-        plan_of(ft)                   # the kernel's shared memory must hold it
-    except ValueError:
-        return None
-    return ft
+    return FusedTail(op.coeffs.to(wdt), op.offsets, grid, c,
+                     sm.inv_diag.to(dtype), cheb_coef, sm.degree,
+                     n_smoothing_steps, inv2, Rd=Rd, W2=W2, win=win, W=W,
+                     fine_window=fine_window, fine_grid=fine_grid)
 
 
 # ------------------------------------------------------------ plain versions
 
 def fused_subcycle_apply_plain(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
-    """_subcycle_math (fused_cycle.py:289-350) on site-major vectors."""
+    """_subcycle_math (fused_cycle.py:289-350) on site-major vectors, in b1's
+    dtype."""
+    return _subcycle_math(ft, b1)
+
+
+def fused_subcycle_apply_plain64(ft: FusedTail, b1: torch.Tensor,
+                                 perturb=None) -> torch.Tensor:
+    """The plain version in float64, rounding to bf16 at exactly the points
+    the float32 one rounds (``_windowed_correction``: r1, b2, x2 and the
+    prolonged z/y sums, where the weights are bf16): the reference against
+    which a float32 kernel's distance is its own float32 error plus the
+    roundings that error flips.  ``perturb(point, v, mag)``, a measurement
+    hook, returns the value to round in place of v at each rounding point
+    ("r1", "b2", "x2", "zy"), mag being the sum of the magnitudes of the
+    terms that made v (the scale of a float32 sum's error)."""
+    return _subcycle_math(ft, b1.to(torch.float64), perturb)
+
+
+def _subcycle_math(ft: FusedTail, b1: torch.Tensor, perturb=None) -> torch.Tensor:
     dt = b1.dtype
     d = ft.degree
     coef = ft.cheb_coef.to(dt)
@@ -218,8 +233,8 @@ def fused_subcycle_apply_plain(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
     betas = [coef[d + i] for i in range(d)]
     invd = ft.invd.to(dt)
 
-    def apply_A(v):
-        return block_stencil_apply_coeffs(ft.coeffs, ft.offsets, ft.grid,
+    def apply_A(v, coeffs=ft.coeffs):
+        return block_stencil_apply_coeffs(coeffs, ft.offsets, ft.grid,
                                           ft.n_comp, v)
 
     def cheb_vmult(src):
@@ -246,30 +261,46 @@ def fused_subcycle_apply_plain(ft: FusedTail, b1: torch.Tensor) -> torch.Tensor:
         Rd = ft.Rd.to(dt)
         corr = (inv2 @ (Rd @ r1)) @ Rd
     else:
-        corr = _windowed_correction(ft, r1, inv2)
+        mag = None
+        if perturb is not None:
+            mag = apply_A(x1.abs(), ft.coeffs.abs()) + b1.abs()
+        corr = _windowed_correction(ft, r1, inv2, perturb, mag)
     x1 = x1 - corr
     for _ in range(ft.nss):
         x1 = smooth(x1)
     return x1
 
 
-def _windowed_correction(ft: FusedTail, r1, inv2):
+def _windowed_correction(ft: FusedTail, r1, inv2, perturb=None, r1_mag=None):
     """R2^T inv2 R2 r1 through the windowed weights W2.  With bf16 weights
     it rounds (to nearest even) where the reference's reduced tail rounds on
     the CPU, whose ``_match`` casts the data down when a bf16 0/1 selection
     matrix is the first matmul operand (fused_cycle.py:256, 268, 272, 285):
     r1, b2, x2, and the prolonged values once summed over the z and y
-    windows, before the x windows are added."""
+    windows, before the x windows are added.  ``perturb``: see
+    fused_subcycle_apply_plain64 (r1_mag, r1's magnitude, with it)."""
     dt = r1.dtype
     tr = ft.coarse_transfer(dt)
-    if ft.W2.dtype == torch.bfloat16:
-        def rnd(v):
-            return v.to(torch.bfloat16).to(dt)
-    else:
-        def rnd(v):
-            return v
-    x2 = rnd(inv2 @ rnd(tr.restrict(rnd(r1))))
-    return _gwt_prolong(tr, x2, between=rnd)
+    on = ft.W2.dtype == torch.bfloat16
+
+    def rnd(v):
+        return v.to(torch.bfloat16).to(dt) if on else v
+
+    if perturb is None:
+        x2 = rnd(inv2 @ rnd(tr.restrict(rnd(r1))))
+        return _gwt_prolong(tr, x2, between=rnd)
+    # the same, each value perturbed before its rounding; mag from the same
+    # sums over the terms' magnitudes
+    tabs = GeneralWindowTransfer(tr.W.abs(), tr.window_shape, tr.t0, tr.stride,
+                                 tr.in_grid, tr.out_grid, tr.n_in, tr.n_out)
+    r1 = rnd(perturb("r1", r1, r1_mag))
+    b2 = tr.restrict(r1)
+    b2 = rnd(perturb("b2", b2, tabs.restrict(r1.abs())))
+    x2 = inv2 @ b2
+    x2 = rnd(perturb("x2", x2, inv2.abs() @ b2.abs()))
+    mags = []
+    _gwt_prolong(tabs, x2.abs(), between=lambda m: mags.append(m) or m)
+    return _gwt_prolong(tr, x2, between=lambda v: rnd(perturb("zy", v, mags[0])))
 
 
 def fused_correction_apply_plain(ft: FusedTail, x: torch.Tensor,
@@ -296,7 +327,10 @@ class TailPlan(NamedTuple):
     and, where staged, the coefficient chunks (``cstride`` apart, one per
     offset) at ``off_coef`` and the Rd column chunks (``rstride`` apart,
     one per coarse row) at ``off_rd``; a chunk is the 16-byte-aligned cover
-    of its bytes."""
+    of its bytes.  ``stage_vecs``, ``stage_x2``, ``stage_vb``: 1 where the
+    block's own vectors, x2 and the gather buffer lie in shared memory (at
+    0, ``off_x2`` and ``off_vb``), 0 where they lie in global scratch
+    (``scratch_floats``)."""
     blocks: int
     sites: int
     group: int
@@ -313,6 +347,9 @@ class TailPlan(NamedTuple):
     off_tab: int
     off_vb: int
     smem_bytes: int
+    stage_vecs: int
+    stage_x2: int
+    stage_vb: int
 
 
 def _lanes(n_threads: int, n_items: int) -> int:
@@ -335,33 +372,56 @@ def tail_plan(grid, n_comp: int, n_off: int, n2: int, dense: bool,
     """Plan the tail's launch: the level-1 sites spread evenly over at most
     one block per SM (every SM takes part in the phases over the fine
     grid); lanes per output as many as the block's threads allow, at most a
-    warp; the block's coefficients, then its Rd columns, staged in shared
-    memory where they fit in an H100 block's.  ``table``: the entries of the
-    fine window (0 without one), whose offsets the kernel tabulates."""
+    warp; the block's vectors, x2 and the gather buffer in shared memory
+    where they fit in an H100 block's (more lanes per site, so fewer
+    groups, to fit the buffer), else, in that order, x2, the gather buffer
+    and the vectors in global scratch; then the block's coefficients and its
+    Rd columns staged in what is left.  ``table``: the entries of the fine
+    window (0 without one), whose offsets the kernel tabulates."""
     n_sites, c, T = int(np.prod(grid)), int(n_comp), TAIL_THREADS
     sites = -(-n_sites // n_sm)
     blocks = -(-n_sites // sites)
     sites = -(-n_sites // blocks)
     cstride = _r16(sites * c * c * weight_bytes) + 16
     rstride = _r16(sites * c * weight_bytes) + 16
-    off_x2 = _r16(3 * sites * c * 4)
-    off_tab = off_x2 + _r16(4 * n2)
-    off_vb = off_tab + _r16(4 * table)
-    group = _lanes(T, sites)
-    # the gather buffer must fit: more lanes per site (more passes) if not
-    while group < 32 and off_vb + 4 * (T // group) * n_off * c > H100_SMEM_PER_BLOCK:
-        group *= 2
-    off_coef = off_vb + _r16(4 * (T // group) * n_off * c)
-    if off_coef > H100_SMEM_PER_BLOCK:
-        raise ValueError(f"the tail's shared memory ({off_coef} bytes) exceeds "
-                         f"{H100_SMEM_PER_BLOCK} at c = {c}")
+
+    def vb_bytes(g):
+        return _r16(4 * (T // g) * n_off * c)
+
+    # (vectors, x2, gather buffer) in shared memory: all, then without x2,
+    # without the gather buffer, without the vectors
+    for stage_vecs, stage_x2, stage_vb in ((1, 1, 1), (1, 0, 1), (1, 0, 0), (0, 0, 0)):
+        off_x2 = stage_vecs * _r16(3 * sites * c * 4)
+        off_tab = off_x2 + stage_x2 * _r16(4 * n2)
+        off_vb = off_tab + _r16(4 * table)
+        group = _lanes(T, sites)
+        if stage_vb:
+            while group < 32 and off_vb + vb_bytes(group) > H100_SMEM_PER_BLOCK:
+                group *= 2
+        off_coef = off_vb + stage_vb * vb_bytes(group)
+        if off_coef <= H100_SMEM_PER_BLOCK:
+            break
     stage_coeffs = int(off_coef + n_off * cstride <= H100_SMEM_PER_BLOCK)
     off_rd = off_coef + stage_coeffs * n_off * cstride
     stage_rd = int(dense and off_rd + n2 * rstride <= H100_SMEM_PER_BLOCK)
     return TailPlan(blocks, sites, group, _lanes(T, sites * c),
                     _lanes(T, n2), _lanes(T, sites * c), stage_coeffs, stage_rd,
                     cstride, rstride, off_coef, off_rd, off_x2, off_tab, off_vb,
-                    off_rd + stage_rd * n2 * rstride)
+                    off_rd + stage_rd * n2 * rstride, stage_vecs, stage_x2, stage_vb)
+
+
+def scratch_floats(plan: TailPlan, n1: int, n2: int, n_comp: int,
+                   n_off: int) -> int:
+    """Floats of the kernel's global scratch: d (two), x (two) and r1 (n1
+    each), the dense partials (blocks x n2), b2 and x2, then, each from a
+    multiple of 4 floats, the blocks' vectors and gather buffers where the
+    plan leaves them in global memory."""
+    n = -(-(5 * n1 + (plan.blocks + 2) * n2) // 4) * 4
+    if not plan.stage_vecs:
+        n = -(-(n + plan.blocks * 3 * plan.sites * n_comp) // 4) * 4
+    if not plan.stage_vb:
+        n += plan.blocks * (TAIL_THREADS // plan.group) * n_off * n_comp
+    return n
 
 
 def plan_of(ft: FusedTail, n_sm: int = stencil_kernels.H100_SMS) -> TailPlan:
@@ -455,7 +515,8 @@ def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None,
                              f"fine grid {ft.fine_grid}")
         fine = list(ft.fine_grid) + list(ft.fine_window)
     plan = plan_of(ft, stencil_kernels._sm_count(out.device))
-    scratch = torch.empty(5 * ft.n1 + (plan.blocks + 2) * ft.n2,
+    scratch = torch.empty(scratch_floats(plan, ft.n1, ft.n2, ft.n_comp,
+                                         len(ft.offsets)),
                           dtype=torch.float32, device=out.device)
     ints = stencil_kernels._ints
     args = [int(ft.coeffs.dtype == torch.bfloat16), int(full), int(dense),

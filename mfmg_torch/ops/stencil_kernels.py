@@ -548,7 +548,7 @@ def _library():
         lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, i, i,
                                            vp]
         lib.mfmg_stencil_apply.restype = i
-        lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, vp]
+        lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, ip, vp]
         lib.mfmg_structured_restrict.restype = i
         lib.mfmg_structured_prolong.argtypes = [i, vp, vp, vp, ip, i, vp]
         lib.mfmg_structured_prolong.restype = i

@@ -8,7 +8,9 @@ output by far more than float32 roundoff.
 
 Builds the 129^3 main-path hierarchy on the card (chip_smoke.py's
 configuration; about 75 s of host setup) and, for the sub-cycle tail on
-the inputs of seeds 7-11 (chip_smoke.py holds seed 7 to TAIL_TOL), prints
+the inputs of seeds 7-11 (chip_smoke.py holds them to the float64 plain
+version with the same rounding points, tests/_torch_tails.py
+rounding_limit), prints
 the plain version's own float32-against-float64 gap (its sensitivity to
 such flips), this tree's kernel and the parent's kernel (built from DIR,
 as scripts/tail_phases.py --parent-csrc does) against the plain version,

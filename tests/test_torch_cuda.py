@@ -25,9 +25,10 @@ tail 1e-5 relative (2-norm), the bound tests/test_fused_cycle.py holds the
 reference's kernel to: float sums over the same operands in another order.
 The windowed random tails' coarse correction is ~0.13% of their output
 (a hierarchy's 4-69%, scripts/tail_share.py), so a bf16 rounding of that
-form that flips under the other order stays at roundoff there; the same
-flip moves the 129^3 hierarchy's output by up to 2.2e-4
-(scripts/tail_rounding.py).
+form that flips under the other order stays at roundoff there; the tails
+whose correction is a hierarchy-like share (HIERARCHY_INV2_SCALE) are held
+instead to the float64 plain version with the same rounding points, under
+the limit _torch_tails.rounding_limit measures on each input.
 """
 
 import copy
@@ -39,6 +40,7 @@ import torch
 
 import mfmg_torch.config as tcfg
 from _torch_stencils import cube_offsets, symmetrize
+import _torch_tails as tt
 from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import Hierarchy, LaplaceProblem
 from mfmg_torch.amge.hierarchy import LevelData
@@ -335,6 +337,99 @@ def test_k4_k5_match_plain(cuda, shape, bf16):
     assert _rel(py, ttk.structured_prolong_plain(W, xc, *g)) <= 1e-5
     lhs, rhs = float(torch.dot(rx, xc)), float(torch.dot(x, py))
     assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(rx) * torch.linalg.norm(xc))
+
+
+# K4 at the geometries of its plans (ops/transfer_kernels.py restrict_plan;
+# the CPU model tests/test_torch_kernel_plans.py holds the same ones): the
+# 129^3 shape (blocks marching over 4 slabs with float32 W, one slab with
+# bf16) and the distorted-Q2 shape, a gx no multiple of 4
+# (the scalar path), uneven gy (a plan for 1 SM, which puts 6 agglomerate
+# rows in a block over 7), marching with ragged runs in y and z (a plan for
+# 2 SMs, 3 slabs per block over 7), rows of 12 agglomerates (a plan for 1
+# SM: 3 copies of W per row, the copy loop without a fixed lane per chunk),
+# c = 1, 3, 4 and 5 (scalar); (window, agglomerates, c, SMs of the plan or
+# None for the card's own, slabs per block or None for the plan's rule)
+K4_CASES = {
+    "129^3": ((5, 5, 5), (32, 32, 32), 2, None, None),
+    "distorted-Q2": ((9, 9, 9), (8, 8, 8), 2, None, None),
+    "ragged-gx": ((5, 5, 5), (3, 4, 5), 2, None, None),
+    "uneven-gy": ((3, 3, 3), (3, 7, 8), 2, 1, None),
+    "march-ragged": ((5, 5, 5), (7, 4, 8), 2, 2, 3),
+    "three-chunks": ((3, 3, 3), (2, 3, 12), 2, 1, None),
+    "c1": ((5, 5, 5), (2, 3, 8), 1, None, None),
+    "c3": ((3, 4, 5), (2, 5, 4), 3, None, None),
+    "c4": ((9, 9, 9), (2, 2, 4), 4, None, None),
+    "c5-scalar": ((3, 3, 3), (4, 3, 6), 5, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_k4_matches_plain_at_its_plans(cuda, case, bf16):
+    """K4 against its plain version, one launch per call, two launches with
+    the same bits (every sum in a fixed order, no atomics)."""
+    ws, agg, c, n_sm, nzc = K4_CASES[case]
+    grid = tuple(a * (w - 1) + 1 for a, w in zip(agg, ws))
+    rng = np.random.default_rng(8)
+    W = torch.from_numpy(rng.standard_normal((c,) + ws + agg).astype(np.float32)).to(cuda)
+    if bf16:
+        W = W.to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal(int(np.prod(grid))).astype(np.float32)).to(cuda)
+    g = (ws, agg, grid)
+    if n_sm is None:
+        run = lambda: ttk.structured_restrict(W, x, *g)          # noqa: E731
+    else:
+        plan = ttk.restrict_plan(ws, agg, c, ttk.restrict_vec(W, c, agg[2]),
+                                 W.element_size(), n_sm, nzc)
+        assert {"uneven-gy": plan.nay == 6, "march-ragged": plan.nzc == 3,
+                "three-chunks": plan.nax == 12}[case]
+        run = lambda: ttk._restrict_with_plan(plan, W, x, *g)    # noqa: E731
+    before = tk.LAUNCHES["structured_restrict"]
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["structured_restrict"] == before + 2
+    assert torch.equal(first, second)
+    assert _rel(first, ttk.structured_restrict_plain(W, x, *g)) <= 1e-5
+
+
+def test_overflowing_tail_runs_the_kernel(cuda):
+    """A tail whose block vectors and x2 do not fit an H100 block's shared
+    memory (64^3 level-1 sites, c = 8, 16,384 coarse rows): the builder
+    gives its levels a tail, the plan places x2 in global scratch, and the
+    kernel matches its plain version and repeats its bits."""
+    ft0 = random_tail(**tt.OVERFLOW_TAIL, device=cuda)
+    levels = tt.levels_of_tail(ft0)
+    levels[0].fused = tfc.build_fused_tail(levels, 1, reduced_storage=True)
+    ft = levels[0].fused
+    del ft0
+    assert ft is not None and ft.n2 == 16384
+    p = tfc.plan_of(ft, tk._sm_count(cuda))
+    assert (p.stage_vecs, p.stage_x2, p.stage_vb) == (1, 0, 1)
+    b1 = torch.from_numpy(np.random.default_rng(9).standard_normal(ft.n1)
+                          .astype(np.float32)).to(cuda)
+    before = tk.LAUNCHES["fused_tail"]
+    got, again = tfc.fused_subcycle_apply(ft, b1), tfc.fused_subcycle_apply(ft, b1)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["fused_tail"] == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, tfc.fused_subcycle_apply_plain(ft, b1)) <= TAIL_TOL
+
+
+@pytest.mark.parametrize("grid", [(32, 32, 32), (13, 17, 11)], ids=["32^3", "13x17x11"])
+def test_windowed_bf16_tail_within_its_rounding_limit(cuda, grid):
+    """Windowed bf16 random tails whose coarse correction is a hierarchy-like
+    share of their output (>= 50%; the 129^3 shape and a ragged grid), on
+    seeds 7-11, all five: the kernel within the rounding check's limit of
+    the float64 plain version with the same rounding points
+    (_torch_tails.rounding_limit)."""
+    ft = random_tail(grid, dense=False, inv2_scale=tt.HIERARCHY_INV2_SCALE, device=cuda)
+    for seed in (7, 8, 9, 10, 11):
+        b1 = torch.from_numpy(np.random.default_rng(seed).standard_normal(ft.n1)
+                              .astype(np.float32)).to(cuda)
+        assert tt.correction_share(ft, b1) >= 0.5
+        ref, limit, _ = tt.rounding_limit(ft, b1)
+        got = tfc.fused_subcycle_apply(ft, b1)
+        assert tt.rel_inf(got, ref) <= limit
 
 
 def test_q2_hierarchy_runs_its_kernels(cuda):

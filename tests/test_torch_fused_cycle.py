@@ -14,6 +14,7 @@ sums here); observed differences are ~1e-7.  The two wider bounds
 (BF16_ROUNDING_GAP, BF16_STORAGE_GAP) give their reasons beside them.
 """
 
+import copy
 import dataclasses
 import functools
 
@@ -36,6 +37,7 @@ from mfmg_torch.ops import fused_cycle as tfc
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
 
+import _torch_tails as tt
 from _torch_carry import flatten_levels, main_path_config
 
 TOL = 1e-5
@@ -355,3 +357,86 @@ def test_float64_hierarchy_takes_the_generic_recursion_in_both():
     th.device = torch.device("cuda")
     th._finalize_cuda_kernels()
     assert th.levels[0].fused is None and th.levels[0].smoother is sm
+
+
+def test_tail_smaller_than_shared_memory_is_still_built(monkeypatch):
+    """build_fused_tail gives every matching structure its tail: where an
+    H100 block's shared memory (shrunk here to 520 bytes) holds neither the
+    block's vectors, x2 nor the gather buffer, the plan places them in
+    global scratch, and the tail is built as before."""
+    _, tl = _built(4)
+    ref = tfc.build_fused_tail(tl, 1, reduced_storage=True)
+    # the fine window's 125 offsets (512 bytes) stay; nothing else fits
+    monkeypatch.setattr(tfc, "H100_SMEM_PER_BLOCK", 520)
+    tfc.tail_plan.cache_clear()
+    try:
+        ft = tfc.build_fused_tail(tl, 1, reduced_storage=True)
+        assert ft is not None
+        p = tfc.plan_of(ft)
+        assert (p.stage_vecs, p.stage_x2, p.stage_vb) == (0, 0, 0)
+        assert p.smem_bytes == 512
+    finally:
+        tfc.tail_plan.cache_clear()
+    b1 = torch.from_numpy(_vec(ft.n1, 15))
+    assert torch.equal(tfc.fused_subcycle_apply(ft, b1),
+                       tfc.fused_subcycle_apply(ref, b1))
+
+
+# ------------------------------------------- the windowed bf16 tail's check
+
+def _hierarchy_like_tail(grid):
+    """A windowed bf16 random tail whose coarse correction is a hierarchy-
+    like share of its output (_torch_tails.HIERARCHY_INV2_SCALE)."""
+    return tt.random_tail(grid, dense=False, inv2_scale=tt.HIERARCHY_INV2_SCALE)
+
+
+def test_plain64_rounds_where_the_plain_version_rounds():
+    """fused_subcycle_apply_plain64 is the plain version's arithmetic in
+    float64 with the same four bf16 rounding points: equal bit for bit to
+    the plain version on float64 input, unchanged by an identity
+    perturbation, and moved by more than a 1e-3 of its largest output
+    without those roundings (the same bf16 weights held in float64)."""
+    ft = _hierarchy_like_tail((12, 12, 12))
+    b1 = torch.from_numpy(_vec(ft.n1, 7))
+    ref = tfc.fused_subcycle_apply_plain64(ft, b1)
+    assert ref.dtype == torch.float64
+    assert torch.equal(ref, tfc.fused_subcycle_apply_plain(ft, b1.double()))
+    assert torch.equal(ref, tfc.fused_subcycle_apply_plain64(
+        ft, b1, lambda point, v, mag: v))
+    unrounded = copy.deepcopy(ft)
+    unrounded.W2 = ft.W2.double()
+    assert tt.rel_inf(tfc.fused_subcycle_apply_plain64(unrounded, b1), ref) > 1e-3
+
+
+@pytest.mark.parametrize("grid", [(12, 12, 12), (16, 16, 16)], ids=["12^3", "16^3"])
+def test_rounding_check_holds_the_float32_plain_version(grid):
+    """On hierarchy-like windowed bf16 tails (coarse share >= 50%) and on
+    seeds 7-11, all five, the float32 plain version lies within the check's
+    limit of the float64 one, and the limit is a few bf16 ulps of the
+    output, not more (ROUNDING_MARGIN x the largest reading <= 2.5e-2)."""
+    ft = _hierarchy_like_tail(grid)
+    for seed in (7, 8, 9, 10, 11):
+        b1 = torch.from_numpy(_vec(ft.n1, seed))
+        assert tt.correction_share(ft, b1) >= 0.5
+        ref, limit, readings = tt.rounding_limit(ft, b1)
+        assert tt.rel_inf(tfc.fused_subcycle_apply_plain(ft, b1), ref) <= limit
+        assert limit <= tt.TAIL_TOL + tt.ROUNDING_MARGIN * 2.0 ** -7
+
+
+def test_rounding_check_fails_on_an_indexing_error():
+    """The same check refuses an output with one wrong site (the largest
+    output replaced by its neighbour site's value) and one computed with the
+    level-1 -> 2 windows one site off (t0 shifted by one)."""
+    ft = _hierarchy_like_tail((12, 12, 12))
+    b1 = torch.from_numpy(_vec(ft.n1, 7))
+    ref, limit, _ = tt.rounding_limit(ft, b1)
+    c = ft.n_comp
+    i = int(ref.abs().argmax())
+    j = i + c if i + c < ref.numel() else i - c
+    wrong_site = ref.clone()
+    wrong_site[i] = ref[j]
+    assert tt.rel_inf(wrong_site, ref) > limit
+    shifted = copy.deepcopy(ft)
+    shifted.win = dict(ft.win, t0=tuple(t + 1 for t in ft.win["t0"]))
+    off = tfc.fused_subcycle_apply_plain(shifted, b1)
+    assert tt.rel_inf(off, ref) > limit

@@ -1,11 +1,20 @@
-"""The decompositions of K2's blocked form, of K5, of K1/K3's tiles and of
-the fused coarse tail, modelled on the CPU.
+"""The decompositions of K2's blocked form, of K4, of K5, of K1/K3's tiles
+and of the fused coarse tail, modelled on the CPU.
 
 The CUDA kernels (mfmg_torch/csrc/cheb_smooth.cu, structured_transfer.cu,
 stencil_apply.cu, fused_tail.cu) run only on the card; these plain models
 follow their index arithmetic block by block, so that the tiling and
 ownership logic is checked where there is no GPU:
 
+* K4 (R x) after ``restrict_plan``: blocks own runs of agglomerates and
+  march over z-slabs; slab k+1's x planes (into a ring of planes) and W
+  tile (into the other of two tiles) are copied before slab k is summed,
+  both NaN until copied, so a slot overwritten while still read shows;
+  every W entry is copied and read once, every output written once, the
+  window rows summed over red_lanes lanes and a butterfly.  Held against
+  ``structured_restrict_plain`` in float64 at the 129^3 shape (f32 and
+  bf16 W), the distorted-Q2 shape, a ragged gx, uneven gy, ragged
+  marching and c = 1-5.
 * K5 (y = R^T xc) owner computes: a block owns one fine z plane and one
   agglomerate row ay; every fine point takes its own window's term and, on
   each axis where its local offset t is 0, the t = s term of the lower
@@ -45,8 +54,9 @@ ownership logic is checked where there is no GPU:
   ragged level-1 grids, dense and windowed, f32 and bf16 weights, degree
   1-3, one and two smoothing steps.
 
-Tolerances: the models sum the same float64 (K2) or float32 (K5) products
-as the plain versions in another order: 1e-12 relative for K2 in float64,
+Tolerances: the models sum the same float64 (K2, K4) or float32 (K5)
+products as the plain versions in another order: 1e-12 relative for K2
+and K4 in float64,
 1e-6 relative (2-norm) for K5 in float32 (observed ~1e-7).  The tail model
 runs in float64 against the plain versions in float64 and is held to
 chip_smoke.py's TAIL_TOL, 1e-5 relative (2-norm) (observed ~1e-15: the
@@ -67,7 +77,7 @@ from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops import transfer_kernels as ttk
 
-K2_TOL, K5_TOL, TAIL_TOL = 1e-12, 1e-6, 1e-5
+K2_TOL, K4_TOL, K5_TOL, TAIL_TOL = 1e-12, 1e-12, 1e-6, 1e-5
 
 
 def _rel(a, b):
@@ -127,6 +137,182 @@ def test_k5_owner_model_matches_plain(window, agg, bf16):
     got = prolong_owner_model(W, xc, ws, agg, grid)
     assert not torch.isnan(got).any(), "a fine point has no owner"
     assert _rel(got, ttk.structured_prolong_plain(W, xc, ws, agg, grid)) <= K5_TOL
+
+
+# ------------------------------------------------------------------ K4
+
+def restrict_block_model(W, x, window_shape, agg_shape, grid_shape, plan):
+    """K4 as restrict_plan's blocks run it, in float64.  Block (az0, ay0,
+    ax0) marches over its slabs: before it sums slab k it starts the copies
+    of slab k + 1 -- the x planes it does not share with slab k into a ring
+    of planes (NaN-initialised, the kernel's split-by-phase layout) and its W
+    tile rows into the other of two tiles (NaN-initialised) -- so a slot or
+    tile that is overwritten while still read gives a wrong or NaN output.
+    Its items (one window row of V sites, every component) write partial
+    sums into part[r][ayl, axl, e] (NaN until written), and red_lanes lanes
+    per output add them (each lane its rows in increasing r, then the
+    butterfly).  Checks that the copies stay inside the grid and inside
+    their part of shared memory, that every W entry is copied once and read
+    once, and every output written once."""
+    (wz, wy, wx), (gz, gy, gx), (nz, ny, nx) = window_shape, agg_shape, grid_shape
+    sz, sy, sx = wz - 1, wy - 1, wx - 1
+    c, V = W.shape[0], 4 if plan.vec else 1
+    Wf, xg = W.to(torch.float64), x.to(torch.float64).reshape(nz, ny, nx)
+    Wt = Wf.reshape(c * wz * wy * wx, gz, gy, gx)     # W[t, az, ay, ax]
+    nzb, nyc, nxc = -(-gz // plan.nzc), -(-gy // plan.nay), -(-gx // plan.nax)
+    assert plan.blocks == nzb * nyc * nxc
+    ks, rs = plan.nax + 1, plan.rowstride
+    ps, R = (plan.nay * sy + 1) * rs, wz * wy
+    P = plan.nay * plan.nax * c
+    nring = wz + sz if plan.nzc > 1 else wz
+    wb = W.element_size()
+    assert rs % 2 == 1 and rs >= sx * ks and plan.off_w >= 4 * nring * ps
+    assert plan.wtile >= wb * c * R * wx * plan.nay * plan.nax
+    assert plan.off_part >= plan.off_w + 2 * plan.wtile
+    assert plan.smem_bytes >= plan.off_part + 4 * R * P
+    assert plan.smem_bytes <= ttk.RESTRICT_MAX_SMEM
+    assert plan.threads % 32 == 0 and plan.threads <= ttk.RESTRICT_MAX_THREADS
+    copied = torch.zeros(Wt.shape, dtype=torch.int64)
+    writes = torch.zeros(gz * gy * gx * c, dtype=torch.int64)
+    out = torch.full((gz * gy * gx * c,), float("nan"), dtype=torch.float64)
+    for blk in range(plan.blocks):
+        bx, u = blk % nxc, blk // nxc
+        by, bz = u % nyc, u // nyc
+        az0, ay0, ax0 = bz * plan.nzc, by * plan.nay, bx * plan.nax
+        nzk = min(plan.nzc, gz - az0)
+        nay, nax = min(plan.nay, gy - ay0), min(plan.nax, gx - ax0)
+        ring = torch.full((nring * ps,), float("nan"), dtype=torch.float64)
+        tiles = [torch.full((c * R * wx * plan.nay * plan.nax,), float("nan"),
+                            dtype=torch.float64) for _ in range(2)]
+        tile_reads = [torch.zeros(t.shape, dtype=torch.int64) for t in tiles]
+
+        def copy_slab(k, first):
+            az = az0 + k
+            # x: items (plane, row, k), each its sx columns
+            pl, row, kk = torch.meshgrid(torch.arange(first, wz),
+                                         torch.arange(nay * sy + 1),
+                                         torch.arange(nax + 1), indexing="ij")
+            for q in range(sx):
+                ok = kk * sx + q < nax * sx + 1
+                iz, iy, ix = az * sz + pl[ok], ay0 * sy + row[ok], ax0 * sx + kk[ok] * sx + q
+                assert int(iz.max()) < nz and int(iy.max()) < ny and int(ix.max()) < nx
+                dst = ((k * sz + pl[ok]) % nring) * ps + row[ok] * rs + q * ks + kk[ok]
+                assert int(dst.max()) < nring * ps
+                ring[dst] = xg[iz, iy, ix]
+            # W: tile rows (t, ayl) of nax agglomerates
+            t, ayl, a = torch.meshgrid(torch.arange(Wt.shape[0]), torch.arange(nay),
+                                       torch.arange(nax), indexing="ij")
+            tiles[k % 2][((t * plan.nay + ayl) * plan.nax + a).reshape(-1)] = \
+                Wt[t, az, ay0 + ayl, ax0 + a].reshape(-1)
+            tile_reads[k % 2].zero_()
+            copied[t, az, ay0 + ayl, ax0 + a] += 1
+
+        copy_slab(0, 0)
+        for k in range(nzk):
+            if k + 1 < nzk:
+                copy_slab(k + 1, 1)
+            az = az0 + k
+            part = torch.full((R * P,), float("nan"), dtype=torch.float64)
+            nv = nax // V
+            it = torch.arange(nay * nv * R)
+            v, r, ayl = it % nv, (it // nv) % R, it // (nv * R)
+            tz, ty = r // wy, r % wy
+            for i in range(V):
+                axl = v * V + i
+                for e in range(c):
+                    acc = torch.zeros(it.numel(), dtype=torch.float64)
+                    for tx in range(wx):
+                        q, kk = (tx, axl) if tx < sx else (0, axl + 1)
+                        xv = ring[((k * sz + tz) % nring) * ps + (ayl * sy + ty) * rs
+                                  + q * ks + kk]
+                        wi = (((e * R + r) * wx + tx) * plan.nay + ayl) * plan.nax + axl
+                        acc = acc + tiles[k % 2][wi] * xv
+                        tile_reads[k % 2][wi] += 1
+                    part[r * P + (ayl * plan.nax + axl) * c + e] = acc
+            used = tile_reads[k % 2]
+            assert bool((used[used > 0] == 1).all()), "a tile entry read twice"
+            j = torch.arange(nay * nax * c)
+            jay, m = j // (nax * c), j % (nax * c)
+            rows = torch.stack([part[rr * P + jay * plan.nax * c + m] for rr in range(R)])
+            acc = _split_sum(rows, plan.red_lanes)
+            dst = ((az * gy + ay0 + jay) * gx + ax0) * c + m
+            out[dst] = acc
+            writes[dst] += 1
+    assert bool((copied == 1).all()), "a weight copied other than once"
+    assert bool((writes == 1).all()), "an output written other than once"
+    return out
+
+
+# (window, agglomerates, c, vec, SMs, weight bytes): the 129^3 shape
+# (marching over 4 slabs per block with float32 W, one slab with bf16) and
+# the distorted-Q2 shape on 132 SMs; a ragged gx
+# (scalar path); uneven gy (runs of 6 rows over 7, on a card of 1 SM so
+# that rows are added); marching with ragged runs in y and z; rows of 12
+# agglomerates (3 copies of W per row); c = 1..5 (5: scalar)
+K4_MODEL_CASES = {
+    "129^3-5^3-32^3": ((5, 5, 5), (32, 32, 32), 2, True, tk.H100_SMS, 4),
+    "129^3-5^3-32^3-bf16": ((5, 5, 5), (32, 32, 32), 2, True, tk.H100_SMS, 2),
+    "Q2-9^3-8^3": ((9, 9, 9), (8, 8, 8), 2, True, tk.H100_SMS, 4),
+    "ragged-gx-5": ((5, 5, 5), (3, 4, 5), 2, False, tk.H100_SMS, 4),
+    "uneven-gy": ((3, 3, 3), (3, 7, 8), 2, True, 1, 4),
+    "march-ragged": ((5, 5, 5), (7, 4, 8), 2, True, 2, 4),
+    "three-chunks": ((3, 3, 3), (2, 3, 12), 2, True, 1, 4),
+    "c1": ((5, 5, 5), (2, 3, 8), 1, True, 8, 4),
+    "c3": ((3, 4, 5), (2, 5, 4), 3, True, 8, 4),
+    "c4": ((9, 9, 9), (2, 2, 4), 4, True, tk.H100_SMS, 4),
+    "c5-scalar": ((3, 3, 3), (4, 3, 6), 5, False, 8, 4),
+    "c4-scalar-ragged": ((5, 3, 4), (3, 5, 7), 4, False, 8, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_MODEL_CASES))
+def test_k4_block_model_matches_plain(case):
+    ws, agg, c, vec, n_sm, wb = K4_MODEL_CASES[case]
+    grid = tuple(a * (w - 1) + 1 for a, w in zip(agg, ws))
+    plan = ttk.restrict_plan(ws, agg, c, vec, wb, n_sm)
+    if case == "uneven-gy":
+        assert plan.nay == 6
+    assert plan.nzc == (4 if case == "129^3-5^3-32^3" else 3 if case == "march-ragged"
+                        else 1)
+    if case == "march-ragged":
+        assert agg[0] % plan.nzc
+    if case == "march-ragged":
+        assert agg[1] % plan.nay
+    rng = np.random.default_rng(0)
+    W = torch.from_numpy(rng.standard_normal((c,) + ws + agg)).to(
+        torch.bfloat16 if wb == 2 else torch.float32)
+    x = torch.from_numpy(rng.standard_normal(int(np.prod(grid))))
+    got = restrict_block_model(W, x, ws, agg, grid, plan)
+    assert not torch.isnan(got).any(), "an output read a value no one wrote"
+    ref = ttk.structured_restrict_plain(W.double(), x, ws, agg, grid)
+    assert _rel(got, ref) <= K4_TOL
+
+
+def test_k4_plan_at_the_main_shapes():
+    """Both main shapes fill the card: at 129^3 (32^3 agglomerates of 5^3
+    windows) a row of 32 per block, 224 threads (200 items: 8 groups of 4
+    sites x 25 window rows), 2 lanes per output's final sum, marching over 4
+    slabs with float32 W (256 blocks of 92 KB, two per SM, all resident; one
+    slab each would take 3.9 waves) and one slab with bf16 (1,024 blocks of
+    51 KB, four per SM, 1.9 waves); on the distorted Q2
+    cube (8^3 of 9^3) half rows of 4, one slab, 128 blocks of 96 threads (81
+    items), as many as its runs of 4 give, 8 lanes per output; the ring's
+    row stride odd; everything within an H100 block's shared memory."""
+    f32 = ttk.restrict_plan((5,) * 3, (32,) * 3, 2, True, 4)
+    bf = ttk.restrict_plan((5,) * 3, (32,) * 3, 2, True, 2)
+    q = ttk.restrict_plan((9,) * 3, (8,) * 3, 2, True, 4)
+    fields = ("nay", "nax", "nzc", "vec", "threads", "red_lanes", "blocks")
+    assert tuple(getattr(f32, k) for k in fields) == (1, 32, 4, 1, 224, 2, 256)
+    assert tuple(getattr(bf, k) for k in fields) == (1, 32, 1, 1, 224, 2, 1024)
+    assert tuple(getattr(q, k) for k in fields) == (1, 4, 1, 1, 96, 8, 128)
+    assert f32.blocks <= 2 * tk.H100_SMS
+    assert 2 * (f32.smem_bytes + 1024) <= ttk.H100_SMEM_PER_SM
+    assert 4 * (bf.smem_bytes + 1024) <= ttk.H100_SMEM_PER_SM
+    assert bf.blocks <= ttk.RESTRICT_MAX_WAVES * 4 * tk.H100_SMS
+    for plan in (f32, bf, q):
+        assert plan.rowstride % 2 == 1 and plan.smem_bytes <= ttk.RESTRICT_MAX_SMEM
+    with pytest.raises(ValueError, match="gx % 4"):
+        ttk.restrict_plan((5,) * 3, (3, 4, 5), 2, True)
 
 
 # ------------------------------------------------------------------ K2
@@ -772,13 +958,32 @@ def test_tail_plan_at_the_main_shapes():
     p129 = fc.tail_plan((32,) * 3, 2, 27, 2048, False, 2)
     assert (p129.blocks, p129.sites) == (132, 249)
     assert 32 ** 3 - 131 * 249 == 149
+    # the main shapes keep the all-shared plan of the kernel's design, field
+    # for field (the plans before global placement existed, recorded)
+    before = {
+        ((16,) * 3, 256, True, 2, 125): (128, 32, 16, 8, 2, 8, 1, 1, 272, 144, 9216,
+                                         16560, 768, 1792, 2304, 53424),
+        ((16,) * 3, 256, True, 4, 125): (128, 32, 16, 8, 2, 8, 1, 1, 528, 272, 9216,
+                                         23472, 768, 1792, 2304, 93104),
+        ((32,) * 3, 2048, False, 2, 0): (132, 249, 2, 1, 1, 1, 1, 0, 2016, 1024,
+                                         69472, 123904, 5984, 14176, 14176, 123904),
+        ((32,) * 3, 2048, False, 4, 0): (132, 249, 2, 1, 1, 1, 1, 0, 4000, 2016,
+                                         69472, 177472, 5984, 14176, 14176, 177472),
+        ((8,) * 3, 32, True, 2, 729): (128, 4, 32, 32, 16, 32, 1, 1, 48, 32, 6608,
+                                       7904, 96, 224, 3152, 8928),
+        ((8,) * 3, 32, True, 4, 729): (128, 4, 32, 32, 16, 32, 1, 1, 80, 48, 6608,
+                                       8768, 96, 224, 3152, 10304),
+    }
+    for (grid, n2, dense, wb, table), fields in before.items():
+        assert tuple(fc.tail_plan(grid, 2, 27, n2, dense, wb, table)) == fields + (1, 1, 1)
     # beyond the card's shared memory the weights stay in global memory;
-    # where not even the block's own vectors fit, there is no plan (and
-    # build_fused_tail leaves the generic recursion)
+    # where not even the block's own vectors, x2 and gather buffer fit, the
+    # plan places them in global scratch (test_tail_plan_places_in_global_memory)
     big = fc.tail_plan((64,) * 3, 2, 27, 16384, False, 4)
     assert not big.stage_coeffs and big.smem_bytes <= fc.H100_SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        fc.tail_plan((64,) * 3, 8, 27, 16384, False, 4)
+    over = fc.tail_plan((64,) * 3, 8, 27, 16384, False, 4)
+    assert (over.stage_vecs, over.stage_x2, over.stage_vb) == (1, 0, 1)
+    assert over.smem_bytes <= fc.H100_SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("case", list(UNSTAGED_TAILS))
@@ -804,3 +1009,49 @@ def test_tail_plan_leaves_what_does_not_fit(case):
         assert p.off_rd + rd_bytes > fc.H100_SMEM_PER_BLOCK
     assert p.smem_bytes == (p.off_rd + p.stage_rd * rd_bytes
                             if ft.Rd is not None else p.off_rd)
+
+
+# (level-1 grid, c, n2): what the plan leaves in global memory, in order:
+# x2 (64^3 level-1 sites at c = 8, a 257^3 fine grid: the vectors 190,656
+# bytes and x2 65,536 do not fit beside each other), then the gather buffer
+# (66 x 66 x 70 sites: vectors 221,760 bytes), then the vectors (80^3)
+PLACEMENTS = {
+    "64^3-c8": ((64, 64, 64), 8, 16384, (1, 0, 1)),
+    "66x66x70-c8": ((66, 66, 70), 8, 16384, (1, 0, 0)),
+    "80^3-c8": ((80, 80, 80), 8, 16384, (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLACEMENTS))
+@pytest.mark.parametrize("wb", [2, 4], ids=["bf16", "f32"])
+def test_tail_plan_places_in_global_memory(case, wb):
+    """Tails whose block vectors, x2 or gather buffer overflow an H100
+    block's shared memory get a plan (build_fused_tail no longer gives them
+    to the generic recursion): what does not fit lies in global scratch,
+    what stays in shared memory is laid out as before within 227 KB, every
+    site owned once, and the scratch holds the blocks' vectors and gather
+    buffers from 16-byte boundaries."""
+    grid, c, n2, placed = PLACEMENTS[case]
+    p = fc.tail_plan(grid, c, 27, n2, False, wb)
+    assert (p.stage_vecs, p.stage_x2, p.stage_vb) == placed
+    assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK and not p.stage_coeffs
+    n_sites = int(np.prod(grid))
+    assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
+    vec = -(-3 * p.sites * c * 4 // 16) * 16
+    vb = -(-4 * (fc.TAIL_THREADS // p.group) * 27 * c // 16) * 16
+    assert p.off_x2 == p.stage_vecs * vec
+    assert p.off_tab == p.off_x2 + p.stage_x2 * 4 * n2
+    assert p.off_coef == p.off_vb + p.stage_vb * vb
+    # the placement before this one would not have fit
+    if p.stage_vecs and not p.stage_x2 and p.stage_vb:
+        assert vec + 4 * n2 + vb > fc.H100_SMEM_PER_BLOCK
+    if not p.stage_vb:
+        assert vec + -(-4 * 16 * 27 * c // 16) * 16 > fc.H100_SMEM_PER_BLOCK
+    n1 = n_sites * c
+    base = -(-(5 * n1 + (p.blocks + 2) * n2) // 4) * 4
+    want = base
+    if not p.stage_vecs:
+        want = -(-(want + p.blocks * 3 * p.sites * c) // 4) * 4
+    if not p.stage_vb:
+        want += p.blocks * (fc.TAIL_THREADS // p.group) * 27 * c
+    assert fc.scratch_floats(p, n1, n2, c, 27) == want
