@@ -5,7 +5,9 @@
 Phases (any failed check or exception exits non-zero before the last line;
 each phase prints its wall time):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
- 2. build the CUDA kernels from mfmg_torch/csrc (nvcc, sm_90a), timed;
+ 2. build the CUDA kernels from mfmg_torch/csrc (nvcc, sm_90a) and, beside
+    them, the host library from mfmg_torch/csrc/host (g++), timed, with the
+    host library's threads per call;
  3. kernels against their plain PyTorch versions at the 65^3 main-path
     shapes: K1 (bf16 and f32 planes) and K2 (with and without the residual;
     its two forms, blocked and chain, timed in turns), with the
@@ -22,10 +24,16 @@ each phase prints its wall time):
     same bf16 rounding points, under the limit the rounding check measures
     on each input (tests/_torch_tails.py rounding_limit);
  4. a small-input reference: the 17^3 main-path hierarchy on the GPU against
-    the same hierarchy on the CPU (plain versions, the same bf16 tail), and
-    against the CPU's generic recursion within the bf16 storage's gap;
- 5. the main path at 65^3 (274,625 dofs): Hierarchy(..., device="cuda") with
-    the full-mode tail, solve_cg(tol=1e-5, maxiter=50), the true residual in
+    the same hierarchy on the CPU (plain versions, the same bf16 tail; both
+    set up by the host route), and against the CPU's generic recursion
+    within the bf16 storage's gap; then the 17^3 hierarchy set up by the
+    device route on the card against the same pipeline run on the CPU with
+    the card's probe block (V-cycle and PCG count);
+ 5. the main path at 65^3 (274,625 dofs): Hierarchy(..., device="cuda"),
+    whose level 0 must take the device setup route (eigen/device_eig.py;
+    setup seconds per stage, setup's peak device memory apart from the
+    solve's), with the full-mode tail, solve_cg(tol=1e-5, maxiter=50), the
+    true residual in
     float64 on the host, the launch counts (the tail once per V-cycle), the
     tail against its plain version at these shapes (and the windowed
     level-1 -> 2 form, timed beside the dense one), the median ms per
@@ -33,8 +41,9 @@ each phase prints its wall time):
     PCG count with K2's plain version as the smoother, and the V-cycle
     with K2 as its rule routes it against either form for every call, in
     turns;
- 6. the main path at 129^3 (2,146,689 dofs): the same with the sub-cycle-mode
-    tail (windowed level-1 -> 2 inside the kernel) and the fine transfer
+ 6. the main path at 129^3 (2,146,689 dofs): the same (device route) with
+    the sub-cycle-mode tail (windowed level-1 -> 2 inside the kernel) and
+    the fine transfer
     through K4/K5 (once each per V-cycle), setup seconds per stage, peak
     device memory, and K1 (which stands for the reference's z-tiled
     pallas_stencil_apply_tiled_sym there), K2 (which stands for
@@ -59,6 +68,15 @@ each phase prints its wall time):
     (bf16 and f32 planes, cuSPARSE yardstick) against its plain version,
     then the path with every fine apply through K3 and the fine transfer
     through K4/K5, and K4/K5 (float32 and bf16 weights) at its transfer.
+    The Q2 cube sets up by the device route; the one-sided cube (set up on
+    the host, then moved) and the distorted cube (no shared cell matrix)
+    by the host route;
+ 8. level-0 setup at 65^3 and 129^3: the device pipeline on the card against
+    host ssyevx and the host Galerkin blocks (eigenvalue error, the
+    smallest singular value of V_dev^T V_host, max |K_dev - K_host| /
+    max |K_host| for the same R, under the SETUP_* limits), with the time
+    of each stage; then the whole 65^3 setup by the host route and by the
+    device route, in turns.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -120,6 +138,18 @@ TAIL_TOL = 1e-5
 # (tests/test_torch_fused_cycle.py::test_bf16_tail_gap_to_generic_recursion)
 BF16_STORAGE_GAP = 2e-3
 N_TIMED = 50
+# the level-0 device pipeline against host ssyevx (phase 8): eigenvalues to
+# 1e-2 of the largest, the pipeline's eigenvectors inside the host's four
+# smallest (smallest singular value), the smallest eigenvector to |dot|
+# 0.999, and K = Rb A Rb^T on the same R to 1e-5 of its largest entry; the
+# pipeline's CPU readings at 17^3 and 33^3 (tests/test_torch_device_eig.py):
+# 1.2e-3 and 1.7e-3, 0.994, K ~1e-7
+SETUP_EVAL_TOL, SETUP_SV_MIN, SETUP_V1_MIN, SETUP_K_TOL = 1e-2, 0.98, 0.999, 1e-5
+# a 17^3 V-cycle set up by the device route on the card against the same
+# pipeline on the CPU with the same probe block (phase 4): float32 roundoff
+# of cuSOLVER against LAPACK, carried through the level-0 and level-1
+# eigenvectors; read 4.5e-6 on an H100 (PERF.md)
+DEVICE_ROUTE_VCYCLE_TOL = 1e-4
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12    # H100 SXM data sheet
 
 
@@ -250,14 +280,107 @@ def csr_from_stencil(op, device):
     return A.to_sparse_csr()
 
 
-def main_config(cfg, max_levels=3):
+def main_config(cfg, max_levels=3, backend="auto"):
     return cfg.Config(max_levels=max_levels, operator="stencil", dtype="float32",
                       coeff_dtype="bfloat16",
                       eigensolver=cfg.EigensolverConfig(
-                          type="lapack", n_eigenvectors=2, n_eigenvectors_deep=4),
+                          type="lapack", n_eigenvectors=2, n_eigenvectors_deep=4,
+                          backend=backend),
                       smoother=cfg.SmootherConfig(type="chebyshev", degree=2),
                       agglomeration=cfg.AgglomerationConfig(nx=4, ny=4, nz=4),
                       coarse=cfg.CoarseConfig(type="direct"))
+
+
+def check_setup_pipeline(label, prob, dev):
+    """The device pipeline on the card against host ssyevx and the host
+    Galerkin blocks on the same light batch: eigenvalues, subspaces (the
+    host's n_ev + 2 smallest eigenvectors hold the pipeline's, which may
+    pick its second vector inside a cluster), and K = Rb A Rb^T for the
+    same R (the host eigenvectors'), with the stage times of each."""
+    import mfmg_torch.config as cfg
+    from mfmg_torch.amge.agglomeration import build_agglomerates
+    from mfmg_torch.amge.local_problems import build_agglomerate_batch
+    from mfmg_torch.amge.multilevel import _dof_row_structure, agg_galerkin_blocks
+    from mfmg_torch.amge.restriction import build_restriction
+    from mfmg_torch.eigen import device_eig
+    from mfmg_torch.eigen.batched_eigh import batched_smallest_eigenpairs
+    n_ev = 2
+    t = {}
+    t0 = time.perf_counter()
+    ids = build_agglomerates(prob.mesh, cfg.AgglomerationConfig(nx=4, ny=4, nz=4))
+    light = build_agglomerate_batch(prob.mesh, prob.A_loc, ids,
+                                    batch_dtype=np.float32,
+                                    assemble_operator=False)
+    t["light batch"] = time.perf_counter() - t0
+    check(device_eig.supports(prob.mesh, ids, dev, geom=prob.geom),
+          f"{label}: the device pipeline does not apply")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = t_mark = time.perf_counter()
+
+    def mark(stage):
+        nonlocal t_mark
+        now = time.perf_counter()
+        t[f"device eigensolve: {stage}"], t_mark = now - t_mark, now
+
+    ev_d, V_d, A_d = device_eig.device_smallest_eigenpairs(
+        prob, ids, light, n_ev, keep_A=True, device=dev, mark=mark)
+    torch.cuda.synchronize()
+    t["device eigensolve"] = time.perf_counter() - t0
+    peak_eig = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    full = build_agglomerate_batch(prob.mesh, prob.A_loc, ids,
+                                   batch_dtype=np.float32)
+    t["host batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev_h, V_h = batched_smallest_eigenpairs(full, n_ev + 2,
+                                            host_dtype=np.float32)
+    t["host ssyevx (n_ev + 2)"] = time.perf_counter() - t0
+    eval_err = float(np.abs(ev_d - ev_h[:, :n_ev]).max()
+                     / np.abs(ev_h[:, :n_ev]).max())
+    sv_pair = np.linalg.svd(np.einsum("aik,ail->akl", V_d, V_h[:, :, :n_ev]),
+                            compute_uv=False).min(axis=1)
+    sv_cluster = np.linalg.svd(np.einsum("aik,ail->akl", V_d, V_h),
+                               compute_uv=False).min(axis=1)
+    v1_dot = float(np.abs(np.einsum("ai,ai->a", V_d[:, :, 0],
+                                    V_h[:, :, 0])).min())
+    R = build_restriction(light, V_h[:, :, :n_ev], prob.diag_raw, prob.n_dofs)
+    dof_rows, dof_vals = _dof_row_structure(R)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blk_d = device_eig.device_galerkin_blocks(light, A_d, dof_rows, dof_vals,
+                                              R.shape[0])
+    torch.cuda.synchronize()
+    t["device Galerkin blocks"] = time.perf_counter() - t0
+    peak_gal = torch.cuda.max_memory_allocated() - base
+    del A_d
+    t0 = time.perf_counter()
+    blk_h = agg_galerkin_blocks(full, dof_rows, dof_vals, R.shape[0],
+                                eliminate=False)
+    t["host Galerkin blocks"] = time.perf_counter() - t0
+    check(np.array_equal(blk_d.arows, blk_h.arows)
+          and np.array_equal(blk_d.t_s, blk_h.t_s)
+          and np.array_equal(blk_d.Rb, blk_h.Rb),
+          f"{label}: the device and host Galerkin blocks' rows differ")
+    k_err = float(np.abs(blk_d.K.astype(np.float64) - blk_h.K).max()
+                  / np.abs(blk_h.K).max())
+    r = dict(n_agg=len(ev_d), m=V_d.shape[1], eval_err=eval_err,
+             sv_min_pair=float(sv_pair.min()),
+             sv_min_cluster=float(sv_cluster.min()),
+             n_pair_below_099=int((sv_pair < 0.99).sum()),
+             v1_dot_min=v1_dot, k_err=k_err, seconds=t,
+             peak_device_gib_eigensolve=peak_eig / 2**30,
+             peak_device_gib_galerkin=peak_gal / 2**30)
+    print(f"{label} setup pipeline: {json.dumps(r)}", flush=True)
+    check(eval_err <= SETUP_EVAL_TOL,
+          f"{label}: eigenvalue error {eval_err:.3e} > {SETUP_EVAL_TOL}")
+    check(r["sv_min_cluster"] >= SETUP_SV_MIN,
+          f"{label}: subspace sv {r['sv_min_cluster']:.4f} < {SETUP_SV_MIN}")
+    check(v1_dot >= SETUP_V1_MIN,
+          f"{label}: smallest eigenvector |dot| {v1_dot:.5f} < {SETUP_V1_MIN}")
+    check(k_err <= SETUP_K_TOL, f"{label}: K error {k_err:.3e} > {SETUP_K_TOL}")
+    return r
 
 
 class Phase:
@@ -280,8 +403,9 @@ def main():
               "an NVIDIA GPU", flush=True)
         sys.exit(2)
     import mfmg_torch.config as cfg
-    from mfmg_torch import Hierarchy, LaplaceProblem
+    from mfmg_torch import Hierarchy, LaplaceProblem, native
     from mfmg_torch.amge.hierarchy import LevelData
+    from mfmg_torch.eigen import device_eig
     from mfmg_torch.ops import fused_cycle as fc
     from mfmg_torch.ops import stencil as st
     from mfmg_torch.ops import stencil_kernels as tk
@@ -411,41 +535,64 @@ def main():
                  if time_it else ""), flush=True)
         return v
 
-    def check_tail_rounding(name, ft, seeds=(7, 8, 9, 10, 11), time_it=False):
-        """The windowed bf16 sub-cycle tail against the float64 plain version
-        with the same rounding points, on every seed, under the limit
-        _torch_tails.rounding_limit measures on that input (the float32
-        plain version's gap and 8 float32-sized perturbations of the values
-        before their roundings, the largest times 4, plus TAIL_TOL; max
-        norm); two launches repeat their bits."""
+    def check_tail_rounding(name, ft, seeds=(7, 8, 9, 10, 11), time_it=False,
+                            full=False):
+        """The windowed bf16 tail against the float64 plain version with the
+        same rounding points, on every seed, under the limit
+        _torch_tails.rounding_limit (rounding_limit_full for the full mode)
+        measures on that input (the float32 plain version's gap and 8
+        float32-sized perturbations of the values before their roundings,
+        the largest times 4, plus TAIL_TOL; max norm); two launches repeat
+        their bits.  full: the full mode on (x, res), read on its correction
+        x - out (the limit's reference is the float64 correction, so x does
+        not dilute a wrong one), else the sub-cycle on b1."""
+        def inputs(seed):
+            rng = np.random.default_rng(seed)
+            if full:
+                return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+                             (rng.uniform(size=ft.n_fine),
+                              rng.standard_normal(ft.n_fine)))
+            return (torch.from_numpy(rng.standard_normal(ft.n1)
+                                     .astype(np.float32)).to(dev),)
+
+        def sub_input(args):
+            if not full:
+                return args[0]
+            return ttk.structured_restrict_plain(ft.W.float(), args[1], ft.fine_window,
+                                                 ft.grid, ft.fine_grid)
+
+        run = fc.fused_correction_apply if full else fc.fused_subcycle_apply
+        plain = (fc.fused_correction_apply_plain if full
+                 else fc.fused_subcycle_apply_plain)
+        limit_of = tt.rounding_limit_full if full else tt.rounding_limit
         v = dict(max_abs_err=0.0, rel_err=0.0, seeds={})
         for seed in seeds:
-            b1 = torch.from_numpy(np.random.default_rng(seed).standard_normal(ft.n1)
-                                  .astype(np.float32)).to(dev)
-            got, again = fc.fused_subcycle_apply(ft, b1), fc.fused_subcycle_apply(ft, b1)
-            ref, limit, readings = tt.rounding_limit(ft, b1)
+            args = inputs(seed)
+            got, again = run(ft, *args), run(ft, *args)
+            ref, limit, readings = limit_of(ft, *args)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
             check(torch.equal(got, again), f"{name}: two launches differ")
-            rel = tt.rel_inf(got, ref)
-            share = tt.correction_share(ft, b1)
+            read = tt.correction_of(args[0], got) if full else got
+            rel = tt.rel_inf(read, ref)
+            share = tt.correction_share(ft, sub_input(args))
             check(rel <= limit, f"{name} seed {seed}: |d|_inf/|ref|_inf {rel:.3e} > "
                   f"its rounding limit {limit:.3e}")
             v["seeds"][seed] = dict(rel_inf=rel, limit=limit, share=share,
                                     plain_f32=readings["plain_f32"],
                                     draws_max=max(readings["draws"]),
-                                    rel2_vs_plain32=rel2(got, fc.fused_subcycle_apply_plain(ft, b1)))
-            v["max_abs_err"] = max(v["max_abs_err"], float((got.double() - ref).abs().max()))
+                                    rel2_vs_plain32=rel2(got, plain(ft, *args)))
+            v["max_abs_err"] = max(v["max_abs_err"], float((read.double() - ref).abs().max()))
             v["rel_err"] = max(v["rel_err"], rel)
             print(f"{name} seed {seed}: rel_inf vs plain64 {rel:.3e} <= limit {limit:.3e} "
+                  + ("(on the correction x - out) " if full else "") +
                   f"(plain32 {readings['plain_f32']:.3e}, draws max "
                   f"{max(readings['draws']):.3e}; coarse share {share:.3f}; rel2 vs "
                   f"plain32 {v['seeds'][seed]['rel2_vs_plain32']:.3e})", flush=True)
         if time_it:
-            b1 = torch.from_numpy(np.random.default_rng(seeds[0]).standard_normal(ft.n1)
-                                  .astype(np.float32)).to(dev)
-            v["ms"] = median_ms(lambda: fc.fused_subcycle_apply(ft, b1))
-            v["plain_ms"] = median_ms(lambda: fc.fused_subcycle_apply_plain(ft, b1), batch=1)
+            args = inputs(seeds[0])
+            v["ms"] = median_ms(lambda: run(ft, *args))
+            v["plain_ms"] = median_ms(lambda: plain(ft, *args), batch=1)
             print(f"{name}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms", flush=True)
         variants[name] = v
         return v
@@ -615,20 +762,27 @@ def main():
         hier._exact_op_cache = one_sided(torch.float32)
         return hier.to("cuda")
 
-    def run_main_path(label, prob, mode_full, kernels, max_levels=3,
+    def run_main_path(label, prob, mode_full, kernels, route, max_levels=3,
                       build=None):
         """Hierarchy (or build()) + solve_cg with the counts set to 0 just
         before and read just after, each kernel of `kernels` launched at
         least once and the fine level's kernels as often as its operator
         calls for; the rest of the phase is measurement.  mode_full: the
         tail's mode (True full, False sub-cycle), None for a hierarchy
-        without a tail."""
+        without a tail; route: the level-0 setup route the hierarchy must
+        have taken ("device" or "host")."""
         tk.reset_launch_counts()
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         hier = (build() if build is not None else
                 Hierarchy(prob, main_config(cfg, max_levels), device="cuda"))
+        torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        check(hier.setup_route == route,
+              f"{label}: setup took the {hier.setup_route} route, not {route}")
         bh = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
         t0 = time.perf_counter()
         xs, info = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)
@@ -638,8 +792,9 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         sizes = [lv.op.shape[0] for lv in hier.levels]
         ft = hier.levels[0].fused
-        print(f"{label}: setup {setup_s:.2f} s, levels {sizes}, smoother L0 "
-              f"{type(hier.levels[0].smoother).__name__}", flush=True)
+        print(f"{label}: setup {setup_s:.2f} s ({hier.setup_route} route, peak "
+              f"device memory {setup_peak / 2**30:.3f} GiB), levels {sizes}, "
+              f"smoother L0 {type(hier.levels[0].smoother).__name__}", flush=True)
         print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
                                              for k, v in hier.setup_seconds.items()),
               flush=True)
@@ -753,6 +908,8 @@ def main():
             f"{k} {v['iterations']} iterations (relres {v['relres']:.3e})"
             for k, v in pcg.items()), flush=True)
         summary = dict(n_dofs=prob.n_dofs, setup_s=setup_s,
+                       setup_route=hier.setup_route,
+                       setup_peak_device_gib=setup_peak / 2**30,
                        setup_stages=hier.setup_seconds,
                        pcg_iterations=info["iterations"], relres=info["relres"],
                        true_relres=tr, solve_s=solve_s,
@@ -768,10 +925,19 @@ def main():
 
     # ---- 2. build -----------------------------------------------------
     with Phase("2 build"):
+        # g++ for the host library beside the nvcc processes of the kernels
+        from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        path, log = tk.build_library()
+        with ThreadPoolExecutor(1) as pool:
+            host_build = pool.submit(native.build_host_library)
+            path, log = tk.build_library()
+            host_path = host_build.result()
         tk._library()
-        print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}", flush=True)
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}; host "
+              f"library {host_path}, {native.host_threads()} threads per call "
+              f"(affinity {len(os.sched_getaffinity(0))} cores, os.cpu_count() "
+              f"{os.cpu_count()}, torch threads {torch.get_num_threads()})",
+              flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -864,9 +1030,11 @@ def main():
 
     # ---- 4. small-input reference: GPU hierarchy against CPU ----------
     with Phase("4 17^3 GPU against CPU"):
+        # the kernels along the whole path: both set up by the host route
         small = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
         hc = Hierarchy(small, main_config(cfg), device="cpu")
-        hg = Hierarchy(small, main_config(cfg), device="cuda")
+        hg = Hierarchy(small, main_config(cfg, backend="host"), device="cuda")
+        check(hc.setup_route == hg.setup_route == "host", "17^3: not the host route")
         bs = np.random.default_rng(1).uniform(size=small.n_dofs).astype(np.float32)
         y_generic = hc.vmult(bs)          # the CPU generic recursion
         # the card's tail (bf16 weights) on the CPU levels too, plain version
@@ -883,13 +1051,37 @@ def main():
               f"17^3 V-cycle GPU vs CPU generic rel {rel_generic:.3e} > "
               f"{BF16_STORAGE_GAP}")
         check(ig["iterations"] == ic["iterations"], "17^3 PCG counts differ")
-        del hc, hg
+        # the device route on the card against the same pipeline on the CPU,
+        # fed the card's probe block
+        hd = Hierarchy(small, main_config(cfg), device="cuda")
+        check(hd.setup_route == "device", f"17^3: the {hd.setup_route} route")
+        supports, probe = device_eig.supports, device_eig.probe_block
+        device_eig.supports = lambda mesh, ids, device, geom=None: supports(
+            mesh, ids, dev, geom)
+        device_eig.probe_block = lambda n, m, p, device: probe(n, m, p, dev).to(device)
+        try:
+            hdc = Hierarchy(small, main_config(cfg), device="cpu")
+        finally:
+            device_eig.supports, device_eig.probe_block = supports, probe
+        check(hdc.setup_route == "device", "17^3 CPU: not the device pipeline")
+        hdc.levels[0].fused = fc.build_fused_tail(hdc.levels, 1, reduced_storage=True)
+        rel_d = rel2(hd.vmult(bs).cpu(), hdc.vmult(bs))
+        _, idc = hdc.solve_cg(bs, tol=PCG_TOL, maxiter=PCG_MAX)
+        _, idg = hd.solve_cg(bs, tol=PCG_TOL, maxiter=PCG_MAX)
+        print(f"17^3 device route: V-cycle GPU vs the CPU pipeline (same probe) "
+              f"rel {rel_d:.3e}; PCG {idg['iterations']} (GPU) vs "
+              f"{idc['iterations']} (CPU)", flush=True)
+        check(rel_d <= DEVICE_ROUTE_VCYCLE_TOL, f"17^3 device route V-cycle GPU vs "
+              f"CPU rel {rel_d:.3e} > {DEVICE_ROUTE_VCYCLE_TOL}")
+        check(idg["iterations"] == idc["iterations"], "17^3 device-route PCG "
+              "counts differ")
+        del hc, hg, hd, hdc
 
     # ---- 5. the main path at 65^3 --------------------------------------
     with Phase("5 main path 65^3"):
         hier, summary65, tr65, _ = run_main_path(
             "65^3", prob, True, ("stencil_apply_sym", "cheb_smooth",
-                                 "cheb_smooth_chain", "fused_tail"))
+                                 "cheb_smooth_chain", "fused_tail"), "device")
         check(tr65 <= TRUE_RES_MAX, f"true relres {tr65:.3e} > {TRUE_RES_MAX}")
         ft65 = hier.levels[0].fused
         v65 = check_tail("fused_correction_apply/65^3", ft65, True,
@@ -899,9 +1091,11 @@ def main():
                    np.random.default_rng(6), time_it=True)
         # the windowed level-1 -> 2 form at the same shapes, timed beside the
         # dense form the builder picks here
-        check_tail("fused_correction_apply/65^3/windowed",
-                   tail_variants(list(hier.levels), True, True), True,
-                   np.random.default_rng(5), time_it=True)
+        # (bf16 weights: held, as every windowed bf16 tail, to the float64
+        # plain version with its rounding points under its rounding limit)
+        check_tail_rounding("fused_correction_apply/65^3/windowed",
+                            tail_variants(list(hier.levels), True, True),
+                            time_it=True, full=True)
         del hier
 
     # ---- 6. the main path at 129^3 -------------------------------------
@@ -915,7 +1109,7 @@ def main():
                                     "cheb_smooth_blocked", "cheb_smooth_chain",
                                     "fused_tail",
                                     "structured_restrict",
-                                    "structured_prolong"))
+                                    "structured_prolong"), "device")
         check(tr129 <= TRUE_RES_MAX_LARGE,
               f"129^3 true relres {tr129:.3e} > {TRUE_RES_MAX_LARGE}")
         ft129 = hier7.levels[0].fused
@@ -1013,7 +1207,7 @@ def main():
             "Q2 65^3", probq, True,
             ("stencil_apply_sym", "cheb_smooth", "cheb_smooth_chain", "fused_tail")
             if sym_q
-            else ("stencil_apply", "fused_tail"))
+            else ("stencil_apply", "fused_tail"), "device")
         check(trq <= TRUE_RES_MAX_Q2,
               f"Q2 true relres {trq:.3e} > {TRUE_RES_MAX_Q2}")
         ftq = hierq.levels[0].fused
@@ -1051,7 +1245,7 @@ def main():
             # for every fine apply, with the full-mode tail
             hiero, summaryo, tro, _ = run_main_path(
                 "Q2 65^3 one-sided", probq, True, ("stencil_apply", "fused_tail"),
-                build=lambda: one_sided_hierarchy(probq))
+                "host", build=lambda: one_sided_hierarchy(probq))
             check(tro <= TRUE_RES_MAX_Q2,
                   f"one-sided Q2 true relres {tro:.3e} > {TRUE_RES_MAX_Q2}")
             check(hiero.levels[0].fused.fine_window == (9, 9, 9),
@@ -1086,7 +1280,7 @@ def main():
         hierd, summaryd, trd, _ = run_main_path(
             "Q2 65^3 distorted", probd, None,
             ("stencil_apply", "structured_restrict", "structured_prolong"),
-            max_levels=2)
+            "host", max_levels=2)
         check(trd <= TRUE_RES_MAX_Q2_DISTORTED,
               f"distorted Q2 true relres {trd:.3e} > {TRUE_RES_MAX_Q2_DISTORTED}")
         ld = summaryd["launches"]
@@ -1102,6 +1296,33 @@ def main():
         check_xfer("Q2 distorted/bf16", trd0, trd0.W.to(torch.bfloat16),
                    np.random.default_rng(16))
         del hierd, trd0
+
+
+    # ---- 8. level-0 setup: the device route against the host route -------
+    with Phase("8 level-0 setup, device route against host route"):
+        setup_pipeline = {"65^3": check_setup_pipeline("65^3", prob, dev),
+                          "129^3": check_setup_pipeline("129^3", prob7, dev)}
+        del prob7
+        # the whole setup at 65^3 by either route, in turns
+        turns = []
+        for backend in ("host", "auto", "auto", "host"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            h = Hierarchy(prob, main_config(cfg, backend=backend), device="cuda")
+            torch.cuda.synchronize()
+            turns.append(dict(route=h.setup_route, setup_s=time.perf_counter() - t0,
+                              peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              stages=h.setup_seconds))
+            check(h.setup_route == ("host" if backend == "host" else "device"),
+                  f"backend {backend!r} took the {h.setup_route} route")
+            del h
+            print(f"65^3 setup, {turns[-1]['route']} route: "
+                  f"{turns[-1]['setup_s']:.2f} s, peak device memory "
+                  f"{turns[-1]['peak_device_gib']:.3f} GiB; "
+                  + ", ".join(f"{k} {v:.2f}s" for k, v in turns[-1]["stages"].items()),
+                  flush=True)
+        setup_pipeline["65^3 setup in turns"] = turns
 
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
@@ -1171,6 +1392,7 @@ def main():
             s["card"] = card
             print(f"summary {label}: {json.dumps(s)}", flush=True)
     print(f"kernel variants: {json.dumps(variants)}", flush=True)
+    print(f"setup routes: {json.dumps(setup_pipeline)}", flush=True)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,6 +12,15 @@ Setup pipeline per level (hierarchy.hpp:178-234):
     structured transfer + block-stencil coarse operator -> recurse / coarse
     solver.
 
+Level 0 on the card takes the reference's device route (its accelerator
+route, mfmg_tpu/amge/hierarchy.py:494-517): a light agglomerate batch, the
+eigensolve as dense batched algebra on the device (eigen/device_eig.py),
+and the Galerkin blocks against the batch it keeps there.  Where the
+pipeline does not apply (the CPU, a distorted mesh, a float64 hierarchy, a
+problem with its own cell matrices) level 0 takes the host route: the dense batch in the host library and LAPACK ``syevx`` (or, for
+``backend="device"``, one batched ``torch.linalg.eigh`` on the device).
+``Hierarchy.setup_route`` records which.
+
 On CUDA, ``_finalize_cuda_kernels`` swaps the level-0 Chebyshev smoother for
 the K2-backed ``FusedChebyshevSmoother`` and fills the level-0 ``fused`` slot
 with the single-kernel coarse tail (ops/fused_cycle.py) where the levels fit
@@ -131,8 +140,11 @@ def _np_dtype(dt: torch.dtype):
 
 
 class Hierarchy:
-    """Public entry point: the constructor runs the full setup on the host
-    (hierarchy.hpp:159-236) and places every level on ``device``.
+    """Public entry point: the constructor runs the full setup
+    (hierarchy.hpp:159-236), level 0's eigensolve and Galerkin blocks on the
+    device where the device route applies, and places every level on
+    ``device``.  ``setup_route`` is "device" or "host"; ``setup_seconds``
+    holds the seconds of each setup stage.
 
     device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
     device and never falls back to the CPU.
@@ -149,7 +161,9 @@ class Hierarchy:
         self.dtype = _torch_dtype(self.config.dtype)
         self.levels = nn.ModuleList()
         self.setup_seconds = {}
+        self.setup_route = None
         self._exact_op_cache = None
+        self._device_A = None
         self._check_supported()
         self._setup()
 
@@ -162,8 +176,6 @@ class Hierarchy:
             unsupported.append("distributed_setup (Slice G)")
         if cfg.eigensolver.type != "lapack":
             unsupported.append(f"eigensolver {cfg.eigensolver.type!r} (Slice E)")
-        if cfg.eigensolver.backend == "device":
-            unsupported.append("eigensolver backend 'device' (device_eig)")
         if cfg.eigensolver.constrained_mode not in ("auto", "pin"):
             unsupported.append(f"constrained_mode "
                                f"{cfg.eigensolver.constrained_mode!r} (Slice E)")
@@ -184,13 +196,8 @@ class Hierarchy:
         from mfmg_torch.ops.structured_transfer import (
             general_window_transfer_from_csr, structured_transfer_from_batch)
 
-        t_last = [time.perf_counter()]
-
-        def mark(name):
-            now = time.perf_counter()
-            self.setup_seconds[name] = now - t_last[0]
-            t_last[0] = now
-
+        self._t_mark = time.perf_counter()
+        mark = self._mark
         cfg = self.config
         problem = self.problem
         # coeff_dtype (e.g. bfloat16) reduces the fine apply's byte stream in
@@ -224,8 +231,20 @@ class Hierarchy:
                 # blocks Rb_a A_a Rb_a^T (reused by the level-1 restrictor)
                 batch, _, evecs = self._level0_eigendata
                 dof_rows, dof_vals = _dof_row_structure(R)
-                blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals,
-                                             R.shape[0], eliminate=False)
+                if self._device_A is not None:
+                    from mfmg_torch.eigen.device_eig import \
+                        device_galerkin_blocks
+                    blocks = device_galerkin_blocks(batch, self._device_A,
+                                                    dof_rows, dof_vals,
+                                                    R.shape[0])
+                    # free the device batch (2 GB at 129^3) before the
+                    # levels are placed
+                    self._device_A = None
+                    mark("device Galerkin blocks L0")
+                else:
+                    blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals,
+                                                 R.shape[0], eliminate=False)
+                    mark("host Galerkin blocks L0")
                 A_coarse = galerkin_product_from_blocks(blocks, R.shape[0])
                 self._level0_blocks = blocks
                 transfer = structured_transfer_from_batch(
@@ -263,6 +282,26 @@ class Hierarchy:
             mark(f"level L{level} placed on {self.device}")
         self._A_per_level = A_per_level
         self._finalize_cuda_kernels()
+
+    def _mark(self, name):
+        """Record the seconds since the previous mark as stage ``name``."""
+        now = time.perf_counter()
+        self.setup_seconds[name] = now - self._t_mark
+        self._t_mark = now
+
+    def _use_device_eig(self) -> bool:
+        """The level-0 device route is wanted and can hold the hierarchy: the
+        'lapack' eigensolver with backend 'auto' or 'device' (in the 'pin'
+        constrained mode, the only one _check_supported lets through), a
+        float32 hierarchy (the pipeline is float32 throughout; a float64
+        hierarchy keeps float64 eigenpairs and Galerkin blocks, as the
+        reference's pipeline refuses x64), and a problem whose cell matrices
+        are the Laplace form the pipeline rebuilds from geom and coeff_at_q
+        (not a local_matrix_fn's)."""
+        e = self.config.eigensolver
+        return (e.type == "lapack" and e.backend in ("auto", "device")
+                and self.dtype == torch.float32
+                and getattr(self.problem, "laplace_form", False))
 
     def _append(self, level_data: LevelData):
         """Finalize a level and move it to the device (its one h2d copy)."""
@@ -304,11 +343,35 @@ class Hierarchy:
         problem = self.problem
         if level == 0:
             agg_ids = build_agglomerates(problem.mesh, cfg.agglomeration)
-            batch = build_agglomerate_batch(problem.mesh, problem.A_loc, agg_ids,
-                                            batch_dtype=_np_dtype(self.dtype))
-            evals, evecs = batched_smallest_eigenpairs(
-                batch, cfg.eigensolver.n_eigenvectors, constrained_mode="pin",
-                host_dtype=_np_dtype(self.dtype))
+            n_ev = cfg.eigensolver.n_eigenvectors
+            batch_dtype = _np_dtype(self.dtype)
+            self.setup_route = "host"
+            if self._use_device_eig():
+                from mfmg_torch.eigen import device_eig
+                if device_eig.supports(problem.mesh, agg_ids, self.device,
+                                       geom=problem.geom):
+                    batch = build_agglomerate_batch(
+                        problem.mesh, problem.A_loc, agg_ids,
+                        batch_dtype=batch_dtype, assemble_operator=False)
+                    self._mark("light batch L0")
+                    # the dense batch is assembled, solved and kept on the
+                    # device for the Galerkin blocks; no host fallback
+                    evals, evecs, self._device_A = \
+                        device_eig.device_smallest_eigenpairs(
+                            problem, agg_ids, batch, n_ev, keep_A=True,
+                            device=self.device,
+                            mark=lambda stage: self._mark(
+                                f"device eigensolve L0: {stage}"))
+                    self.setup_route = "device"
+            if self.setup_route == "host":
+                batch = build_agglomerate_batch(problem.mesh, problem.A_loc,
+                                                agg_ids, batch_dtype=batch_dtype)
+                self._mark("batch L0")
+                evals, evecs = batched_smallest_eigenpairs(
+                    batch, n_ev, constrained_mode="pin", host_dtype=batch_dtype,
+                    use_device=cfg.eigensolver.backend == "device",
+                    device=self.device)
+                self._mark("host eigensolve L0")
             check_restriction(batch, problem.diag_raw, problem.n_dofs)
             self._level0_eigendata = (batch, evals, evecs)
             R = build_restriction(batch, evecs, problem.diag_raw, problem.n_dofs)

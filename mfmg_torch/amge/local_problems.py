@@ -1,9 +1,13 @@
-"""Per-agglomerate local operators as one padded dense batch (host numpy).
+"""Per-agglomerate local operators as one padded dense batch (host).
 
 Port of the structured path of mfmg_tpu/amge/local_problems.py.  All
 agglomerate operators are materialized as one (n_agg, m, m) dense batch so
 the eigensolve runs as one batched loop (reference
-dealii/amge_host.templates.hpp:586-615 solves them one at a time).
+dealii/amge_host.templates.hpp:586-615 solves them one at a time).  The
+dense assembly runs in the host library (``native.py``); ``assemble_plain``
+is its numpy version.  The light batch (``assemble_operator=False``) carries
+no dense operators: the device eigensolve (``eigen/device_eig.py``)
+assembles them on the card.
 
 Boundary conditions per agglomerate mirror the reference
 (tests/test_hierarchy_helpers.hpp:253-259): Dirichlet only where the
@@ -15,6 +19,7 @@ not ported yet (ROADMAP Queue 1, Slice E).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 
@@ -29,7 +34,7 @@ class AgglomerateBatch:
     dof_map : (n_agg, m_max) int64 global dof ids, -1 padding
     valid   : (n_agg, m_max) bool
     A_agg   : (n_agg, m_max, m_max) Dirichlet-eliminated local matrices
-              (raw diagonal kept at constrained dofs)
+              (raw diagonal kept at constrained dofs); None in a light batch
     diag    : (n_agg, m_max) local raw diagonals (the PoU numerators)
     constrained : (n_agg, m_max) bool
     sizes   : (n_agg,) int
@@ -52,13 +57,87 @@ class AgglomerateBatch:
 
 
 def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
-                            batch_dtype=np.float64) -> AgglomerateBatch:
+                            batch_dtype=np.float64,
+                            assemble_operator: bool = True) -> AgglomerateBatch:
     """Assemble local dense operators for every agglomerate of a uniform
     block partition of a structured mesh.
 
     batch_dtype: dtype of the dense A_agg batch (float32 for float32
     hierarchies, as in mfmg_tpu); the PoU diagonals are always float64.
+    assemble_operator=False gives the light batch (A_agg None): dof map,
+    float64 PoU diagonals and constrained mask, all the restriction, the
+    PoU check and the structured transfers read.
     """
+    cells_per_agg, local_cells, dof_map, m = block_layout(mesh, agg_ids)
+    n_agg = len(cells_per_agg)
+    constrained = mesh.constrained_mask[dof_map]
+    valid = np.ones((n_agg, m), dtype=bool)
+    sizes = np.full(n_agg, m, dtype=np.int64)
+    if not assemble_operator:
+        return AgglomerateBatch(dof_map=dof_map, valid=valid, A_agg=None,
+                                diag=_pou_diag(A_loc, cells_per_agg,
+                                               local_cells, m),
+                                constrained=constrained, sizes=sizes)
+
+    from mfmg_torch import native
+    A_agg = native.assemble_agglomerate_batch_uniform(
+        cells_per_agg, local_cells, A_loc, n_agg, m, dtype=batch_dtype)
+    if np.dtype(batch_dtype) == np.float64:
+        diag = np.einsum("gii->gi", A_agg).copy()
+    else:
+        # PoU diagonals in float64 straight from the cell matrices
+        diag = _pou_diag(A_loc, cells_per_agg, local_cells, m)
+
+    keep = ~constrained
+    A_agg *= keep[:, :, None] * keep[:, None, :]
+    gi2, ii2 = np.nonzero(constrained)
+    A_agg[gi2, ii2, ii2] = diag[gi2, ii2].astype(batch_dtype)
+
+    return AgglomerateBatch(dof_map=dof_map, valid=valid, A_agg=A_agg,
+                            diag=diag, constrained=constrained, sizes=sizes)
+
+
+def _pou_diag(A_loc, cells_per_agg, local_cells, m) -> np.ndarray:
+    """(n_agg, m) float64 local raw diagonals summed from the cell matrices."""
+    n_agg = cells_per_agg.shape[0]
+    diag = np.zeros((n_agg, m))
+    d_loc = np.einsum("cii->ci", A_loc)[cells_per_agg]
+    np.add.at(diag, (np.broadcast_to(np.arange(n_agg)[:, None, None], d_loc.shape),
+                     np.broadcast_to(local_cells[None], d_loc.shape)), d_loc)
+    return diag
+
+
+def assemble_plain(cells_per_agg, local_cells, A_loc, n_agg, m,
+                   dtype=np.float64) -> np.ndarray:
+    """The numpy version of native.assemble_agglomerate_batch_uniform: the
+    same scatter-add in the same order (agglomerate, cell, row, column)."""
+    n_bc, n_loc = local_cells.shape
+    A_agg = np.zeros((n_agg, m, m), dtype=dtype)
+    gi = np.broadcast_to(np.arange(n_agg)[:, None, None, None],
+                         (n_agg, n_bc, n_loc, n_loc))
+    rows = np.broadcast_to(local_cells[None, :, :, None], gi.shape)
+    cols = np.broadcast_to(local_cells[None, :, None, :], gi.shape)
+    np.add.at(A_agg, (gi.reshape(-1), rows.reshape(-1), cols.reshape(-1)),
+              A_loc[cells_per_agg].reshape(-1).astype(dtype))
+    return A_agg
+
+
+class BlockLayout(NamedTuple):
+    """The index structure every agglomerate of a uniform block partition
+    shares: cells_per_agg (n_agg, n_bc) the cells of each block in
+    block-local order (x fastest), local_cells (n_bc, n_loc) the block-local
+    dof of each cell's local dofs, dof_map (n_agg, m) each block's global
+    dofs in lexicographic local order, m the dofs per block."""
+
+    cells_per_agg: np.ndarray
+    local_cells: np.ndarray
+    dof_map: np.ndarray
+    m: int
+
+
+def block_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout:
+    """The closed-form layout of a uniform block partition of a structured
+    mesh; raises NotImplementedError for anything else."""
     if not mesh.is_structured:
         raise NotImplementedError("unstructured agglomerate batches are not "
                                   "ported yet (ROADMAP Queue 1, Slice E)")
@@ -80,7 +159,6 @@ def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
     # local structure shared by all agglomerates
     m_dims = bdims * k + 1                # local nodes per dim
     m = int(np.prod(m_dims))
-    n_loc = mesh.n_loc
     lm = reference_element(dim, k).local_multi_index            # (n_loc, dim)
     bc = np.stack(np.meshgrid(*[np.arange(b) for b in bdims], indexing="ij"),
                   axis=-1).reshape(-1, dim, order="F")          # x fastest
@@ -100,29 +178,4 @@ def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
                              axis=-1).reshape(-1, dim, order="F")
     dof_map = ((agg_origin_mi * k)[:, None, :] + local_node_mi[None, :, :]) @ nstride
 
-    A_agg = np.zeros((n_agg, m, m), dtype=batch_dtype)
-    gi = np.broadcast_to(np.arange(n_agg)[:, None, None, None],
-                         (n_agg, len(bc), n_loc, n_loc))
-    rows = np.broadcast_to(local_cells[None, :, :, None], gi.shape)
-    cols = np.broadcast_to(local_cells[None, :, None, :], gi.shape)
-    np.add.at(A_agg, (gi.reshape(-1), rows.reshape(-1), cols.reshape(-1)),
-              A_loc[cells_per_agg].reshape(-1).astype(batch_dtype))
-
-    if np.dtype(batch_dtype) == np.float64:
-        diag = np.einsum("gii->gi", A_agg).copy()
-    else:
-        # PoU diagonals in float64 straight from the cell matrices
-        diag = np.zeros((n_agg, m))
-        d_loc = np.einsum("cii->ci", A_loc)[cells_per_agg]
-        np.add.at(diag, (np.broadcast_to(np.arange(n_agg)[:, None, None], d_loc.shape),
-                         np.broadcast_to(local_cells[None], d_loc.shape)), d_loc)
-    constrained = mesh.constrained_mask[dof_map]
-
-    keep = ~constrained
-    A_agg *= keep[:, :, None] * keep[:, None, :]
-    gi2, ii2 = np.nonzero(constrained)
-    A_agg[gi2, ii2, ii2] = diag[gi2, ii2].astype(batch_dtype)
-
-    return AgglomerateBatch(dof_map=dof_map, valid=np.ones((n_agg, m), dtype=bool),
-                            A_agg=A_agg, diag=diag, constrained=constrained,
-                            sizes=np.full(n_agg, m, dtype=np.int64))
+    return BlockLayout(cells_per_agg, local_cells, dof_map, m)

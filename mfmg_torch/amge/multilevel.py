@@ -1,8 +1,9 @@
 """Recursive spectral AMGe: level l >= 1 built with the level-0 machinery.
 
 Port of the parts of mfmg_tpu/amge/multilevel.py that a three-level
-structured hierarchy runs (host numpy/scipy).  The reference caps its own
-AMGe at 2 levels and delegates deeper hierarchies to ML/AMGX
+structured hierarchy runs (host numpy/scipy, with the restriction blocks and
+the per-super scatter in the host library, ``native.py``).  The reference
+caps its own AMGe at 2 levels and delegates deeper hierarchies to ML/AMGX
 (hierarchy.hpp:172, dealii_solver.cc); here level 1 repeats the level-0
 construction on super-agglomerates:
 
@@ -76,9 +77,15 @@ def _dof_row_structure(R: sp.csr_matrix):
     return rows, vals
 
 
-def _batched_scatter(flat_idx: np.ndarray, weights: np.ndarray, size: int):
-    """Sum weights into a flat array (histogram scatter; ~5x np.add.at)."""
-    return np.bincount(flat_idx.ravel(), weights=weights.ravel(), minlength=size)
+def scatter_super_blocks_plain(g_of, gpos, K, Mb, n_super, m1p):
+    """The numpy version of native.scatter_super_blocks (one bincount per
+    batch): (A1, M), each (n_super, m1p, m1p) float64."""
+    flat = ((g_of[:, None, None] * m1p + gpos[:, :, None]) * m1p
+            + gpos[:, None, :]).ravel()
+    size = n_super * m1p * m1p
+    return tuple(np.bincount(flat, weights=np.asarray(w, np.float64).ravel(),
+                             minlength=size).reshape(n_super, m1p, m1p)
+                 for w in (K, Mb))
 
 
 # Gram rank cutoffs (relative); a quality knob, not only a numerical guard
@@ -96,7 +103,9 @@ def build_recursive_restriction(mesh: Mesh, cell_agg_prev: np.ndarray,
                                 n_ev: int, block_dims,
                                 prev_batch, prev_blocks=None) -> tuple:
     """One more AMGe level over the level-0 agglomerates; returns (R_l csr
-    over the previous coarse space, cell_super, super_grid)."""
+    over the previous coarse space, cell_super, super_grid).  With
+    prev_blocks given, prev_batch may be light (no A_agg): only its dof map
+    and valid mask are read, as in the reference's level 1."""
     super_of_agg, super_grid = group_agglomerates(mesh, cell_agg_prev, block_dims)
     if prev_batch is None or prev_batch.n_agg != len(super_of_agg):
         raise NotImplementedError(
@@ -139,12 +148,34 @@ def agg_galerkin_blocks(batch, dof_rows: np.ndarray, dof_vals: np.ndarray,
     Assembly is additive over cells and every cell belongs to exactly one
     agglomerate, so scattering the K_a reproduces R A R^T exactly.
     eliminate: additionally zero R values at constrained dofs inside the
-    blocks (the recursive level's local-eigenproblem convention).
+    blocks (the recursive level's local-eigenproblem convention).  n_rows
+    (R's rows) is what the plain version ``agg_row_blocks_plain`` keys on.
     """
-    n_agg, m = batch.dof_map.shape
+    from mfmg_torch import native
     dm = np.where(batch.valid, batch.dof_map, 0)
     keep = batch.valid & ~batch.constrained if eliminate else batch.valid
-    ar = np.where(batch.valid[:, :, None], dof_rows[dm], -1)  # (n_agg, m, q)
+    arows, t_s, Rb = native.agg_row_blocks(dm, batch.valid, keep, dof_rows,
+                                           dof_vals)
+    n_agg, t_max = arows.shape
+
+    # K in the batch's dtype (float32 batches halve the BLAS-3 time)
+    kdt = batch.A_agg.dtype
+    K = np.empty((n_agg, t_max, t_max), dtype=kdt)
+
+    def _blk(lo, hi):
+        Rb_c = Rb[lo:hi].astype(kdt, copy=False)
+        tmp = np.matmul(Rb_c, batch.A_agg[lo:hi])
+        np.matmul(tmp, np.swapaxes(Rb_c, 1, 2), out=K[lo:hi])
+
+    _run_threaded(_blk, n_agg)
+    return AggBlocks(arows, t_s, Rb, K)
+
+
+def agg_row_blocks_plain(dm, valid, keep, dof_rows, dof_vals, n_rows):
+    """The numpy version of native.agg_row_blocks (global-key unique and
+    searchsorted positions): (arows, t_s, Rb)."""
+    n_agg, m = dm.shape
+    ar = np.where(valid[:, :, None], dof_rows[dm], -1)     # (n_agg, m, q)
     av = np.where(keep[:, :, None], dof_vals[dm], 0.0)
     ok = ar >= 0
     keys = np.where(ok, np.arange(n_agg, dtype=np.int64)[:, None, None]
@@ -164,18 +195,7 @@ def agg_galerkin_blocks(batch, dof_rows: np.ndarray, dof_vals: np.ndarray,
     si = np.broadcast_to(np.arange(m)[None, :, None], ar.shape)
     Rb = np.zeros((n_agg, t_max, m))
     Rb[ai[ok], pos[ok], si[ok]] = av[ok]
-
-    # K in the batch's dtype (float32 batches halve the BLAS-3 time)
-    kdt = batch.A_agg.dtype
-    K = np.empty((n_agg, t_max, t_max), dtype=kdt)
-
-    def _blk(lo, hi):
-        Rb_c = Rb[lo:hi].astype(kdt, copy=False)
-        tmp = np.matmul(Rb_c, batch.A_agg[lo:hi])
-        np.matmul(tmp, np.swapaxes(Rb_c, 1, 2), out=K[lo:hi])
-
-    _run_threaded(_blk, n_agg)
-    return AggBlocks(arows, t_s, Rb, K)
+    return arows, t_s, Rb
 
 
 def galerkin_product_from_blocks(blocks: AggBlocks, n_rows: int) -> sp.csr_matrix:
@@ -244,9 +264,8 @@ def _super_blocks_per_agg(batch, super_of_agg: np.ndarray,
     s_ok = skeys >= 0
     gpos = np.where(s_ok, np.searchsorted(member_keys, np.where(s_ok, skeys, 0))
                     - offs[G_of][:, None], m1_max)         # (n_agg, t_max)
-    flat = (G_of[:, None, None] * m1p + gpos[:, :, None]) * m1p + gpos[:, None, :]
-    A1 = _batched_scatter(flat, K, n_super * m1p * m1p).reshape(n_super, m1p, m1p)
-    M = _batched_scatter(flat, Mb, n_super * m1p * m1p).reshape(n_super, m1p, m1p)
+    from mfmg_torch import native
+    A1, M = native.scatter_super_blocks(G_of, gpos, K, Mb, n_super, m1p)
     A1 = A1[:, :m1_max, :m1_max]
     M = M[:, :m1_max, :m1_max]
     A1 = 0.5 * (A1 + np.swapaxes(A1, 1, 2))

@@ -31,6 +31,9 @@ class LaplaceProblem:
     A_loc: np.ndarray = None          # (n_cells, n_loc, n_loc) cell matrices
     diag_raw: np.ndarray = None       # raw (Neumann-assembled) global diagonal
     coeff_at_q: np.ndarray = None
+    # A_loc is the Laplace form of coefficient (no local_matrix_fn): the
+    # device eigensolve rebuilds the batch from geom and coeff_at_q only then
+    laplace_form: bool = True
     _A: sp.csr_matrix = dataclasses.field(default=None, repr=False)
 
     @property
@@ -65,6 +68,7 @@ class LaplaceProblem:
         self.geom = compute_geometry(self.mesh)
         self.coeff_at_q = self.coefficient(self.geom.qpoints_phys)
         fn = local_matrix_fn or local_stiffness_matrices
+        self.laplace_form = local_matrix_fn is None
         self.A_loc = fn(self.mesh, self.geom, self.coeff_at_q)
         # raw global diagonal straight from the cell matrices (no assembly)
         d_loc = np.einsum("cii->ci", self.A_loc)

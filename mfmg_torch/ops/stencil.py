@@ -169,13 +169,24 @@ def stencil_layout(mesh: Mesh):
     return offsets, oid_ab, grid_shape, n_nodes
 
 
+def stencil_scatter_plain(rows, oid_ab, A_loc, n_planes, n_nodes):
+    """The numpy version of native.stencil_scatter: (n_planes, n_nodes)
+    float64, coeffs[oid_ab[a, b], rows[c, a]] += A_loc[c, a, b] (one
+    bincount, summed in (c, a, b) order)."""
+    flat = oid_ab[None, :, :] * n_nodes + np.asarray(rows, np.int64)[:, :, None]
+    coeffs = np.bincount(flat.reshape(-1), weights=A_loc.reshape(-1),
+                         minlength=n_planes * n_nodes)
+    return coeffs.reshape(n_planes, n_nodes)
+
+
 def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
                                constrained: np.ndarray, diag_raw: np.ndarray,
                                dtype=torch.float32) -> StencilOperator:
     """Exact stencil extraction straight from the per-cell matrices (the
     global CSR is never assembled; dealii_matrix_free_hierarchy_helpers.cc:
-    55-303 analog).  One bincount scatters all cell matrices into their
-    offset planes; Dirichlet elimination is then applied in stencil form:
+    55-303 analog).  The host library's ``stencil_scatter`` adds every cell
+    matrix into its offset planes (``stencil_scatter_plain`` is its numpy
+    version); Dirichlet elimination is then applied in stencil form:
     constrained rows keep only the raw-diagonal center, and couplings into
     constrained columns are zeroed.  The planes stay on the host (setup
     reads them there); the hierarchy moves them once, at finalization."""
@@ -184,11 +195,9 @@ def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
                          "lexicographic dof numbering")
     k = mesh.degree
     offsets, oid_ab, grid_shape, n_nodes = stencil_layout(mesh)
-    rows = mesh.cells.astype(np.int64)               # (n_cells, n_loc)
-    flat = oid_ab[None, :, :] * n_nodes + rows[:, :, None]
-    coeffs = np.bincount(flat.reshape(-1), weights=A_loc.reshape(-1),
-                         minlength=len(offsets) * n_nodes)
-    coeffs = coeffs.reshape(len(offsets), n_nodes)
+    from mfmg_torch import native
+    coeffs = native.stencil_scatter(mesh.cells, oid_ab, A_loc, len(offsets),
+                                    n_nodes)
 
     con = constrained.reshape(grid_shape)
     con_pad = np.pad(con, k, constant_values=False)

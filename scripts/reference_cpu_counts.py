@@ -2,7 +2,7 @@
 chip_smoke.py.
 
     JAX_PLATFORMS=cpu python scripts/reference_cpu_counts.py N_REF DEGREE \
-        [--distort] [--max-levels L]
+        [--distort] [--max-levels L] [--device-pipeline]
 
 Builds mfmg_tpu's hierarchy (x64 enabled, on the CPU) for the main
 configuration of bench.py:97-103 (float32 with bf16 preconditioner planes,
@@ -13,6 +13,13 @@ b = default_rng(0).uniform(size=n) in float32, the right-hand side of
 chip_smoke.py.  Prints the level sizes, the iteration count, the recursive
 relres and the true relres ||b - A x|| / ||b|| in float64.  129^3 (N_REF 7,
 DEGREE 1) takes about a minute of setup.
+
+--device-pipeline sets level 0 up the way mfmg_tpu does on its accelerator:
+its device eigensolve (mfmg_tpu/eigen/device_eig.py, with supports()
+patched to True and the pipeline run with x64 off, its accelerator's
+types) and the Galerkin blocks against the batch it keeps
+(MFMG_DEVICE_GALERKIN).  The patches live in this script; mfmg_tpu is not
+edited.  The script fails if the hierarchy did not take that route.
 """
 
 import argparse
@@ -31,6 +38,7 @@ def main():
     ap.add_argument("degree", type=int)
     ap.add_argument("--distort", action="store_true")
     ap.add_argument("--max-levels", type=int, default=3)
+    ap.add_argument("--device-pipeline", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -51,7 +59,20 @@ def main():
         smoother=cfg.SmootherConfig(type="chebyshev", degree=2),
         agglomeration=cfg.AgglomerationConfig(nx=4, ny=4, nz=4),
         coarse=cfg.CoarseConfig(type="direct"))
+    if args.device_pipeline:
+        from mfmg_tpu.eigen import device_eig
+        run = device_eig.device_smallest_eigenpairs
+
+        def pipeline(*a, **k):
+            with jax.enable_x64(False):
+                return run(*a, **k)
+
+        device_eig.supports = lambda *a, **k: True
+        device_eig.device_smallest_eigenpairs = pipeline
+        os.environ["MFMG_DEVICE_GALERKIN"] = "1"
     hier = Hierarchy(prob, config)
+    if args.device_pipeline and hier._level0_eigendata[0].A_agg is not None:
+        sys.exit("the hierarchy did not take the device pipeline")
     print(f"setup {time.perf_counter() - t0:.1f} s, levels "
           f"{[lv.op.shape[0] for lv in hier.levels]}", flush=True)
     b = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
@@ -60,7 +81,8 @@ def main():
     true = (np.linalg.norm(b64 - prob.A @ np.asarray(x, dtype=np.float64))
             / np.linalg.norm(b64))
     print(f"n_ref {args.n_ref} degree {args.degree} distort {args.distort} "
-          f"max_levels {args.max_levels}: {prob.n_dofs} dofs, "
+          f"max_levels {args.max_levels} device_pipeline "
+          f"{args.device_pipeline}: {prob.n_dofs} dofs, "
           f"{int(info['iterations'])} iterations, relres "
           f"{float(info['relres']):.3e}, true relres {true:.3e}", flush=True)
 

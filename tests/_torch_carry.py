@@ -78,3 +78,15 @@ def main_path_config(cfg_mod, dtype, coeff_dtype=None):
         smoother=cfg_mod.SmootherConfig(type="chebyshev", degree=2),
         agglomeration=cfg_mod.AgglomerationConfig(nx=4, ny=4, nz=4),
         coarse=cfg_mod.CoarseConfig(type="direct"))
+
+
+def jax_probe(n_agg, m, n_probe):
+    """The reference device eigensolve's start block, as numpy: standard
+    normal float32 from jax.random with PRNGKey(0), drawn with x64 off as
+    the reference draws it on its accelerator."""
+    import jax
+    import jax.numpy as jnp
+    with jax.enable_x64(False):
+        return np.array(jax.random.normal(jax.random.PRNGKey(0),
+                                          (n_agg, m, n_probe),
+                                          dtype=jnp.float32))

@@ -11,6 +11,7 @@ import torch
 
 from mfmg_torch.amge.hierarchy import LevelData
 from mfmg_torch.ops import fused_cycle as fc
+from mfmg_torch.ops import transfer_kernels as ttk
 from mfmg_torch.ops.block_stencil import BlockStencilOperator
 from mfmg_torch.solve.coarse import DirectCoarseSolver
 from mfmg_torch.solve.smoothers import ChebyshevSmoother, _cheb_coeffs
@@ -151,12 +152,49 @@ def rounding_limit(ft: fc.FusedTail, b1: torch.Tensor, seed: int = 0):
     Every gap and the limit are relative in the max norm (``rel_inf``): a
     flip spreads over the outputs through inv2 and the post-smooth, a wrong
     index sits at its own outputs."""
-    ref = fc.fused_subcycle_apply_plain64(ft, b1)
+    return _rounding_limit(
+        ft, lambda perturb=None: fc.fused_subcycle_apply_plain64(ft, b1, perturb),
+        fc.fused_subcycle_apply_plain(ft, b1.float()), seed)
+
+
+def correction_plain64(ft: fc.FusedTail, res: torch.Tensor,
+                       perturb=None) -> torch.Tensor:
+    """The full mode's correction P . subcycle(R . res) in float64 (the
+    full output is x minus it), the sub-cycle rounding to bf16 where the
+    float32 one does (``fused_subcycle_apply_plain64``), the fine transfer
+    in float64 over the stored (bf16) fine weights."""
+    g = (ft.fine_window, ft.grid, ft.fine_grid)
+    W = ft.W.to(torch.float64)
+    b1 = ttk.structured_restrict_plain(W, res.to(torch.float64), *g)
+    x1 = fc.fused_subcycle_apply_plain64(ft, b1, perturb)
+    return ttk.structured_prolong_plain(W, x1, *g)
+
+
+def correction_of(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The correction a full-mode output applied to x: x - out, in float64."""
+    return x.double() - out.double()
+
+
+def rounding_limit_full(ft: fc.FusedTail, x: torch.Tensor, res: torch.Tensor,
+                        seed: int = 0):
+    """``rounding_limit`` for the full mode, read on its correction
+    (``correction_of(x, out)``) so that x does not dilute a wrong one: the
+    float64 correction (``correction_plain64``), the float32 plain version's
+    gap to it (its final float32 subtraction from x included) and the
+    perturbed draws of its sub-cycle, in the max norm of the correction."""
+    return _rounding_limit(
+        ft, lambda perturb=None: correction_plain64(ft, res, perturb),
+        correction_of(x, fc.fused_correction_apply_plain(ft, x.float(),
+                                                         res.float())), seed)
+
+
+def _rounding_limit(ft, run64, plain32, seed):
+    ref = run64()
     w = ft.win
     terms = {"r1": len(ft.offsets) * ft.n_comp + 1,
              "b2": int(np.prod(w["window_shape"])) * ft.n_comp if w else 1,
              "x2": ft.n2, "zy": 4 * (w["n_out"] if w else 1)}
-    f32 = rel_inf(fc.fused_subcycle_apply_plain(ft, b1.float()), ref)
+    f32 = rel_inf(plain32, ref)
     draws = []
     for d in range(ROUNDING_DRAWS):
         rng = np.random.default_rng([seed, d])
@@ -165,7 +203,7 @@ def rounding_limit(ft: fc.FusedTail, b1: torch.Tensor, seed: int = 0):
             u = torch.from_numpy(rng.uniform(-1, 1, tuple(v.shape))).to(v)
             return v + u * (np.sqrt(terms[point]) * 2.0 ** -24) * mag
 
-        draws.append(rel_inf(fc.fused_subcycle_apply_plain64(ft, b1, perturb), ref))
+        draws.append(rel_inf(run64(perturb), ref))
     limit = TAIL_TOL + ROUNDING_MARGIN * max([f32] + draws)
     return ref, limit, dict(plain_f32=f32, draws=draws)
 

@@ -261,18 +261,14 @@ BF16_STORAGE_GAP = 2e-3
 def test_cuda_hierarchy_matches_cpu(cuda):
     """The main-path configuration at 17^3 on the card against the same
     hierarchy on the CPU (plain versions; the card's bf16-weight fused tail
-    attached to the CPU levels too): same PCG iteration count, V-cycle
-    within 1e-5 relative, and all three kernels launched.  The card's
-    V-cycle is also held to the CPU generic recursion (no tail) within
-    BF16_STORAGE_GAP."""
-    cfg = tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
-                      coeff_dtype="bfloat16",
-                      eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
-                                                         n_eigenvectors_deep=4),
-                      smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
-                      agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
+    attached to the CPU levels too; both set up by the host route): same
+    PCG iteration count, V-cycle within 1e-5 relative, and all three
+    kernels launched.  The card's V-cycle is also held to the CPU generic
+    recursion (no tail) within BF16_STORAGE_GAP."""
+    cfg = _main_config(backend="host")
     prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
     hc, hg = Hierarchy(prob, cfg, device="cpu"), Hierarchy(prob, cfg)
+    assert hc.setup_route == hg.setup_route == "host"
     b = np.random.default_rng(2).uniform(size=prob.n_dofs).astype(np.float32)
     y_generic = hc.vmult(b)
     hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
@@ -437,8 +433,10 @@ def test_q2_hierarchy_runs_its_kernels(cuda):
     windows) once per V-cycle; the fine applies through K1/K2 where the
     host's numpy sums the cell matrices into bit-symmetric planes, else all
     through K3; the V-cycle equal to the CPU one with the same tail, the same
-    PCG count; the generic recursion launches K4 and K5 once each."""
-    hg = _hier_q2(4)
+    PCG count; the generic recursion launches K4 and K5 once each.  Both
+    set up by the host route."""
+    prob = LaplaceProblem.hyper_cube(3, 4, degree=2, material_property="linear")
+    hg = Hierarchy(prob, _main_config(backend="host"))
     ft = hg.levels[0].fused
     assert ft is not None and ft.fine_window == (9, 9, 9)
     hc = Hierarchy(hg.problem, _main_config(), device="cpu")
@@ -566,11 +564,12 @@ def test_hierarchy_to_moves_every_level(cuda):
 TAIL_TOL = 1e-5
 
 
-def _main_config():
-    return tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
-                       coeff_dtype="bfloat16",
+def _main_config(backend="auto", dtype="float32", coeff_dtype="bfloat16"):
+    return tcfg.Config(max_levels=3, operator="stencil", dtype=dtype,
+                       coeff_dtype=coeff_dtype,
                        eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
-                                                          n_eigenvectors_deep=4),
+                                                          n_eigenvectors_deep=4,
+                                                          backend=backend),
                        smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
                        agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
 
@@ -711,3 +710,69 @@ def test_fused_tail_wrappers_raise_on_mismatch(cuda):
     with pytest.raises(ValueError):
         tfc.fused_subcycle_apply(copy.deepcopy(ft).to("cpu"),
                                  torch.zeros(n1, device=cuda))
+
+
+# The device setup route (eigen/device_eig.py) on the card.  A 17^3 V-cycle
+# set up by the route against the same pipeline on the CPU fed the card's
+# probe block: 1e-4 relative (read 4.5e-6 on an H100, chip_smoke.py phase 4,
+# PERF.md: cuSOLVER's float32 roundoff against LAPACK's through the
+# level-0 and level-1 eigenvectors).  The pipeline against host ssyevx at
+# 33^3: the limits of chip_smoke.py phase 8.
+DEVICE_ROUTE_VCYCLE_TOL = 1e-4
+
+
+def test_device_route_matches_the_cpu_pipeline(cuda, monkeypatch):
+    from mfmg_torch.eigen import device_eig
+    prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    hg = Hierarchy(prob, _main_config())
+    assert hg.setup_route == "device"
+    supports, probe = device_eig.supports, device_eig.probe_block
+    monkeypatch.setattr(device_eig, "supports", lambda mesh, ids, device,
+                        geom=None: supports(mesh, ids, cuda, geom))
+    monkeypatch.setattr(device_eig, "probe_block", lambda n, m, p, device:
+                        probe(n, m, p, cuda).to(device))
+    hc = Hierarchy(prob, _main_config(), device="cpu")
+    assert hc.setup_route == "device"
+    hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
+    b = np.random.default_rng(3).uniform(size=prob.n_dofs).astype(np.float32)
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= DEVICE_ROUTE_VCYCLE_TOL
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+
+
+def test_float64_hierarchy_keeps_the_host_route(cuda):
+    """The device pipeline is float32: a float64 hierarchy on the card sets
+    up by the host route, with the CPU's coarse operators bit for bit and
+    its V-cycle to 1e-10."""
+    prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    cfg = _main_config(dtype="float64", coeff_dtype=None)
+    hg = Hierarchy(prob, cfg)
+    hc = Hierarchy(prob, cfg, device="cpu")
+    assert hg.setup_route == "host" == hc.setup_route
+    for level in (1, 2):
+        assert (hg._A_per_level[level] != hc._A_per_level[level]).nnz == 0
+    b = np.random.default_rng(4).uniform(size=prob.n_dofs)
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-10
+
+
+def test_own_cell_matrices_keep_the_host_route(cuda):
+    """A problem with its own local_matrix_fn sets up by the host route on
+    the card (the pipeline rebuilds only the Laplace form)."""
+    from mfmg_torch.fem.geometry import local_stiffness_matrices
+
+    def reaction_diffusion(mesh, geom, coeff_at_q):
+        A = local_stiffness_matrices(mesh, geom, coeff_at_q)
+        return A + 1e-2 * np.eye(A.shape[-1])
+
+    mesh = LaplaceProblem.hyper_cube(3, 4).mesh
+    prob = LaplaceProblem.from_mesh(mesh, "linear",
+                                    local_matrix_fn=reaction_diffusion)
+    assert Hierarchy(prob, _main_config()).setup_route == "host"
+
+
+def test_device_pipeline_against_host_syevx(cuda):
+    import chip_smoke
+    prob = LaplaceProblem.hyper_cube(3, 5, material_property="linear")
+    r = chip_smoke.check_setup_pipeline("33^3", prob, cuda)
+    assert r["n_agg"] == 512 and r["k_err"] <= chip_smoke.SETUP_K_TOL

@@ -440,3 +440,86 @@ def test_rounding_check_fails_on_an_indexing_error():
     shifted.win = dict(ft.win, t0=tuple(t + 1 for t in ft.win["t0"]))
     off = tfc.fused_subcycle_apply_plain(shifted, b1)
     assert tt.rel_inf(off, ref) > limit
+
+
+# ------------------------------ the windowed bf16 tail's check, full mode
+
+def _full_tail(grid):
+    """A windowed bf16 random tail with a fine transfer of 5^3 windows (the
+    4 x 4 x 4 agglomerates' full mode) whose coarse correction is a
+    hierarchy-like share of its sub-cycle's output."""
+    return tt.random_tail(grid, dense=False, fine_window=(5, 5, 5),
+                          inv2_scale=tt.HIERARCHY_INV2_SCALE)
+
+
+def _full_inputs(ft, seed):
+    """(x, res) as chip_smoke.py's full-mode rounding check draws them."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in
+                 (rng.uniform(size=ft.n_fine), rng.standard_normal(ft.n_fine)))
+
+
+def test_correction_plain64_rounds_where_the_plain_version_rounds():
+    """correction_plain64 is the full mode's plain arithmetic in float64 with
+    the sub-cycle's bf16 rounding points: x minus it equals the plain
+    version on float64 input bit for bit, and an identity perturbation
+    leaves it unchanged."""
+    ft = _full_tail((12, 12, 12))
+    x, res = _full_inputs(ft, 7)
+    corr = tt.correction_plain64(ft, res)
+    assert corr.dtype == torch.float64
+    assert torch.equal(x.double() - corr, tfc.fused_correction_apply_plain(
+        ft, x.double(), res.double()))
+    assert torch.equal(corr, tt.correction_plain64(ft, res,
+                                                   lambda point, v, mag: v))
+
+
+@pytest.mark.parametrize("grid", [(12, 12, 12), (16, 16, 16)], ids=["12^3", "16^3"])
+def test_full_rounding_check_holds_the_float32_plain_version(grid):
+    """On seeds 7-11, all five, the float32 plain version's correction lies
+    within rounding_limit_full of the float64 one, and the limit is a few
+    bf16 ulps of the correction, not more (<= TAIL_TOL + 4 x 2^-7).
+    Readings (CPU, both grids): the float32 gap 7.1e-7..2.8e-3 (a bf16
+    rounding flips in float32 on some seeds), the draws' largest
+    1.5e-4..4.2e-3, the limit 6.0e-4..1.7e-2."""
+    ft = _full_tail(grid)
+    for seed in (7, 8, 9, 10, 11):
+        x, res = _full_inputs(ft, seed)
+        ref, limit, _ = tt.rounding_limit_full(ft, x, res)
+        out = tfc.fused_correction_apply_plain(ft, x, res)
+        assert tt.rel_inf(tt.correction_of(x, out), ref) <= limit
+        assert limit <= tt.TAIL_TOL + tt.ROUNDING_MARGIN * 2.0 ** -7
+
+
+def _faulty_tails(ft):
+    """The tail with one planted fault each: the level-1 -> 2 windows one
+    site off (t0 shifted by one), the fine windows' weights one agglomerate
+    off along x, the fine weights' components swapped."""
+    shifted = copy.deepcopy(ft)
+    shifted.win = dict(ft.win, t0=tuple(t + 1 for t in ft.win["t0"]))
+    rolled = copy.deepcopy(ft)
+    rolled.W = torch.roll(ft.W, 1, dims=-1)
+    swapped = copy.deepcopy(ft)
+    swapped.W = ft.W.flip(0)
+    return {"window t0 + 1": shifted, "fine W rolled": rolled,
+            "fine W components swapped": swapped}
+
+
+def test_full_rounding_check_fails_on_indexing_errors():
+    """rounding_limit_full refuses, on every seed 7-11, a correction with one
+    wrong site (its largest entry replaced by its neighbour's), and the full
+    outputs of a tail with a planted fault (_faulty_tails).  Readings (CPU,
+    12^3): the wrong site 0.34-0.77, the faulty tails 0.59-1.09, against
+    limits of 6.0e-4..9.8e-3; x is 0.14-0.17 of the correction's size."""
+    ft = _full_tail((12, 12, 12))
+    faulty = _faulty_tails(ft)
+    for seed in (7, 8, 9, 10, 11):
+        x, res = _full_inputs(ft, seed)
+        ref, limit, _ = tt.rounding_limit_full(ft, x, res)
+        i = int(ref.abs().argmax())
+        wrong_site = ref.clone()
+        wrong_site[i] = ref[i + 1 if i + 1 < ref.numel() else i - 1]
+        assert tt.rel_inf(wrong_site, ref) > limit
+        for name, bad in faulty.items():
+            out = tfc.fused_correction_apply_plain(bad, x, res)
+            assert tt.rel_inf(tt.correction_of(x, out), ref) > limit, (name, seed)
