@@ -76,7 +76,23 @@ each phase prints its wall time):
     smallest singular value of V_dev^T V_host, max |K_dev - K_host| /
     max |K_host| for the same R, under the SETUP_* limits), with the time
     of each stage; then the whole 65^3 setup by the host route and by the
-    device route, in turns.
+    device route, in turns;
+ 9. the ELL operators and deeper hierarchies, each through Hierarchy and
+    solve_cg as a main path: (a) the distorted Q2 cube at three levels
+    (K3, K4/K5, ELL R/R^T at level 1 and an ELL level 2 of 2,048 dofs, no
+    tail); (b) Q1 65^3 at four levels (K1, K2's chain, K4/K5, window
+    transfers at levels 1-2, the level-2 restrictor through the per-cell
+    patch path, whose seconds it prints, Hierarchy.per_cell_levels == [2];
+    no tail); (c) Q1 65^3 with operator="ell" in float32 (ELL at every
+    level, level 1 through the per-cell path); each with its setup route and stages, its
+    levels' sizes and types, PCG counts and residuals under the reference's
+    limits, the kernel launches and ELL applies of one V-cycle, the V-cycle
+    in CUDA-event ms and profiler device ms, setup's peak host RSS and
+    device memory; an ELL apply against one torch.sparse CSR matvec of the
+    same matrix (the 65^3 fine operator, the distorted cube's level-1 R);
+    (d) the library's default Config (ELL, float64, Jacobi) with
+    is_preconditioner=False on hyper_cube(3, 2): its V-cycle rate on the
+    card against the CPU port.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -107,7 +123,12 @@ PCG_TOL, PCG_MAX = 1e-5, 50
 # Q2, 16 on the distorted Q2 cube with two levels), with one to spare at Q2
 # for another summation order.
 PCG_ITERS_MAX = {"65^3": 9, "129^3": 10, "Q2 65^3": 16, "Q2 65^3 one-sided": 16,
-                 "Q2 65^3 distorted": 17}
+                 "Q2 65^3 distorted": 17,
+                 # phase 9 (scripts/reference_cpu_counts.py): 16 on the
+                 # distorted cube at three levels, with the Q2 paths' spare;
+                 # 9 at four levels and 9 with operator="ell"
+                 "Q2 65^3 distorted 3 levels": 17, "65^3 4 levels": 9,
+                 "65^3 ELL": 9}
 # True residual ||b - A x|| / ||b|| in float64 of the float32 iterate.  The
 # float32 CG (the reference's own algorithm) stops on its recursive residual
 # (<= PCG_TOL); its true residual levels off near 2e-5 at 65^3: mfmg_tpu
@@ -122,6 +143,17 @@ TRUE_RES_MAX = 4e-5
 TRUE_RES_MAX_LARGE = 2 * 8.33e-5
 TRUE_RES_MAX_Q2 = 2 * 4.93e-5
 TRUE_RES_MAX_Q2_DISTORTED = 2 * 5.46e-5
+# phase 9, twice the reference's (scripts/reference_cpu_counts.py, the same
+# RHS): the distorted cube at three levels 5.453e-5 (16 iterations), Q1
+# 65^3 at four levels 2.018e-5 (9), operator="ell" 2.043e-5 (9)
+TRUE_RES_MAX_DISTORTED_3 = 1.09e-4
+TRUE_RES_MAX_DEEP = 2 * 2.018e-5
+TRUE_RES_MAX_ELL = 2 * 2.043e-5
+# the default Config's V-cycle rate on the card against the CPU port (phase
+# 9 (d)): float64 sums in another order
+DEFAULT_RATE_TOL = 1e-6
+# an ELL apply against torch.sparse's CSR matvec of the same float32 matrix
+ELL_TOL = 1e-5
 K1_TOL = 1e-5             # ||dy||_inf / ||y||_inf
 # K3, ||dy||_inf / ||y||_inf: float32 planes; bf16 planes hold the same bound,
 # since the kernel and its plain version accumulate in float32 the products
@@ -383,6 +415,61 @@ def check_setup_pipeline(label, prob, dev):
     return r
 
 
+class HostPeak:
+    """Peak resident set size of this process while the block runs, sampled
+    from /proc/self/statm every 5 ms by a thread (GiB; ``start`` the RSS
+    when it began)."""
+
+    def __init__(self):
+        import threading
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self.start = self.peak = self._rss()
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def ell_modules(hier):
+    """{name: ELLMatrix} of every ELL operator and transfer in a hierarchy."""
+    from mfmg_torch.ops.sparse import ELLMatrix
+    return {f"L{i}.{name}" if name else f"L{i}": m
+            for i, lv in enumerate(hier.levels)
+            for name, m in lv.named_modules() if isinstance(m, ELLMatrix)}
+
+
+def per_vcycle_launches(hier, bd, tk):
+    """Kernel launches and ELL applies (forward hooks, by module) of one
+    V-cycle, counts set to 0 just before it."""
+    applies = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, k=k: applies.__setitem__(k, applies.get(k, 0) + 1))
+        for k, m in ell_modules(hier).items()]
+    tk.reset_launch_counts()
+    try:
+        hier.vmult(bd)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: v for k, v in tk.LAUNCHES.items() if v}, applies
+
+
 class Phase:
     def __init__(self, name):
         self.name = name
@@ -419,6 +506,19 @@ def main():
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    problems = {}
+
+    def problem(key):
+        """The problems several phases share, built once."""
+        if key not in problems:
+            kw = dict(material_property="linear")
+            if key == "65^3":
+                problems[key] = LaplaceProblem.hyper_cube(3, N_REF, **kw)
+            elif key == "Q2 distorted":
+                problems[key] = LaplaceProblem.hyper_cube(
+                    3, N_REF_Q2, degree=2, distort_random=True, seed=0, **kw)
+        return problems[key]
+
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -707,13 +807,20 @@ def main():
         """Device time per V-cycle from torch.profiler: the events that ran
         on the card (kernels, copies, fills) over n cycles, in ms per cycle,
         with the largest eight by name and every row by name."""
+        by_name = device_ms_by_name(lambda: hier.vmult(bd), n)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
+
+    def device_ms_by_name(fn, n):
+        """{event name: device ms per call} from torch.profiler over n calls
+        of fn after one warm call."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        hier.vmult(bd)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                hier.vmult(bd)
+                fn()
             torch.cuda.synchronize()
         by_name = {}
         for e in prof.key_averages():
@@ -722,8 +829,7 @@ def main():
                 if us is None:
                     us = e.self_cuda_time_total
                 by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
+        return by_name
 
     class PlainTransfer(torch.nn.Module):
         """K4/K5's plain versions (the per-axis chain) on a level-0
@@ -763,21 +869,25 @@ def main():
         return hier.to("cuda")
 
     def run_main_path(label, prob, mode_full, kernels, route, max_levels=3,
-                      build=None):
+                      build=None, config=None, extras=True):
         """Hierarchy (or build()) + solve_cg with the counts set to 0 just
         before and read just after, each kernel of `kernels` launched at
         least once and the fine level's kernels as often as its operator
         calls for; the rest of the phase is measurement.  mode_full: the
         tail's mode (True full, False sub-cycle), None for a hierarchy
         without a tail; route: the level-0 setup route the hierarchy must
-        have taken ("device" or "host")."""
+        have taken ("device" or "host"); config: the Config (the main
+        configuration at max_levels if None); extras: also the PCG counts
+        with other smoothers and tails, and K2's forms in turns."""
         tk.reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hier = (build() if build is not None else
-                Hierarchy(prob, main_config(cfg, max_levels), device="cuda"))
-        torch.cuda.synchronize()
+        with HostPeak() as rss:
+            hier = (build() if build is not None else
+                    Hierarchy(prob, config or main_config(cfg, max_levels),
+                              device="cuda"))
+            torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         setup_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -791,10 +901,14 @@ def main():
         launches = dict(tk.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         sizes = [lv.op.shape[0] for lv in hier.levels]
+        types = [f"{type(lv.op).__name__}/{type(lv.transfer).__name__}"
+                 for lv in hier.levels]
         ft = hier.levels[0].fused
         print(f"{label}: setup {setup_s:.2f} s ({hier.setup_route} route, peak "
-              f"device memory {setup_peak / 2**30:.3f} GiB), levels {sizes}, "
-              f"smoother L0 {type(hier.levels[0].smoother).__name__}", flush=True)
+              f"device memory {setup_peak / 2**30:.3f} GiB, peak host RSS "
+              f"{rss.peak:.3f} GiB from {rss.start:.3f}), levels {sizes} "
+              f"({', '.join(types)}), smoother L0 "
+              f"{type(hier.levels[0].smoother).__name__}", flush=True)
         print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
                                              for k, v in hier.setup_seconds.items()),
               flush=True)
@@ -835,7 +949,10 @@ def main():
         # with the residual, the post-smooth without, each of the form its
         # rule gives) and one K1 per CG apply
         op0 = hier.levels[0].op
-        if op0.sym_pos is None:
+        if not isinstance(op0, st.StencilOperator):
+            want = dict(stencil_apply=0, stencil_apply_sym=0, cheb_smooth=0,
+                        cheb_smooth_blocked=0, cheb_smooth_chain=0)
+        elif op0.sym_pos is None:
             want = dict(stencil_apply=6 * n_cyc, stencil_apply_sym=0, cheb_smooth=0,
                         cheb_smooth_blocked=0, cheb_smooth_chain=0)
         else:
@@ -851,6 +968,9 @@ def main():
         check(got == want, f"{label}: fine-level launches {got}, not {want}")
         # same-call A/B: the tail and the generic recursion, in turns
         bd = torch.from_numpy(bh).to(dev)
+        cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+        print(f"  per V-cycle: kernel launches {cycle_launches}, ELL applies "
+              f"{cycle_ell}", flush=True)
         keys = ("generic",) if ft is None else ("tail", "generic")
         ab = {k: [] for k in keys}
         for key in ("tail", "generic", "generic", "tail"):
@@ -861,9 +981,9 @@ def main():
         for key in keys:
             hier.levels[0].fused = ft if key == "tail" else None
             dev_ms[key], dev_top[key], dev_rows[key] = device_ms_per_cycle(hier, bd)
-            if key == "generic" and ft is not None:
+            if key == "generic" and ft is not None and extras:
                 pcg[key] = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)[1]
-        if ft is not None:
+        if ft is not None and extras:
             # the tail with float32 weight storage, for the iteration count
             hier.levels[0].fused = fc.build_fused_tail(hier.levels, ft.nss)
             pcg["tail_f32_weights"] = hier.solve_cg(bh, tol=PCG_TOL,
@@ -872,7 +992,7 @@ def main():
         # K2's plain version as the smoother, for the iteration count
         fsm = hier.levels[0].smoother
         ab_k2, dev_k2 = {}, {}
-        if isinstance(fsm, FusedChebyshevSmoother):
+        if isinstance(fsm, FusedChebyshevSmoother) and extras:
             hier.levels[0].smoother = PlainChebyshev(fsm)
             pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
                                                        maxiter=PCG_MAX)[1]
@@ -904,12 +1024,20 @@ def main():
         for key in keys:
             print(f"  device ms/cycle by kernel ({key}): "
                   + "; ".join(f"{k} {v:.4f}" for k, v in dev_top[key]), flush=True)
-        print("  PCG in the same process: " + ", ".join(
-            f"{k} {v['iterations']} iterations (relres {v['relres']:.3e})"
-            for k, v in pcg.items()), flush=True)
+        if pcg:
+            print("  PCG in the same process: " + ", ".join(
+                f"{k} {v['iterations']} iterations (relres {v['relres']:.3e})"
+                for k, v in pcg.items()), flush=True)
         summary = dict(n_dofs=prob.n_dofs, setup_s=setup_s,
                        setup_route=hier.setup_route,
                        setup_peak_device_gib=setup_peak / 2**30,
+                       setup_peak_host_rss_gib=rss.peak,
+                       host_rss_before_setup_gib=rss.start,
+                       levels=sizes, level_types=types,
+                       launches_per_vcycle=cycle_launches,
+                       ell_applies_per_vcycle=cycle_ell,
+                       device_idle_share={k: 1.0 - dev_ms[k] / float(np.mean(ab[k]))
+                                          for k in dev_ms},
                        setup_stages=hier.setup_seconds,
                        pcg_iterations=info["iterations"], relres=info["relres"],
                        true_relres=tr, solve_s=solve_s,
@@ -944,7 +1072,7 @@ def main():
 
     # ---- 3. kernels against plain --------------------------------------
     with Phase("3 kernels at 65^3 and the tail at 17^3 / 33^3"):
-        prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
+        prob = problem("65^3")
         rng = np.random.default_rng(0)
         x = torch.from_numpy(rng.uniform(-1, 1, prob.n_dofs).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.uniform(size=prob.n_dofs).astype(np.float32)).to(dev)
@@ -1258,9 +1386,7 @@ def main():
         # (b) the distorted Q2 cube (general cell Jacobians): one-sided
         # planes on every host, two levels (its level-1 agglomerates are not
         # windowed), so every fine apply runs K3 and every V-cycle K4/K5
-        probd = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
-                                          material_property="linear",
-                                          distort_random=True, seed=0)
+        probd = problem("Q2 distorted")
         xq = torch.from_numpy(np.random.default_rng(10).uniform(
             -1, 1, probd.n_dofs).astype(np.float32)).to(dev)
         for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -1324,6 +1450,123 @@ def main():
                   flush=True)
         setup_pipeline["65^3 setup in turns"] = turns
 
+    # ---- 9. ELL operators and deeper hierarchies --------------------------
+    with Phase("9 ELL levels, four levels, the default Config"):
+        from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+        from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
+        from mfmg_torch.ops.structured_transfer import StructuredTransfer
+
+        def ell_vs_csr(name, ell, rng):
+            """An ELL apply against one torch.sparse CSR matvec of the same
+            matrix (padding dropped): events and profiler device time."""
+            x = torch.from_numpy(rng.standard_normal(ell.shape[1])).to(dev, ell.vals.dtype)
+            keep = ell.vals != 0
+            rows = torch.arange(ell.shape[0], device=dev)[:, None].expand_as(ell.cols)
+            A = torch.sparse_coo_tensor(
+                torch.stack([rows[keep], ell.cols[keep].long()]), ell.vals[keep],
+                ell.shape).coalesce().to_sparse_csr()
+            y, yl = ell(x), torch.mv(A, x)
+            torch.cuda.synchronize()
+            rel = float((y - yl).abs().max() / yl.abs().max())
+            check(bool(torch.isfinite(y).all()) and rel <= ELL_TOL,
+                  f"ELL {name}: |dy|/|y| {rel:.3e} against the CSR matvec")
+            r = dict(shape=list(ell.shape), width=ell.vals.shape[1],
+                     nnz=int(keep.sum()), dtype=str(ell.vals.dtype), rel_err=rel,
+                     ms=median_ms(lambda: ell(x)),
+                     csr_ms=median_ms(lambda: torch.mv(A, x)),
+                     device_ms=sum(device_ms_by_name(lambda: ell(x), 50).values()),
+                     csr_device_ms=sum(device_ms_by_name(lambda: torch.mv(A, x),
+                                                         50).values()))
+            variants[f"ell_apply/{name}"] = r
+            print(f"  ELL apply {name}: {json.dumps(r)}", flush=True)
+
+        # (a) the distorted Q2 cube at three levels: its level-1 transfer
+        # is not windowed (ELL R/R^T), level 2 is ELL and larger than
+        # level 1 (the reference's centroid-layer grouping), no tail
+        hier_a, summary_a, tr_a, _ = run_main_path(
+            "Q2 65^3 distorted 3 levels", problem("Q2 distorted"), None,
+            ("stencil_apply", "structured_restrict", "structured_prolong"),
+            "host", max_levels=3, extras=False)
+        check(tr_a <= TRUE_RES_MAX_DISTORTED_3, f"distorted Q2, three levels: "
+              f"true relres {tr_a:.3e} > {TRUE_RES_MAX_DISTORTED_3}")
+        check(summary_a["levels"] == [274625, 1024, 2048],
+              f"distorted Q2 levels {summary_a['levels']}")
+        la = hier_a.levels
+        check(isinstance(la[0].transfer, StructuredTransfer)
+              and isinstance(la[1].transfer, ELLTransfer)
+              and isinstance(la[2].op, ELLMatrix)
+              and hier_a.per_cell_levels == [],
+              f"distorted Q2 level types {summary_a['level_types']}, per-cell "
+              f"levels {hier_a.per_cell_levels}")
+        n_cyc = summary_a["pcg_iterations"] + 1
+        check(summary_a["launches"]["structured_restrict"] == n_cyc
+              and summary_a["launches"]["structured_prolong"] == n_cyc,
+              "distorted Q2, three levels: K4/K5 not once per V-cycle")
+        ell_vs_csr("distorted Q2 L1 R", la[1].transfer.R, np.random.default_rng(17))
+        del hier_a, la
+
+        # (b) Q1 65^3 at four levels: window transfers at levels 1-2, the
+        # level-2 restrictor through the per-cell patch path, no tail
+        hier_b, summary_b, tr_b, _ = run_main_path(
+            "65^3 4 levels", problem("65^3"), None,
+            ("stencil_apply_sym", "cheb_smooth", "cheb_smooth_chain",
+             "structured_restrict", "structured_prolong"),
+            "device", max_levels=4, extras=False)
+        check(tr_b <= TRUE_RES_MAX_DEEP,
+              f"65^3, four levels: true relres {tr_b:.3e} > {TRUE_RES_MAX_DEEP}")
+        check(summary_b["levels"] == [274625, 8192, 256, 4],
+              f"65^3 four levels: levels {summary_b['levels']}")
+        check(hier_b.per_cell_levels == [2], f"65^3, four levels: the per-cell "
+              f"patch path ran at levels {hier_b.per_cell_levels}, not [2]")
+        # the stage's seconds; setup's peak host RSS bounds the stage's
+        summary_b["restrictor_L2_s"] = hier_b.setup_seconds["restrictor L2"]
+        print(f"  restrictor L2 (per-cell patch path) "
+              f"{summary_b['restrictor_L2_s']:.2f} s; setup's peak host RSS "
+              f"{summary_b['setup_peak_host_rss_gib']:.3f} GiB", flush=True)
+        del hier_b
+
+        # (c) Q1 65^3 with operator="ell", float32: ELL at every level,
+        # the host SpGEMM Galerkin product, the device route's light
+        # batch (no Galerkin blocks) so level 1 takes the per-cell path
+        cfg_c = main_config(cfg)
+        cfg_c.operator = "ell"
+        hier_c, summary_c, tr_c, _ = run_main_path(
+            "65^3 ELL", problem("65^3"), None, (), "device", config=cfg_c,
+            extras=False)
+        check(tr_c <= TRUE_RES_MAX_ELL,
+              f"65^3 ELL: true relres {tr_c:.3e} > {TRUE_RES_MAX_ELL}")
+        check(all(isinstance(lv.op, ELLMatrix) for lv in hier_c.levels)
+              and hier_c._device_A is None,
+              f"65^3 ELL level types {summary_c['level_types']}")
+        check(hier_c.per_cell_levels == [1], f"65^3 ELL: the per-cell patch "
+              f"path ran at levels {hier_c.per_cell_levels}, not [1]")
+        check(summary_c["ell_applies_per_vcycle"].get("L0.op", 0) > 0,
+              "65^3 ELL: the fine ELL operator was not applied")
+        summary_c["restrictor_L1_s"] = hier_c.setup_seconds["restrictor L1"]
+        ell_vs_csr("65^3 fine A", hier_c.levels[0].op, np.random.default_rng(18))
+        del hier_c
+
+        # (d) the library's default Config (ELL, float64, Jacobi, two levels)
+        # with is_preconditioner=False: its V-cycle rate on the card against
+        # the CPU port
+        prob_d = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+        h_d = Hierarchy(prob_d, cfg.Config(is_preconditioner=False))
+        rate_gpu = measure_vcycle_rate(h_d)
+        rate_cpu = measure_vcycle_rate(Hierarchy(prob_d, cfg.Config(
+            is_preconditioner=False), device="cpu"))
+        check(h_d.device.type == "cuda" and all(
+            t.is_cuda for lv in h_d.levels for t in lv.buffers()),
+            "the default Config's levels are not on the card")
+        summary_d = dict(rate_gpu=rate_gpu, rate_cpu=rate_cpu,
+                         levels=[lv.op.shape[0] for lv in h_d.levels],
+                         setup_route=h_d.setup_route)
+        print(f"default Config: V-cycle rate {rate_gpu!r} (card) vs "
+              f"{rate_cpu!r} (CPU), levels {summary_d['levels']}, "
+              f"{h_d.setup_route} route", flush=True)
+        check(abs(rate_gpu - rate_cpu) <= DEFAULT_RATE_TOL,
+              f"default Config rate {rate_gpu} (card) vs {rate_cpu} (CPU)")
+        del h_d
+
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
 
@@ -1386,7 +1629,10 @@ def main():
     ]
     summaries = {"65^3": summary65, "129^3": summary129, "Q2 65^3": summaryq,
                  "Q2 65^3 one-sided": summaryo,
-                 "Q2 65^3 distorted": summaryd}
+                 "Q2 65^3 distorted": summaryd,
+                 "Q2 65^3 distorted 3 levels": summary_a,
+                 "65^3 4 levels": summary_b, "65^3 ELL": summary_c,
+                 "default Config": summary_d}
     for label, s in summaries.items():
         if s is not None:
             s["card"] = card

@@ -1,16 +1,19 @@
 """The multigrid hierarchy: host setup, then a V-cycle of PyTorch modules.
 
 Port of mfmg_tpu/amge/hierarchy.py (reference include/mfmg/common/
-hierarchy.hpp:155-309) for structured stencil hierarchies.  Each level is a
-``LevelData`` module (operator, smoother, transfer, coarse solver); setup
-runs on the host in numpy/scipy exactly as in the reference, and each level
-is moved to the hierarchy's device once, when it is appended.
+hierarchy.hpp:155-309) for the stencil and the assembled (ELL) operator
+paths.  Each level is a ``LevelData`` module (operator, smoother, transfer,
+coarse solver); setup runs on the host in numpy/scipy exactly as in the
+reference, and each level is moved to the hierarchy's device once, when it
+is appended.
 
 Setup pipeline per level (hierarchy.hpp:178-234):
     operator -> smoother -> agglomerates -> batched eigensolve -> R (PoU
-    weighted) -> A_coarse = R A R^T (per-agglomerate Galerkin blocks) ->
-    structured transfer + block-stencil coarse operator -> recurse / coarse
-    solver.
+    weighted) -> A_coarse = R A R^T (per-agglomerate Galerkin blocks with
+    fast_ap, the host SpGEMM without) -> transfer (structured or window on
+    a structured agglomerate grid, else R and R^T as ELL matrices) ->
+    coarse operator (block stencil inside its window, else ELL) -> recurse
+    / coarse solver.
 
 Level 0 on the card takes the reference's device route (its accelerator
 route, mfmg_tpu/amge/hierarchy.py:494-517): a light agglomerate batch, the
@@ -59,8 +62,11 @@ class LevelData(nn.Module):
                  fused=None):
         super().__init__()
         self.op = op                      # StencilOperator | BlockStencilOperator
+                                          # | ELLMatrix
         self.smoother = smoother          # None on the coarsest level
-        self.transfer = transfer          # restriction into the next level
+        self.transfer = transfer          # restriction into the next level:
+                                          # Structured-, GeneralWindow- or
+                                          # ELLTransfer
         self.coarse = coarse              # coarse solver on the coarsest level
         self.fused = fused                # FusedTail: the whole coarse tail in
                                           # one kernel launch (level 0 only)
@@ -144,14 +150,16 @@ class Hierarchy:
     (hierarchy.hpp:159-236), level 0's eigensolve and Galerkin blocks on the
     device where the device route applies, and places every level on
     ``device``.  ``setup_route`` is "device" or "host"; ``setup_seconds``
-    holds the seconds of each setup stage.
+    holds the seconds of each setup stage; ``per_cell_levels`` the levels
+    whose restrictor took the per-cell patch path.
 
     device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
     device and never falls back to the CPU.
-    Supported configurations: operator="stencil" on a structured mesh,
-    block agglomerates, the "lapack" eigensolver, Jacobi or Chebyshev
-    smoothing, and the "direct" coarse solver; anything else raises
-    NotImplementedError naming its ROADMAP item.
+    Supported configurations: operator="stencil" or "ell" (the default) on
+    a structured mesh, block agglomerates, the "lapack" eigensolver, Jacobi
+    or Chebyshev smoothing, and the "direct" coarse solver, at any
+    max_levels; anything else raises NotImplementedError naming its ROADMAP
+    item.
     """
 
     def __init__(self, problem, config: Config | None = None, device="cuda"):
@@ -162,15 +170,17 @@ class Hierarchy:
         self.levels = nn.ModuleList()
         self.setup_seconds = {}
         self.setup_route = None
+        self.per_cell_levels = []
         self._exact_op_cache = None
         self._device_A = None
+        self._level0_blocks = None
         self._check_supported()
         self._setup()
 
     def _check_supported(self):
         cfg = self.config
         unsupported = []
-        if cfg.operator != "stencil":
+        if cfg.operator not in ("stencil", "ell"):
             unsupported.append(f"operator={cfg.operator!r} (Slice E)")
         if cfg.distributed_setup:
             unsupported.append("distributed_setup (Slice G)")
@@ -179,8 +189,6 @@ class Hierarchy:
         if cfg.eigensolver.constrained_mode not in ("auto", "pin"):
             unsupported.append(f"constrained_mode "
                                f"{cfg.eigensolver.constrained_mode!r} (Slice E)")
-        if cfg.fast_ap is False:
-            unsupported.append("fast_ap=False (Slice E)")
         if unsupported:
             raise NotImplementedError("mfmg_torch does not support "
                                       + ", ".join(unsupported)
@@ -192,6 +200,7 @@ class Hierarchy:
                                                 agg_galerkin_blocks,
                                                 galerkin_product_from_blocks)
         from mfmg_torch.ops.block_stencil import block_stencil_from_csr
+        from mfmg_torch.ops.sparse import ell_from_scipy, ell_transfer_from_scipy
         from mfmg_torch.ops.stencil import stencil_from_cell_matrices
         from mfmg_torch.ops.structured_transfer import (
             general_window_transfer_from_csr, structured_transfer_from_batch)
@@ -200,13 +209,28 @@ class Hierarchy:
         mark = self._mark
         cfg = self.config
         problem = self.problem
-        # coeff_dtype (e.g. bfloat16) reduces the fine apply's byte stream in
-        # the preconditioner only; the outer CG uses the exact-dtype operator
-        coeff_dt = _torch_dtype(cfg.coeff_dtype) if cfg.coeff_dtype else self.dtype
-        op = stencil_from_cell_matrices(problem.mesh, problem.A_loc,
-                                        problem.constrained, problem.diag_raw,
-                                        dtype=coeff_dt)
-        A_per_level = [None]          # the fine matrix is never assembled
+        stencil = cfg.operator == "stencil"
+        # fast_ap auto: the per-agglomerate Galerkin blocks for the stencil
+        # path (the fine matrix is never assembled), the host SpGEMM for the
+        # assembled ELL path (mfmg_tpu/amge/hierarchy.py:155-171)
+        fast_ap = stencil if cfg.fast_ap is None else bool(cfg.fast_ap)
+        self._fast_ap = fast_ap
+        if stencil:
+            # coeff_dtype (e.g. bfloat16) reduces the fine apply's byte
+            # stream in the preconditioner only; the outer CG uses the
+            # exact-dtype operator
+            coeff_dt = (_torch_dtype(cfg.coeff_dtype) if cfg.coeff_dtype
+                        else self.dtype)
+            op = stencil_from_cell_matrices(problem.mesh, problem.A_loc,
+                                            problem.constrained,
+                                            problem.diag_raw, dtype=coeff_dt)
+        else:
+            op = problem.ell_operator(dtype=self.dtype)
+        # the fine matrix is assembled unless the stencil path has fast_ap
+        A_per_level = [None if (fast_ap and stencil) else problem.A]
+        self._A_shapes = [(problem.n_dofs, problem.n_dofs)]
+        self._A_nnzs = [problem.A.nnz if A_per_level[0] is not None
+                        else self._op_nnz(op)]
         mark("fine operator")
 
         n_ev0 = cfg.eigensolver.n_eigenvectors
@@ -226,10 +250,10 @@ class Hierarchy:
             mark(f"smoother L{level}")
             R = self._build_restrictor(level, A_per_level)
             mark(f"restrictor L{level}")
-            if level == 0:
+            if fast_ap and level == 0:
                 # matrix-free Galerkin product R A R^T from per-agglomerate
                 # blocks Rb_a A_a Rb_a^T (reused by the level-1 restrictor)
-                batch, _, evecs = self._level0_eigendata
+                batch = self._level0_eigendata[0]
                 dof_rows, dof_vals = _dof_row_structure(R)
                 if self._device_A is not None:
                     from mfmg_torch.eigen.device_eig import \
@@ -247,38 +271,45 @@ class Hierarchy:
                     mark("host Galerkin blocks L0")
                 A_coarse = galerkin_product_from_blocks(blocks, R.shape[0])
                 self._level0_blocks = blocks
+            else:
+                A_coarse = (R @ A_per_level[level] @ R.T).tocsr()
+            A_per_level.append(A_coarse)
+            self._A_shapes.append(A_coarse.shape)
+            self._A_nnzs.append(A_coarse.nnz)
+            mark(f"galerkin product L{level}")
+
+            # a structured agglomerate grid gives a gather-free transfer and
+            # a block-stencil coarse operator; any other level takes R and
+            # R^T, and an operator outside the block-stencil window, as ELL
+            transfer = None
+            if level == 0 and stencil:
+                batch, _, evecs = self._level0_eigendata
                 transfer = structured_transfer_from_batch(
                     problem.mesh, batch, evecs, problem.diag_raw,
                     dtype=self.dtype)
-                if transfer is not None:
-                    agg_grid = transfer.agg_shape
-                    coarse_grid, n_comp = agg_grid, n_ev0
-            else:
-                A_coarse = (R @ A_per_level[level] @ R.T).tocsr()
+                agg_grid = transfer.agg_shape if transfer is not None else None
+                coarse_grid, n_comp = agg_grid, n_ev0
+            elif level > 0 and stencil and agg_grid is not None:
                 in_comp = n_ev0 if level == 1 else n_evd
                 out_grid = tuple(reversed(self._super_grid_xyz))
                 stride = tuple(reversed(cfg.agglomeration.block_dims(
                     problem.mesh.dim)))
-                transfer = (general_window_transfer_from_csr(
+                transfer = general_window_transfer_from_csr(
                     R, agg_grid, in_comp, out_grid, n_evd, stride,
-                    dtype=self.dtype) if agg_grid is not None else None)
+                    dtype=self.dtype)
                 if transfer is not None:
                     agg_grid = out_grid
                     coarse_grid, n_comp = out_grid, n_evd
-            A_per_level.append(A_coarse)
-            mark(f"galerkin product L{level}")
-            if transfer is None:
-                raise NotImplementedError(
-                    "unstructured coarse levels (ELL restriction) are not "
-                    "ported yet (ROADMAP Queue 1, Slice E)")
+            op_coarse = None
+            if transfer is not None:
+                op_coarse = block_stencil_from_csr(A_coarse, coarse_grid, n_comp,
+                                                   dtype=self.dtype)
+            else:
+                transfer = ell_transfer_from_scipy(R, dtype=self.dtype)
+            if op_coarse is None:
+                op_coarse = ell_from_scipy(A_coarse, dtype=self.dtype)
             self._append(LevelData(op, smoother=smoother, transfer=transfer))
-            # a structured agglomerate grid's coarse operator is a block stencil
-            op = block_stencil_from_csr(A_coarse, coarse_grid, n_comp,
-                                        dtype=self.dtype)
-            if op is None:
-                raise NotImplementedError(
-                    "coarse operators outside the block-stencil window (ELL) "
-                    "are not ported yet (ROADMAP Queue 1, Slice E)")
+            op = op_coarse
             mark(f"level L{level} placed on {self.device}")
         self._A_per_level = A_per_level
         self._finalize_cuda_kernels()
@@ -354,14 +385,17 @@ class Hierarchy:
                         problem.mesh, problem.A_loc, agg_ids,
                         batch_dtype=batch_dtype, assemble_operator=False)
                     self._mark("light batch L0")
-                    # the dense batch is assembled, solved and kept on the
-                    # device for the Galerkin blocks; no host fallback
-                    evals, evecs, self._device_A = \
-                        device_eig.device_smallest_eigenpairs(
-                            problem, agg_ids, batch, n_ev, keep_A=True,
-                            device=self.device,
-                            mark=lambda stage: self._mark(
-                                f"device eigensolve L0: {stage}"))
+                    # the dense batch is assembled and solved on the device,
+                    # and kept there for the Galerkin blocks when fast_ap
+                    # forms them (without fast_ap nothing consumes it); no
+                    # host fallback
+                    out = device_eig.device_smallest_eigenpairs(
+                        problem, agg_ids, batch, n_ev, keep_A=self._fast_ap,
+                        device=self.device,
+                        mark=lambda stage: self._mark(
+                            f"device eigensolve L0: {stage}"))
+                    evals, evecs = out[:2]
+                    self._device_A = out[2] if self._fast_ap else None
                     self.setup_route = "device"
             if self.setup_route == "host":
                 batch = build_agglomerate_batch(problem.mesh, problem.A_loc,
@@ -381,11 +415,23 @@ class Hierarchy:
         from mfmg_torch.amge.multilevel import build_recursive_restriction
         n_evd = (cfg.eigensolver.n_eigenvectors_deep
                  or cfg.eigensolver.n_eigenvectors)
+        # level 1 sums its patches from the level-0 agglomerates' blocks
+        # where the batch is dense or its Galerkin blocks exist; a light
+        # batch without blocks (the device route without fast_ap) and every
+        # deeper level take the per-cell patch path
+        # (mfmg_tpu/amge/hierarchy.py:550-562)
+        prev_batch = self._level0_eigendata[0] if level == 1 else None
+        prev_blocks = self._level0_blocks if level == 1 else None
+        if (prev_batch is not None and prev_batch.A_agg is None
+                and prev_blocks is None):
+            prev_batch = None
+        if prev_batch is None:
+            self.per_cell_levels.append(level)
         R_l, cell_super, super_grid = build_recursive_restriction(
-            problem.mesh, self._cell_agg, self._R_composed, A_per_level[level],
-            n_evd, cfg.agglomeration.block_dims(problem.mesh.dim),
-            prev_batch=self._level0_eigendata[0] if level == 1 else None,
-            prev_blocks=self._level0_blocks if level == 1 else None)
+            problem.mesh, problem.A_loc, self._cell_agg, self._R_composed,
+            A_per_level[level], problem.constrained, n_evd,
+            cfg.agglomeration.block_dims(problem.mesh.dim),
+            prev_batch=prev_batch, prev_blocks=prev_blocks)
         self._cell_agg = cell_super
         self._R_composed = (R_l @ self._R_composed).tocsr()
         self._super_grid_xyz = super_grid
@@ -443,7 +489,8 @@ class Hierarchy:
         storage (bf16 preconditioner), this builds (once) the exact operator
         so CG solves the unperturbed system."""
         cfg = self.config
-        if not cfg.coeff_dtype or _torch_dtype(cfg.coeff_dtype) == self.dtype:
+        if (cfg.operator != "stencil" or not cfg.coeff_dtype
+                or _torch_dtype(cfg.coeff_dtype) == self.dtype):
             return self.levels[0].op
         if self._exact_op_cache is None:
             from mfmg_torch.ops.stencil import (stencil_from_cell_matrices,
@@ -454,6 +501,28 @@ class Hierarchy:
                                            p.diag_raw, dtype=self.dtype),
                 self.device)
         return self._exact_op_cache
+
+    # ------------------------------------------------------------ metrics --
+    @staticmethod
+    def _op_nnz(op) -> int:
+        """Operator nonzero count without assembling anything global (the
+        stored planes or ELL values that are not zero)."""
+        from mfmg_torch.ops.sparse import ELLMatrix
+        from mfmg_torch.ops.stencil import StencilOperator
+        if isinstance(op, StencilOperator):
+            return int(torch.count_nonzero(op.coeffs))
+        if isinstance(op, ELLMatrix):
+            return int(torch.count_nonzero(op.vals))
+        raise TypeError(f"no nonzero count for {type(op).__name__}")
+
+    def grid_complexity(self) -> float:
+        """Sum of the level sizes over the fine size (operator.hpp:49-51)."""
+        sizes = [s[0] for s in self._A_shapes]
+        return sum(sizes) / sizes[0]
+
+    def operator_complexity(self) -> float:
+        """Sum of the levels' nonzeros over the fine operator's."""
+        return sum(self._A_nnzs) / self._A_nnzs[0]
 
 
 def measure_vcycle_rate(hierarchy: Hierarchy, n_cycles: int = 20, seed: int = 0):
@@ -497,29 +566,37 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelDat
     meta = {"levels": [per-level dict]}; each per-level dict has
       "op": {"type": "stencil", "offsets", "grid_shape", "sym_pos"} or
             {"type": "block_stencil", "offsets", "agg_shape", "n_comp",
-             "radius"},
-      "smoother": None | {"type": "chebyshev", "theta", "delta", "degree"},
+             "radius"} or {"type": "ell", "n_cols"},
+      "smoother": None | {"type": "chebyshev", "theta", "delta", "degree"}
+                  | {"type": "jacobi", "omega"},
       "transfer": None | {"type": "structured", "window_shape", "agg_shape",
                   "grid_shape"} | {"type": "general", "window_shape", "t0",
-                  "stride", "in_grid", "out_grid", "n_in", "n_out"},
+                  "stride", "in_grid", "out_grid", "n_in", "n_out"}
+                  | {"type": "ell", "n_fine", "n_coarse"},
       "coarse": None | {"type": "direct"}.
-    arrays holds "L{l}.op.coeffs", "L{l}.smoother.inv_diag",
-    "L{l}.transfer.W", "L{l}.transfer.Rd" (general, optional) and
-    "L{l}.coarse.inv"; each array keeps its dtype.  The levels go to
-    ``device``, the card unless the caller asks for the CPU.
+    arrays holds "L{l}.op.coeffs" (ELL: "L{l}.op.vals", "L{l}.op.cols"),
+    "L{l}.smoother.inv_diag", "L{l}.transfer.W", "L{l}.transfer.Rd"
+    (general, optional), "L{l}.transfer.R.vals/cols" and
+    "L{l}.transfer.RT.vals/cols" (ELL) and "L{l}.coarse.inv"; each array
+    keeps its dtype.  The levels go to ``device``, the card unless the
+    caller asks for the CPU.
     """
     from mfmg_torch.ops.block_stencil import BlockStencilOperator
+    from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
     from mfmg_torch.ops.stencil import StencilOperator, stencil_to_device
     from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
                                                     StructuredTransfer)
     from mfmg_torch.solve.coarse import DirectCoarseSolver
-    from mfmg_torch.solve.smoothers import ChebyshevSmoother
+    from mfmg_torch.solve.smoothers import ChebyshevSmoother, JacobiSmoother
 
     def t(key):
         a = np.asarray(arrays[key])
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         return torch.from_numpy(np.array(a))      # a writable copy
+
+    def ell(key, n_cols):
+        return ELLMatrix(t(key + ".vals"), t(key + ".cols"), n_cols)
 
     device = _checked_device(device)
     levels = []
@@ -534,6 +611,8 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelDat
             op = BlockStencilOperator(t(pre + "op.coeffs"), mo["offsets"],
                                       mo["agg_shape"], mo["n_comp"],
                                       mo.get("radius", 1))
+        elif mo["type"] == "ell":
+            op = ell(pre + "op", mo["n_cols"])
         else:
             raise ValueError(f"unknown operator type {mo['type']!r}")
         smoother = None
@@ -541,6 +620,8 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelDat
         if ms is not None and ms["type"] == "chebyshev":
             smoother = ChebyshevSmoother(t(pre + "smoother.inv_diag"),
                                          ms["theta"], ms["delta"], ms["degree"])
+        elif ms is not None and ms["type"] == "jacobi":
+            smoother = JacobiSmoother(t(pre + "smoother.inv_diag"), ms["omega"])
         elif ms is not None:
             raise ValueError(f"unknown smoother type {ms['type']!r}")
         transfer = None
@@ -555,6 +636,9 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelDat
                 t(pre + "transfer.W"), mt["window_shape"], mt["t0"],
                 mt["stride"], mt["in_grid"], mt["out_grid"], mt["n_in"],
                 mt["n_out"], Rd=Rd)
+        elif mt is not None and mt["type"] == "ell":
+            transfer = ELLTransfer(ell(pre + "transfer.R", mt["n_fine"]),
+                                   ell(pre + "transfer.RT", mt["n_coarse"]))
         elif mt is not None:
             raise ValueError(f"unknown transfer type {mt['type']!r}")
         coarse = None

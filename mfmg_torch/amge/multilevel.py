@@ -1,24 +1,27 @@
 """Recursive spectral AMGe: level l >= 1 built with the level-0 machinery.
 
-Port of the parts of mfmg_tpu/amge/multilevel.py that a three-level
-structured hierarchy runs (host numpy/scipy, with the restriction blocks and
-the per-super scatter in the host library, ``native.py``).  The reference
-caps its own AMGe at 2 levels and delegates deeper hierarchies to ML/AMGX
-(hierarchy.hpp:172, dealii_solver.cc); here level 1 repeats the level-0
-construction on super-agglomerates:
+Port of mfmg_tpu/amge/multilevel.py (host numpy/scipy, with the restriction
+blocks and the per-super scatter in the host library, ``native.py``).  The
+reference caps its own AMGe at 2 levels and delegates deeper hierarchies to
+ML/AMGX (hierarchy.hpp:172, dealii_solver.cc); here level l >= 1 repeats
+the level-0 construction on super-agglomerates:
 
-  * level-1 agglomerates = groups of level-0 agglomerates,
+  * level-l agglomerates = groups of level-(l-1) agglomerates,
   * the local operator of super-agglomerate G is the Galerkin restriction of
-    G's Neumann-assembled fine patch, A_G = R_G A_G R_G^T, summed from the
-    per-agglomerate blocks K_a = Rb_a A_a Rb_a^T (one batched matmul per
-    level-0 agglomerate, reused by the global Galerkin product),
-  * the local space spans every level-0 coarse dof whose support touches G,
+    G's Neumann-assembled fine patch, A_G = R_G A_G R_G^T.  At level 1 with
+    the level-0 batch (or its Galerkin blocks) at hand it is summed from
+    the per-agglomerate blocks K_a = Rb_a A_a Rb_a^T (one batched matmul per
+    level-0 agglomerate, reused by the global Galerkin product); at every
+    deeper level, and at level 1 when only a light batch without blocks
+    exists, from the per-cell blocks K_c = R_c A_c R_c^T (the per-cell patch
+    path, ``_super_blocks_per_cell``), in chunks of cells,
+  * the local space spans every previous-level coarse dof whose support
+    touches G,
   * the eigenproblem is solved in the orthonormalized function space of the
     patch Gram M_G = R_G R_G^T (rank-revealing pivoted Cholesky, eigh as the
-    fallback), and PoU weights w_i = diag(A_G)_i / diag(A_1)_i.
+    fallback), and PoU weights w_i = diag(A_G)_i / diag(A_l)_i.
 
-The per-cell block path (levels >= 2, i.e. max_levels > 3), the
-interior-only local spaces and the distributed slabs are not ported yet
+The interior-only local spaces and the distributed slabs are not ported yet
 (ROADMAP Queue 1, Slices E and G).
 """
 
@@ -97,32 +100,177 @@ _RANK_TOL = 1e-8      # eigh basis: keep lam > tol * lam_max
 _PSTRF_TOL = 1e-6     # dpstrf pivot tolerance
 
 
-def build_recursive_restriction(mesh: Mesh, cell_agg_prev: np.ndarray,
+def build_recursive_restriction(mesh: Mesh, A_loc: np.ndarray,
+                                cell_agg_prev: np.ndarray,
                                 R_prev_local: sp.csr_matrix,
                                 A_coarse_prev: sp.csr_matrix,
+                                boundary_dofs: np.ndarray,
                                 n_ev: int, block_dims,
-                                prev_batch, prev_blocks=None) -> tuple:
-    """One more AMGe level over the level-0 agglomerates; returns (R_l csr
-    over the previous coarse space, cell_super, super_grid).  With
-    prev_blocks given, prev_batch may be light (no A_agg): only its dof map
-    and valid mask are read, as in the reference's level 1."""
+                                prev_batch=None, prev_blocks=None) -> tuple:
+    """One more AMGe level; returns (R_l csr over the previous coarse space,
+    cell_super, super_grid).
+
+    prev_batch: the previous level's AgglomerateBatch when it is the level-0
+    batch (level 1): the per-agglomerate block path, with prev_blocks (the
+    Galerkin blocks) or the batch's dense A_agg.  Otherwise (prev_batch None:
+    levels >= 2, or a light level-0 batch without blocks) the per-cell patch
+    path over the cell matrices A_loc, with the constrained fine dofs
+    (boundary_dofs) eliminated from the patch operator."""
     super_of_agg, super_grid = group_agglomerates(mesh, cell_agg_prev, block_dims)
-    if prev_batch is None or prev_batch.n_agg != len(super_of_agg):
-        raise NotImplementedError(
-            "recursive levels beyond the first (max_levels > 3) need the "
-            "per-cell patch assembly, which is not ported yet (ROADMAP "
-            "Queue 1, Slice E)")
     cell_super = super_of_agg[cell_agg_prev]
     n_super = int(cell_super.max()) + 1
     n_rows_prev = A_coarse_prev.shape[0]
     coarse_diag = np.asarray(A_coarse_prev.diagonal())
     dof_rows, dof_vals = _dof_row_structure(R_prev_local.tocsr())
-    A1, M, m1s, member_pad = _super_blocks_per_agg(
-        prev_batch, super_of_agg, dof_rows, dof_vals, n_rows_prev, n_super,
-        blocks=prev_blocks)
+    if prev_batch is not None and prev_batch.n_agg == len(super_of_agg):
+        A1, M, m1s, member_pad = _super_blocks_per_agg(
+            prev_batch, super_of_agg, dof_rows, dof_vals, n_rows_prev, n_super,
+            blocks=prev_blocks)
+    else:
+        A1, M, m1s, member_pad = _super_blocks_per_cell(
+            mesh, A_loc, cell_super, dof_rows, dof_vals, boundary_dofs,
+            n_rows_prev, n_super)
     R_l = _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
                               n_rows_prev, n_super)
     return R_l, cell_super, super_grid
+
+
+# bytes of the per-cell path's largest per-chunk arrays: the chunk of cells
+# is sized so that each of them stays near this (the K blocks, their scatter
+# indices, the row tables), which holds the stage's own arrays near 2 GB in
+# all whatever the cell count
+CELL_CHUNK_BYTES = 256 << 20
+
+
+def _sorted_cell_rows(cells, dof_rows, n_rows_prev):
+    """The coarse rows of every (dof, row) slot of a chunk of cells, sorted
+    per cell: (cr (nc, n_loc, q) with -1 padding, order, the sorting
+    permutation of each cell's slots, srt, the sorted rows with the padding
+    as n_rows_prev, and new, True at each row's first slot)."""
+    cr = dof_rows[cells]                                   # (nc, n_loc, q)
+    nc = cr.shape[0]
+    flat = np.where(cr >= 0, cr, n_rows_prev).reshape(nc, -1)
+    order = np.argsort(flat, axis=1, kind="stable")
+    srt = np.take_along_axis(flat, order, axis=1)
+    new = np.concatenate([np.ones((nc, 1), bool), srt[:, 1:] != srt[:, :-1]],
+                         axis=1) & (srt < n_rows_prev)
+    return cr, order, srt, new
+
+
+def _cell_row_tables(cells, dof_rows, n_rows_prev):
+    """Per-cell coarse row bases for a chunk of cells: (crows (nc, r_max)
+    int64, the sorted coarse rows touching each cell, padded with
+    n_rows_prev; pos (nc, n_loc, q), each slot's place in crows; cr, the
+    slots' rows, -1 where there is none)."""
+    cr, order, srt, new = _sorted_cell_rows(cells, dof_rows, n_rows_prev)
+    nc = cr.shape[0]
+    r_max = max(int(new.sum(axis=1).max()), 1) if nc else 1
+    crows = np.full((nc, r_max), n_rows_prev, dtype=np.int64)
+    rank = np.cumsum(new, axis=1) - 1           # each sorted slot's row's place
+    ci = np.broadcast_to(np.arange(nc)[:, None], new.shape)
+    crows[ci[new], rank[new]] = srt[new]
+    pos = np.empty_like(rank)
+    np.put_along_axis(pos, order, rank, axis=1)
+    return crows, pos.reshape(cr.shape), cr
+
+
+def _super_blocks_per_cell(mesh: Mesh, A_loc: np.ndarray,
+                           cell_super: np.ndarray,
+                           dof_rows: np.ndarray, dof_vals: np.ndarray,
+                           boundary_dofs: np.ndarray,
+                           n_rows_prev: int, n_super: int,
+                           chunk_bytes: int = CELL_CHUNK_BYTES):
+    """Per-super (A1, Gram) padded batches assembled from per-CELL blocks
+    (the reference's _super_blocks_per_cell, mfmg_tpu/amge/multilevel.py:
+    195-275).  A1_G = sum over the cells c of G of K_c = Rl_c A_c Rl_c^T,
+    Rl_c the R values of the coarse rows touching c at c's dofs with the
+    constrained dofs zeroed; M_G = sum over the dofs d of G of r_d r_d^T
+    (R's column at d, not eliminated), here as the per-cell blocks
+    Rown_c Rown_c^T of each (super, dof) pair's first cell, so that both
+    scatter through one native.scatter_super_blocks per chunk of cells.
+    Assembly is additive over cells: the chunks change the summation order
+    only."""
+    cells = mesh.cells.astype(np.int64)
+    nc_all, n_loc = cells.shape
+    con_all = boundary_dofs[cells]
+    cell_super = cell_super.astype(np.int64)
+    q = dof_rows.shape[1]
+
+    # ---- ownership: the first cell of each (super, dof) pair -------------
+    dkeys = (cell_super[:, None] * np.int64(mesh.n_nodes) + cells).ravel()
+    order = np.argsort(dkeys, kind="stable")
+    sd = dkeys[order]
+    first = np.concatenate([[True], sd[1:] != sd[:-1]])
+    own = np.zeros(nc_all * n_loc, dtype=bool)
+    own[order[first]] = True
+    own = own.reshape(nc_all, n_loc)
+
+    def chunks(per_cell_bytes):
+        step = max(1, int(chunk_bytes // max(per_cell_bytes, 1)))
+        return range(0, nc_all, step), step
+
+    # ---- pass 1: the member-row table per super, the most rows per cell --
+    # (the slot tables hold about 6 int64 per (dof, row) slot)
+    rng, step = chunks(6 * 8 * n_loc * q)
+    member_keys, r_all = [], 1
+    for lo in rng:
+        hi = min(lo + step, nc_all)
+        _, _, srt, new = _sorted_cell_rows(cells[lo:hi], dof_rows, n_rows_prev)
+        r_all = max(r_all, int(new.sum(axis=1).max()))
+        member_keys.append(np.unique(
+            np.broadcast_to(cell_super[lo:hi, None] * n_rows_prev, srt.shape)[new]
+            + srt[new]))
+    member_keys = np.unique(np.concatenate(member_keys))
+    key_super = member_keys // n_rows_prev
+    m1s = np.bincount(key_super, minlength=n_super)
+    offs = np.concatenate([[0], np.cumsum(m1s)])
+    m1_max = int(m1s.max()) if n_super else 0
+    member_pad = np.zeros((n_super, m1_max), dtype=np.int64)
+    within = np.arange(len(member_keys)) - offs[key_super]
+    member_pad[key_super, within] = member_keys % n_rows_prev
+
+    # ---- pass 2: per-cell K and Gram blocks, scattered chunk by chunk -----
+    from mfmg_torch import native
+    m1p = m1_max + 1
+    A1 = np.zeros((n_super, m1p, m1p))
+    M = np.zeros((n_super, m1p, m1p))
+    rng, step = chunks(8 * 8 * n_loc * q + 3 * 8 * r_all * (r_all + n_loc))
+    for lo in rng:
+        hi = min(lo + step, nc_all)
+        crows, pos, cr = _cell_row_tables(cells[lo:hi], dof_rows, n_rows_prev)
+        nc, r_max = crows.shape
+        valid = cr >= 0
+        cv = dof_vals[cells[lo:hi]][valid]
+        ci = np.broadcast_to(np.arange(nc)[:, None, None], pos.shape)[valid]
+        li = np.broadcast_to(np.arange(n_loc)[None, :, None], pos.shape)[valid]
+        pv = pos[valid]
+        # K from the values with the constrained dofs eliminated, the Gram
+        # from the values as they are at the dofs each cell owns
+        Rl = np.zeros((nc, r_max, n_loc))
+        Rl[ci, pv, li] = np.where(con_all[lo:hi][ci, li], 0.0, cv)
+        Ro = np.zeros((nc, r_max, n_loc))
+        Ro[ci, pv, li] = np.where(own[lo:hi][ci, li], cv, 0.0)
+        K = np.empty((nc, r_max, r_max))
+        Mc = np.empty((nc, r_max, r_max))
+        A_c = A_loc[lo:hi]
+
+        def _blk(a, b):
+            np.matmul(np.matmul(Rl[a:b], A_c[a:b]), np.swapaxes(Rl[a:b], 1, 2),
+                      out=K[a:b])
+            np.matmul(Ro[a:b], np.swapaxes(Ro[a:b], 1, 2), out=Mc[a:b])
+
+        _run_threaded(_blk, nc)
+        row_ok = crows < n_rows_prev
+        g = cell_super[lo:hi]
+        keys = np.where(row_ok, g[:, None] * n_rows_prev + crows, 0)
+        gpos = np.where(row_ok, np.searchsorted(member_keys, keys)
+                        - offs[g][:, None], m1_max)
+        native.scatter_super_blocks(g, gpos, K, Mc, n_super, m1p, out=(A1, M))
+    A1 = A1[:, :m1_max, :m1_max]
+    M = M[:, :m1_max, :m1_max]
+    A1 = 0.5 * (A1 + np.swapaxes(A1, 1, 2))
+    M = 0.5 * (M + np.swapaxes(M, 1, 2))
+    return A1, M, m1s, member_pad
 
 
 class AggBlocks:

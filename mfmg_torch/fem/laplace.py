@@ -4,8 +4,9 @@ Port of mfmg_tpu/fem/laplace.py (reference tests/laplace.hpp:43-292).  The
 problem holds the host data the hierarchy setup consumes: per-cell matrices
 ``A_loc``, the raw (Neumann-assembled) global diagonal ``diag_raw`` used for
 the partition-of-unity weights, and the Dirichlet mask ``constrained``.  The
-assembled, Dirichlet-eliminated CSR ``A`` is built lazily; the stencil setup
-path never needs it.
+assembled, Dirichlet-eliminated CSR ``A`` is built lazily: the stencil setup
+path never needs it; the assembled path (``ell_operator``,
+``Config(operator="ell")``) applies it as an ``ELLMatrix``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ from typing import Callable
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from mfmg_torch.fem import coefficients as coeff_mod
 from mfmg_torch.fem.geometry import (GeometryFactors, compute_geometry,
                                      local_stiffness_matrices)
 from mfmg_torch.fem.mesh import Mesh, hyper_cube
-from mfmg_torch.ops.sparse import assemble_csr, eliminate_dirichlet
+from mfmg_torch.ops.sparse import (ELLMatrix, assemble_csr,
+                                   eliminate_dirichlet, ell_from_scipy)
 
 
 @dataclasses.dataclass
@@ -43,6 +46,11 @@ class LaplaceProblem:
             A_raw = assemble_csr(self.mesh.cells, self.A_loc, self.mesh.n_nodes)
             self._A = eliminate_dirichlet(A_raw, self.mesh.constrained_mask)
         return self._A
+
+    def ell_operator(self, dtype=torch.float64, device="cpu") -> ELLMatrix:
+        """The assembled-path operator: ``A`` as an ELLMatrix (the analog of
+        the reference's DealIITrilinosMatrixOperator / SparseMatrixDevice)."""
+        return ell_from_scipy(self.A, dtype=dtype, device=device)
 
     @staticmethod
     def hyper_cube(dim: int, n_refinements: int, degree: int = 1,

@@ -2,7 +2,8 @@
 
 The library is the setup's host hot paths in framework-neutral C++: the
 batched agglomerate assembly, the stencil extraction scatter, the
-per-agglomerate restriction blocks and the per-super Galerkin/Gram scatter.
+per-agglomerate restriction blocks, the per-super Galerkin/Gram scatter and
+the CSR -> ELL packing.
 It is compiled at first use with
 
     g++ -O3 -march=native -shared -fPIC -pthread mfmg_host.cpp
@@ -92,6 +93,7 @@ def _library():
         f64 = ctypes.POINTER(ctypes.c_double)
         f32 = ctypes.POINTER(ctypes.c_float)
         u8 = ctypes.POINTER(ctypes.c_uint8)
+        i32 = ctypes.POINTER(ctypes.c_int32)
         n = ctypes.c_int64
         lib.mfmg_host_threads.argtypes = []
         lib.mfmg_host_threads.restype = n
@@ -107,6 +109,7 @@ def _library():
                                              n, n, n]
         lib.scatter_super_blocks_f64.argtypes = [i64, i64, f64, f64, f64, f64,
                                                  n, n, n]
+        lib.ell_pack.argtypes = [i64, i32, f64, f64, i32, n, n]
         _lib = lib
     return _lib
 
@@ -203,17 +206,29 @@ def agg_row_blocks(dm, valid, keep, dof_rows, dof_vals):
     return arows, t_s, Rb
 
 
-def scatter_super_blocks(g_of, gpos, K, Mb, n_super: int, m1p: int):
+def scatter_super_blocks(g_of, gpos, K, Mb, n_super: int, m1p: int,
+                         out=None):
     """Per-super padded batches (A1, M), each (n_super, m1p, m1p) float64:
     A1[g_of[a], gpos[a, i], gpos[a, j]] += K[a, i, j] and the same for Mb,
-    serial over agglomerates in order.  K float32 or float64."""
+    serial over agglomerates in order.  K float32 or float64.  out: a pair
+    of C-contiguous float64 arrays of that shape to add into (a scatter in
+    chunks), else both start at zero."""
     lib = _library()
     g_of = _c(g_of, np.int64)
     gpos = _c(gpos, np.int64)
     Mb = _c(Mb, np.float64)
     n_agg, t_max = gpos.shape
-    A1 = np.zeros((n_super, m1p, m1p))
-    M = np.zeros((n_super, m1p, m1p))
+    if out is None:
+        A1 = np.zeros((n_super, m1p, m1p))
+        M = np.zeros((n_super, m1p, m1p))
+    else:
+        A1, M = out
+        for a in (A1, M):
+            if (a.dtype != np.float64 or a.shape != (n_super, m1p, m1p)
+                    or not a.flags.c_contiguous):
+                raise ValueError(f"out arrays must be C-contiguous float64 "
+                                 f"{(n_super, m1p, m1p)}, not {a.dtype} "
+                                 f"{a.shape}")
     if K.dtype == np.float32:
         K = _c(K, np.float32)
         fn, ct = lib.scatter_super_blocks, ctypes.c_float
@@ -224,3 +239,23 @@ def scatter_super_blocks(g_of, gpos, K, Mb, n_super: int, m1p: int):
        _ptr(Mb, ctypes.c_double), _ptr(A1, ctypes.c_double),
        _ptr(M, ctypes.c_double), n_agg, t_max, m1p)
     return A1, M
+
+
+def ell_pack(indptr, indices, data, n_rows: int, L: int):
+    """CSR -> ELL: (vals (n_rows, L) float64, cols (n_rows, L) int32), each
+    row's entries in CSR order, the padding zero (value and column)."""
+    lib = _library()
+    indptr = _c(indptr, np.int64)
+    indices = _c(indices, np.int32)
+    data = _c(data, np.float64)
+    if indptr.shape != (n_rows + 1,) or indices.shape != data.shape:
+        raise ValueError(f"ell_pack: indptr {indptr.shape} for {n_rows} rows, "
+                         f"indices {indices.shape}, data {data.shape}")
+    if n_rows and int(np.diff(indptr).max()) > L:
+        raise ValueError(f"ell_pack: a row holds more than L={L} entries")
+    vals = np.zeros((n_rows, L))
+    cols = np.zeros((n_rows, L), dtype=np.int32)
+    lib.ell_pack(_ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+                 _ptr(data, ctypes.c_double), _ptr(vals, ctypes.c_double),
+                 _ptr(cols, ctypes.c_int32), n_rows, L)
+    return vals, cols

@@ -2,8 +2,8 @@
 
 Port of mfmg_tpu/solve/operator.py (reference include/mfmg/common/
 operator.hpp:25-52).  The operators are ``nn.Module``s whose ``forward`` is
-the apply: the fine-grid ``StencilOperator`` (float32 or bfloat16 planes)
-and the coarse ``BlockStencilOperator``.
+the apply: the fine-grid ``StencilOperator`` (float32 or bfloat16 planes),
+the coarse ``BlockStencilOperator`` and the assembled ``ELLMatrix``.
 """
 
 from __future__ import annotations
@@ -19,8 +19,13 @@ def operator_diagonal(op) -> torch.Tensor:
     """Diagonal of an operator (Jacobi/Chebyshev smoother setup), in the
     operator's storage dtype."""
     from mfmg_torch.ops.block_stencil import BlockStencilOperator
+    from mfmg_torch.ops.sparse import ELLMatrix
     from mfmg_torch.ops.stencil import StencilOperator
 
+    if isinstance(op, ELLMatrix):
+        rows = torch.arange(op.shape[0], device=op.cols.device)[:, None]
+        return torch.where(op.cols == rows, op.vals,
+                           torch.zeros_like(op.vals)).sum(dim=1)
     if isinstance(op, StencilOperator):
         return op.center_plane().reshape(-1)
     if isinstance(op, BlockStencilOperator):

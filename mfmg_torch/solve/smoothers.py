@@ -127,8 +127,9 @@ def fuse_chebyshev(sm: ChebyshevSmoother, op):
 
 def _host_apply_and_diag(op, A_scipy=None):
     """(apply_fn, diag) on the host in float64 for the operator actually
-    smoothed: the assembled coarse CSR, or the stencil coefficients as
-    stored (bfloat16-rounded planes included, as in the reference)."""
+    smoothed: the assembled CSR where the level has one (every ELL level,
+    every coarse level), or the stencil coefficients as stored
+    (bfloat16-rounded planes included, as in the reference)."""
     from mfmg_torch.ops.stencil import StencilOperator
 
     if A_scipy is not None:
@@ -186,8 +187,9 @@ def _host_lanczos_interval(apply_fn, diag, n, n_iter: int, seed: int):
 
 def build_smoother(op, smoother_cfg, dtype=torch.float64, A_scipy=None):
     """Factory (analog of HierarchyHelpers::build_smoother), Jacobi and
-    Chebyshev.  A_scipy: the assembled matrix of a coarse level, for the
-    host eigenvalue estimate; the fine stencil level reads its planes."""
+    Chebyshev, over any operator of operator_diagonal.  A_scipy: the
+    assembled matrix of the level (ELL or coarse), for the host eigenvalue
+    estimate; the fine stencil level reads its planes."""
     diag = operator_diagonal(op)
     # 1/diag in float32 for bfloat16 planes, else in the storage dtype, then
     # cast: the reference's numpy promotion of a bfloat16 host plane

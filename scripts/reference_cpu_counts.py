@@ -2,7 +2,8 @@
 chip_smoke.py.
 
     JAX_PLATFORMS=cpu python scripts/reference_cpu_counts.py N_REF DEGREE \
-        [--distort] [--max-levels L] [--device-pipeline]
+        [--distort] [--max-levels L] [--operator stencil|ell] \
+        [--device-pipeline]
 
 Builds mfmg_tpu's hierarchy (x64 enabled, on the CPU) for the main
 configuration of bench.py:97-103 (float32 with bf16 preconditioner planes,
@@ -12,7 +13,10 @@ and runs solve_cg(b, tol=1e-5, maxiter=50) with
 b = default_rng(0).uniform(size=n) in float32, the right-hand side of
 chip_smoke.py.  Prints the level sizes, the iteration count, the recursive
 relres and the true relres ||b - A x|| / ||b|| in float64.  129^3 (N_REF 7,
-DEGREE 1) takes about a minute of setup.
+DEGREE 1) takes about a minute of setup.  --operator ell takes the
+assembled path (ELL at every level, the host SpGEMM Galerkin product; the
+bf16 coeff_dtype applies to stencil planes only, so it has no effect
+there).
 
 --device-pipeline sets level 0 up the way mfmg_tpu does on its accelerator:
 its device eigensolve (mfmg_tpu/eigen/device_eig.py, with supports()
@@ -38,6 +42,7 @@ def main():
     ap.add_argument("degree", type=int)
     ap.add_argument("--distort", action="store_true")
     ap.add_argument("--max-levels", type=int, default=3)
+    ap.add_argument("--operator", choices=("stencil", "ell"), default="stencil")
     ap.add_argument("--device-pipeline", action="store_true")
     args = ap.parse_args()
 
@@ -52,7 +57,7 @@ def main():
                                      material_property="linear",
                                      distort_random=args.distort, seed=0)
     config = cfg.Config(
-        max_levels=args.max_levels, operator="stencil", dtype="float32",
+        max_levels=args.max_levels, operator=args.operator, dtype="float32",
         coeff_dtype="bfloat16",
         eigensolver=cfg.EigensolverConfig(type="lapack", n_eigenvectors=2,
                                           n_eigenvectors_deep=4),
@@ -81,7 +86,7 @@ def main():
     true = (np.linalg.norm(b64 - prob.A @ np.asarray(x, dtype=np.float64))
             / np.linalg.norm(b64))
     print(f"n_ref {args.n_ref} degree {args.degree} distort {args.distort} "
-          f"max_levels {args.max_levels} device_pipeline "
+          f"max_levels {args.max_levels} operator {args.operator} device_pipeline "
           f"{args.device_pipeline}: {prob.n_dofs} dofs, "
           f"{int(info['iterations'])} iterations, relres "
           f"{float(info['relres']):.3e}, true relres {true:.3e}", flush=True)

@@ -8,11 +8,18 @@ lives under tests/ for that reason.
 import numpy as np
 
 from mfmg_tpu.ops.block_stencil import BlockStencilOperator
+from mfmg_tpu.ops.sparse import ELLMatrix
 from mfmg_tpu.ops.stencil import StencilOperator
 from mfmg_tpu.ops.structured_transfer import (GeneralWindowTransfer,
                                               StructuredTransfer)
 from mfmg_tpu.solve.coarse import DirectCoarseSolver
-from mfmg_tpu.solve.smoothers import ChebyshevSmoother, FusedChebyshevSmoother
+from mfmg_tpu.solve.smoothers import (ChebyshevSmoother, FusedChebyshevSmoother,
+                                      JacobiSmoother)
+
+
+def _ell(arrays, key, A):
+    arrays[key + ".vals"] = np.asarray(A.vals)
+    arrays[key + ".cols"] = np.asarray(A.cols)
 
 
 def flatten_levels(levels):
@@ -31,6 +38,9 @@ def flatten_levels(levels):
             m["op"] = dict(type="block_stencil", offsets=op.offsets,
                            agg_shape=op.agg_shape, n_comp=op.n_comp,
                            radius=op.radius)
+        elif isinstance(op, ELLMatrix):
+            _ell(arrays, pre + "op", op)
+            m["op"] = dict(type="ell", n_cols=op.n_cols)
         else:
             raise TypeError(type(op))
         sm = lvl.smoother
@@ -40,6 +50,9 @@ def flatten_levels(levels):
             arrays[pre + "smoother.inv_diag"] = np.asarray(sm.inv_diag)
             m["smoother"] = dict(type="chebyshev", theta=float(sm.theta),
                                  delta=float(sm.delta), degree=sm.degree)
+        elif isinstance(sm, JacobiSmoother):
+            arrays[pre + "smoother.inv_diag"] = np.asarray(sm.inv_diag)
+            m["smoother"] = dict(type="jacobi", omega=float(sm.omega))
         elif sm is not None:
             raise TypeError(type(sm))
         tr = lvl.transfer
@@ -59,6 +72,12 @@ def flatten_levels(levels):
                                  n_in=tr.n_in, n_out=tr.n_out)
         elif tr is not None:
             raise TypeError(type(tr))
+        elif lvl.R is not None:
+            # the reference's ELL transfer: R and R^T on the level itself
+            _ell(arrays, pre + "transfer.R", lvl.R)
+            _ell(arrays, pre + "transfer.RT", lvl.RT)
+            m["transfer"] = dict(type="ell", n_fine=lvl.R.n_cols,
+                                 n_coarse=lvl.RT.n_cols)
         if isinstance(lvl.coarse, DirectCoarseSolver):
             arrays[pre + "coarse.inv"] = np.asarray(lvl.coarse.inv)
             m["coarse"] = dict(type="direct")

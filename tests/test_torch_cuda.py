@@ -776,3 +776,99 @@ def test_device_pipeline_against_host_syevx(cuda):
     prob = LaplaceProblem.hyper_cube(3, 5, material_property="linear")
     r = chip_smoke.check_setup_pipeline("33^3", prob, cuda)
     assert r["n_agg"] == 512 and r["k_err"] <= chip_smoke.SETUP_K_TOL
+
+
+# ELL operators and deeper hierarchies on the card.  Each is held against
+# the same configuration on the CPU: float64 V-cycle rates to 1e-6 (sums in
+# another order), float32 V-cycles to 1e-5 (the bound of the hierarchy
+# tests above), and DEVICE_ROUTE_VCYCLE_TOL where the card's level 0 takes
+# the device route.
+
+
+def test_default_config_on_the_card(cuda):
+    """The library's default Config (ELL, float64, Jacobi, two levels):
+    every level on the card as ELL, its V-cycle rate equal to the CPU's."""
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
+    prob = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+    cfg = tcfg.Config(is_preconditioner=False)
+    hg, hc = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cpu")
+    assert isinstance(hg.levels[0].op, ELLMatrix)
+    assert isinstance(hg.levels[0].transfer, ELLTransfer)
+    assert all(t.is_cuda for lv in hg.levels for t in lv.buffers())
+    assert abs(measure_vcycle_rate(hg) - measure_vcycle_rate(hc)) <= 1e-6
+
+
+def test_distorted_q2_three_levels_on_the_card(cuda):
+    """The distorted Q2 cube (n_ref 3, seed 0) at three levels: K3 and
+    K4/K5 at level 0, ELL R/R^T at level 1, an ELL level 2, no tail."""
+    from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
+    prob = LaplaceProblem.hyper_cube(3, 3, degree=2, material_property="linear",
+                                     distort_random=True, seed=0)
+    hg, hc = Hierarchy(prob, _main_config()), Hierarchy(prob, _main_config(),
+                                                         device="cpu")
+    assert hg.levels[0].fused is None
+    assert isinstance(hg.levels[1].transfer, ELLTransfer)
+    assert isinstance(hg.levels[2].op, ELLMatrix)
+    b = np.random.default_rng(10).uniform(size=prob.n_dofs).astype(np.float32)
+    tk.reset_launch_counts()
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    n = ig["iterations"] + 1
+    assert tk.LAUNCHES["stencil_apply"] == 6 * n
+    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
+    assert tk.LAUNCHES["fused_tail"] == 0
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
+
+
+def test_four_level_q1_on_the_card(cuda):
+    """Q1 17^3 at four levels, both set up by the host route: K1, K2 and
+    K4/K5, window transfers at levels 1-2, no tail."""
+    cfg = _main_config(backend="host")
+    cfg.max_levels = 4
+    prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    hg, hc = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cpu")
+    assert len(hg.levels) == 4 and hg.levels[0].fused is None
+    assert hg.per_cell_levels == [2]
+    assert isinstance(hg.levels[0].smoother, FusedChebyshevSmoother)
+    b = np.random.default_rng(11).uniform(size=prob.n_dofs).astype(np.float32)
+    tk.reset_launch_counts()
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    n = ig["iterations"] + 1
+    assert tk.LAUNCHES["stencil_apply_sym"] == n
+    assert tk.LAUNCHES["cheb_smooth"] == 2 * n
+    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
+    assert tk.LAUNCHES["fused_tail"] == 0
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
+
+
+def test_ell_float32_on_the_card(cuda, monkeypatch):
+    """operator="ell" in float32 at 17^3: the device route without Galerkin
+    blocks (its batch freed), level 1 through the per-cell patch path,
+    every level ELL on the card; against the same pipeline on the CPU fed
+    the card's probe block."""
+    from mfmg_torch.eigen import device_eig
+    from mfmg_torch.ops.sparse import ELLMatrix
+    cfg = _main_config()
+    cfg.operator = "ell"
+    prob = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    hg = Hierarchy(prob, cfg)
+    assert hg.setup_route == "device" and hg._device_A is None
+    assert hg.per_cell_levels == [1]
+    assert all(isinstance(lv.op, ELLMatrix) and lv.op.vals.is_cuda
+               for lv in hg.levels)
+    supports, probe = device_eig.supports, device_eig.probe_block
+    monkeypatch.setattr(device_eig, "supports", lambda mesh, ids, device,
+                        geom=None: supports(mesh, ids, cuda, geom))
+    monkeypatch.setattr(device_eig, "probe_block", lambda n, m, p, device:
+                        probe(n, m, p, cuda).to(device))
+    hc = Hierarchy(prob, cfg, device="cpu")
+    assert hc.setup_route == "device"
+    b = np.random.default_rng(12).uniform(size=prob.n_dofs).astype(np.float32)
+    assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= DEVICE_ROUTE_VCYCLE_TOL
+    _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
