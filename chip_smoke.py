@@ -92,7 +92,21 @@ each phase prints its wall time):
     same matrix (the 65^3 fine operator, the distorted cube's level-1 R);
     (d) the library's default Config (ELL, float64, Jacobi) with
     is_preconditioner=False on hyper_cube(3, 2): its V-cycle rate on the
-    card against the CPU port.
+    card against the CPU port;
+10. the unstructured meshes, each through Hierarchy and solve_cg with the
+    main configuration but operator="ell" (ELL at every level, the host
+    setup route, no kernel of the port: every launch count stays 0), the
+    right-hand side zero at the constrained dofs: (a) hyper_ball(3, 5)
+    (229,376 cells) with the 4x4x4 block walk, levels 232,609 -> 7,168 ->
+    14,336 (its level-2 pseudoinverse by float64 eigh on the card), and a
+    float64 hyper_ball(3, 3) hierarchy's V-cycle rate against the CPU
+    port's; (b) adaptive_cube(3, 5, x, y, z < 0.5) (61,440 cells, 2,256
+    hanging dofs) with n_cells // 64 RCB parts, levels 66,961 -> 1,920 ->
+    3,840, its hanging slaves at 0 within 1e-8.  Each prints its mesh and
+    setup seconds (per stage), setup's peak host RSS and device memory,
+    agglomerate sizes, PCG count, recursive and true relres against the
+    reference's (UNSTRUCTURED_REF), ELL applies per V-cycle, the V-cycle
+    in CUDA-event ms and profiler device ms, and the idle share.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -150,8 +164,23 @@ TRUE_RES_MAX_DISTORTED_3 = 1.09e-4
 TRUE_RES_MAX_DEEP = 2 * 2.018e-5
 TRUE_RES_MAX_ELL = 2 * 2.043e-5
 # the default Config's V-cycle rate on the card against the CPU port (phase
-# 9 (d)): float64 sums in another order
+# 9 (d)), and a float64 ball hierarchy's (phase 10 (a)): float64 sums in
+# another order
 DEFAULT_RATE_TOL = 1e-6
+# phase 10, the reference's levels, PCG count and true relres on the same
+# RHS (mfmg_tpu on the CPU with x64, scripts/reference_cpu_counts.py 5 1
+# --operator ell --mesh ball|adaptive --partitioner block|rcb): the ball 9
+# iterations, true relres 4.462e-5; the adaptive cube 10, 1.080e-5.  The
+# true relres bound is twice the reference's; the hanging slaves of the
+# solution stay 0 within 1e-8 (tests/test_adaptive.py:116)
+N_REF_BALL, N_REF_ADAPTIVE, N_REF_BALL_RATE = 5, 5, 3
+UNSTRUCTURED_REF = {
+    "ball": dict(levels=[232609, 7168, 14336], pcg_iterations=9,
+                 true_relres=4.462e-5),
+    "adaptive": dict(levels=[66961, 1920, 3840], pcg_iterations=10,
+                     true_relres=1.080e-5),
+}
+HANGING_TOL = 1e-8
 # an ELL apply against torch.sparse's CSR matvec of the same float32 matrix
 ELL_TOL = 1e-5
 K1_TOL = 1e-5             # ||dy||_inf / ||y||_inf
@@ -415,6 +444,35 @@ def check_setup_pipeline(label, prob, dev):
     return r
 
 
+def device_ms_per_cycle(hier, bd, n=20):
+    """Device time per V-cycle from torch.profiler: the events that ran
+    on the card (kernels, copies, fills) over n cycles, in ms per cycle,
+    with the largest eight by name and every row by name."""
+    by_name = device_ms_by_name(lambda: hier.vmult(bd), n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
+
+def device_ms_by_name(fn, n):
+    """{event name: device ms per call} from torch.profiler over n calls
+    of fn after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n
+    return by_name
+
+
 class HostPeak:
     """Peak resident set size of this process while the block runs, sampled
     from /proc/self/statm every 5 ms by a thread (GiB; ``start`` the RSS
@@ -468,6 +526,160 @@ def per_vcycle_launches(hier, bd, tk):
         for h in hooks:
             h.remove()
     return {k: v for k, v in tk.LAUNCHES.items() if v}, applies
+
+
+def unstructured_config(cfg, mesh, dtype="float32"):
+    """Phase 10's configuration: the main configuration with operator="ell"
+    (the stencil needs a structured mesh), the 4x4x4 block walk on a ball,
+    n_cells // 64 RCB parts on a mesh with hanging nodes."""
+    c = main_config(cfg, 3)
+    c.operator, c.dtype, c.coeff_dtype = "ell", dtype, None
+    if mesh.hanging is not None:
+        c.agglomeration = cfg.AgglomerationConfig(
+            partitioner="rcb", n_agglomerates=mesh.n_cells // 64)
+    return c
+
+
+def unstructured_rhs(prob):
+    """Uniform float32 (default_rng(0)), zero at the constrained dofs
+    (Dirichlet and hanging), so that the hanging slaves stay 0."""
+    b = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
+    b[prob.constrained] = 0.0
+    return b
+
+
+def run_unstructured(label, build_mesh, cfg, tk):
+    """One unstructured path of phase 10 through Hierarchy and solve_cg, the
+    counts set to 0 just before and read just after: the mesh and problem
+    (the caller's), setup (host route; stages, peak host RSS and device
+    memory), PCG and true relres against the reference's, the hanging
+    slaves, ELL applies per V-cycle, V-cycle events, profiler device time
+    and idle share.  No kernel of the port runs on this path (ELL at every
+    level): every count must stay 0."""
+    from mfmg_torch import Hierarchy, LaplaceProblem
+    ref = UNSTRUCTURED_REF[label]
+    t0 = time.perf_counter()
+    mesh = build_mesh()
+    mesh_s = time.perf_counter() - t0
+    prob = LaplaceProblem.from_mesh(mesh, "linear")
+    problem_s = time.perf_counter() - t0 - mesh_s
+    n_hang = 0 if mesh.hanging is None else mesh.hanging.n
+    print(f"{label}: mesh {mesh_s:.2f} s ({mesh.n_cells} cells, {mesh.n_nodes} "
+          f"dofs, {n_hang} hanging), problem {problem_s:.2f} s", flush=True)
+    config = unstructured_config(cfg, mesh)
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with HostPeak() as rss:
+        hier = Hierarchy(prob, config, device="cuda")
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b = unstructured_rhs(prob)
+    t0 = time.perf_counter()
+    xs, info = hier.solve_cg(b, tol=PCG_TOL, maxiter=PCG_MAX)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    sizes = [lv.op.shape[0] for lv in hier.levels]
+    batch = hier._level0_eigendata[0]
+    agg_sizes = [int(batch.sizes.min()), int(batch.sizes.max())]
+    print(f"  setup {setup_s:.2f} s ({hier.setup_route} route, peak device "
+          f"memory {setup_peak / 2**30:.3f} GiB, peak host RSS {rss.peak:.3f} "
+          f"GiB from {rss.start:.3f}), levels {sizes}, {batch.n_agg} "
+          f"agglomerates of {agg_sizes[0]}..{agg_sizes[1]} dofs", flush=True)
+    print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
+                                         for k, v in hier.setup_seconds.items()),
+          flush=True)
+    x64 = xs.cpu().double().numpy()
+    b64 = b.astype(np.float64)
+    tr = float(np.linalg.norm(b64 - prob.A @ x64) / np.linalg.norm(b64))
+    hang_max = (0.0 if mesh.hanging is None
+                else float(np.abs(x64[mesh.hanging.slaves]).max()))
+    print(f"  solve_cg: {info['iterations']} iterations, relres "
+          f"{info['relres']:.3e}, true relres (f64 host) {tr:.3e}, "
+          f"{solve_s:.3f} s; largest |x| at a hanging slave {hang_max:.3e}; "
+          f"launches {launches}", flush=True)
+    check(hier.setup_route == "host", f"{label}: setup took the "
+          f"{hier.setup_route} route, not host")
+    check(sizes == ref["levels"], f"{label}: levels {sizes}, the reference's "
+          f"{ref['levels']}")
+    check(xs.shape == (prob.n_dofs,) and bool(torch.isfinite(xs).all()),
+          f"{label}: solution not finite or of the wrong shape")
+    check(all(t.is_cuda for lv in hier.levels for t in lv.buffers()),
+          f"{label}: a level buffer is not on cuda")
+    check(info["iterations"] == ref["pcg_iterations"],
+          f"{label}: PCG took {info['iterations']} iterations, the reference "
+          f"{ref['pcg_iterations']}")
+    check(info["relres"] <= PCG_TOL, f"{label}: relres {info['relres']:.3e}")
+    check(tr <= 2 * ref["true_relres"], f"{label}: true relres {tr:.3e} > "
+          f"twice the reference's {ref['true_relres']:.3e}")
+    check(hang_max <= HANGING_TOL, f"{label}: a hanging slave of the solution "
+          f"is {hang_max:.3e}, not 0")
+    check(not launches, f"{label}: kernels launched on the ELL path: {launches}")
+    bd = torch.from_numpy(b).to("cuda")
+    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+    check(not cycle_launches and cycle_ell.get("L0.op", 0) > 0,
+          f"{label}: one V-cycle launched {cycle_launches}, applied {cycle_ell}")
+    ms = [median_ms(lambda: hier.vmult(bd), batch=2) for _ in range(2)]
+    dev_ms, dev_top, _ = device_ms_per_cycle(hier, bd)
+    idle = 1.0 - dev_ms / float(np.mean(ms))
+    print(f"  per V-cycle: ELL applies {cycle_ell}; V-cycle ms (CUDA events, "
+          f"two medians) {ms}; device ms/cycle (profiler) {dev_ms:.4f}, idle "
+          f"share {idle:.3f}; by kernel: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in dev_top), flush=True)
+    summary = dict(n_dofs=prob.n_dofs, n_cells=mesh.n_cells, hanging=n_hang,
+                   mesh_s=mesh_s, problem_s=problem_s, setup_s=setup_s,
+                   setup_route=hier.setup_route, setup_stages=hier.setup_seconds,
+                   setup_peak_device_gib=setup_peak / 2**30,
+                   setup_peak_host_rss_gib=rss.peak,
+                   host_rss_before_setup_gib=rss.start,
+                   levels=sizes, n_agglomerates=batch.n_agg,
+                   agglomerate_sizes=agg_sizes,
+                   pcg_iterations=info["iterations"], relres=info["relres"],
+                   true_relres=tr, hanging_max=hang_max, solve_s=solve_s,
+                   ell_applies_per_vcycle=cycle_ell, ms_per_vcycle=ms,
+                   device_ms_per_vcycle=dev_ms, device_top=dev_top,
+                   device_idle_share=idle, reference=ref)
+    del hier
+    return summary
+
+
+def ball_rate_check(cfg):
+    """Phase 10 (a)'s check of the card against the CPU port: the V-cycle
+    rate of a float64 ball hierarchy (hyper_ball(3, N_REF_BALL_RATE), the
+    phase's configuration, is_preconditioner=False) within
+    DEFAULT_RATE_TOL."""
+    from mfmg_torch import Hierarchy, LaplaceProblem
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.fem.mesh import hyper_ball
+    prob = LaplaceProblem.from_mesh(hyper_ball(3, N_REF_BALL_RATE), "linear")
+    c = unstructured_config(cfg, prob.mesh, dtype="float64")
+    c.is_preconditioner = False
+    rates = {dev: measure_vcycle_rate(Hierarchy(prob, c, device=dev))
+             for dev in ("cuda", "cpu")}
+    print(f"ball n_ref {N_REF_BALL_RATE}, float64: V-cycle rate {rates['cuda']!r} "
+          f"(card) vs {rates['cpu']!r} (CPU)", flush=True)
+    check(abs(rates["cuda"] - rates["cpu"]) <= DEFAULT_RATE_TOL,
+          f"float64 ball rate {rates['cuda']} (card) vs {rates['cpu']} (CPU)")
+    return dict(n_dofs=prob.n_dofs, rate_gpu=rates["cuda"], rate_cpu=rates["cpu"])
+
+
+def unstructured_phase(cfg, tk):
+    """Phase 10: (a) hyper_ball(3, N_REF_BALL) with the 4x4x4 block walk
+    and the float64 rate check at N_REF_BALL_RATE; (b) adaptive_cube(3,
+    N_REF_ADAPTIVE, x, y, z < 0.5) with RCB parts."""
+    from mfmg_torch.fem.adaptive import adaptive_cube
+    from mfmg_torch.fem.mesh import hyper_ball
+    ball = run_unstructured("ball", lambda: hyper_ball(3, N_REF_BALL), cfg, tk)
+    ball["rate_check"] = ball_rate_check(cfg)
+    adaptive = run_unstructured(
+        "adaptive", lambda: adaptive_cube(3, N_REF_ADAPTIVE,
+                                          lambda c: np.all(c < 0.5, axis=1)),
+        cfg, tk)
+    return ball, adaptive
 
 
 class Phase:
@@ -802,34 +1014,6 @@ def main():
         b64 = torch.from_numpy(bh.astype(np.float64))
         return float(torch.linalg.norm(b64 - A64(xs.cpu().double()))
                      / torch.linalg.norm(b64))
-
-    def device_ms_per_cycle(hier, bd, n=20):
-        """Device time per V-cycle from torch.profiler: the events that ran
-        on the card (kernels, copies, fills) over n cycles, in ms per cycle,
-        with the largest eight by name and every row by name."""
-        by_name = device_ms_by_name(lambda: hier.vmult(bd), n)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return sum(by_name.values()), [(k[:60], v) for k, v in top], by_name
-
-    def device_ms_by_name(fn, n):
-        """{event name: device ms per call} from torch.profiler over n calls
-        of fn after one warm call."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n
-        return by_name
 
     class PlainTransfer(torch.nn.Module):
         """K4/K5's plain versions (the per-axis chain) on a level-0
@@ -1567,6 +1751,10 @@ def main():
               f"default Config rate {rate_gpu} (card) vs {rate_cpu} (CPU)")
         del h_d
 
+    # ---- 10. unstructured meshes: the ball and the adaptive cube --------
+    with Phase("10 unstructured meshes: hyper_ball, adaptive_cube"):
+        summary_ball, summary_adaptive = unstructured_phase(cfg, tk)
+
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
 
@@ -1632,7 +1820,8 @@ def main():
                  "Q2 65^3 distorted": summaryd,
                  "Q2 65^3 distorted 3 levels": summary_a,
                  "65^3 4 levels": summary_b, "65^3 ELL": summary_c,
-                 "default Config": summary_d}
+                 "default Config": summary_d, "ball": summary_ball,
+                 "adaptive cube": summary_adaptive}
     for label, s in summaries.items():
         if s is not None:
             s["card"] = card

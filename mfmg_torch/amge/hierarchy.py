@@ -53,6 +53,7 @@ from mfmg_torch.solve.cg import cg_solve
 from mfmg_torch.solve.coarse import build_coarse_solver
 from mfmg_torch.solve.operator import apply_op
 from mfmg_torch.solve.smoothers import build_smoother
+from mfmg_torch.utils.device import checked_device
 
 
 class LevelData(nn.Module):
@@ -132,15 +133,6 @@ def _torch_dtype(name) -> torch.dtype:
     return dt
 
 
-def _checked_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r} needs a CUDA device and "
-                           f"torch.cuda.is_available() is False; pass "
-                           f"device='cpu' to run on the CPU")
-    return device
-
-
 def _np_dtype(dt: torch.dtype):
     return np.float64 if dt == torch.float64 else np.float32
 
@@ -155,17 +147,20 @@ class Hierarchy:
 
     device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
     device and never falls back to the CPU.
-    Supported configurations: operator="stencil" or "ell" (the default) on
-    a structured mesh, block agglomerates, the "lapack" eigensolver, Jacobi
-    or Chebyshev smoothing, and the "direct" coarse solver, at any
-    max_levels; anything else raises NotImplementedError naming its ROADMAP
-    item.
+    Supported configurations: operator="stencil" (structured meshes only;
+    an unstructured mesh raises the reference's ValueError) or "ell" (the
+    default) on any mesh of fem/ (hyper_cube, hyper_ball, adaptive meshes
+    with hanging nodes, where the Galerkin product goes through the
+    condensed A), the "block" (closed-form or walked), "rcb"/"zoltan" and
+    "metis" partitioners, the "lapack" eigensolver, Jacobi or Chebyshev
+    smoothing, and the "direct" coarse solver, at any max_levels; anything
+    else raises NotImplementedError naming its ROADMAP item.
     """
 
     def __init__(self, problem, config: Config | None = None, device="cuda"):
         self.config = config or Config()
         self.problem = problem
-        self.device = _checked_device(device)
+        self.device = checked_device(device)
         self.dtype = _torch_dtype(self.config.dtype)
         self.levels = nn.ModuleList()
         self.setup_seconds = {}
@@ -214,6 +209,12 @@ class Hierarchy:
         # path (the fine matrix is never assembled), the host SpGEMM for the
         # assembled ELL path (mfmg_tpu/amge/hierarchy.py:155-171)
         fast_ap = stencil if cfg.fast_ap is None else bool(cfg.fast_ap)
+        if problem.mesh.hanging is not None:
+            # the coarse operator must be Galerkin in the condensed matrix
+            # (master rows carry w A w corrections the raw per-agglomerate
+            # blocks do not see): the product goes through the assembled,
+            # condensed A
+            fast_ap = False
         self._fast_ap = fast_ap
         if stencil:
             # coeff_dtype (e.g. bfloat16) reduces the fine apply's byte
@@ -225,7 +226,7 @@ class Hierarchy:
                                             problem.constrained,
                                             problem.diag_raw, dtype=coeff_dt)
         else:
-            op = problem.ell_operator(dtype=self.dtype)
+            op = problem.ell_operator(dtype=self.dtype, device=self.device)
         # the fine matrix is assembled unless the stencil path has fast_ap
         A_per_level = [None if (fast_ap and stencil) else problem.A]
         self._A_shapes = [(problem.n_dofs, problem.n_dofs)]
@@ -241,7 +242,8 @@ class Hierarchy:
                 A_c = A_per_level[level]
                 if A_c is None:
                     A_c = problem.A          # max_levels == 1
-                coarse = build_coarse_solver(A_c, cfg.coarse, dtype=self.dtype)
+                coarse = build_coarse_solver(A_c, cfg.coarse, dtype=self.dtype,
+                                             device=self.device)
                 self._append(LevelData(op, coarse=coarse))
                 mark(f"coarse solver (n={A_c.shape[0]})")
                 break
@@ -374,6 +376,7 @@ class Hierarchy:
         problem = self.problem
         if level == 0:
             agg_ids = build_agglomerates(problem.mesh, cfg.agglomeration)
+            self._mark("agglomerates L0")
             n_ev = cfg.eigensolver.n_eigenvectors
             batch_dtype = _np_dtype(self.dtype)
             self.setup_route = "host"
@@ -442,7 +445,7 @@ class Hierarchy:
         """Move every level (and the cached outer-CG operator) to device.  On
         CUDA the kernels are finalized as the constructor does: the K2
         smoother, and the fused tail where the level-0 slot is empty."""
-        self.device = _checked_device(device)
+        self.device = checked_device(device)
         self.levels.to(self.device)
         if self._exact_op_cache is not None:
             self._exact_op_cache.to(self.device)
@@ -598,7 +601,7 @@ def levels_from_arrays(arrays: dict, meta: dict, device="cuda") -> list[LevelDat
     def ell(key, n_cols):
         return ELLMatrix(t(key + ".vals"), t(key + ".cols"), n_cols)
 
-    device = _checked_device(device)
+    device = checked_device(device)
     levels = []
     for l, m in enumerate(meta["levels"]):
         pre = f"L{l}."

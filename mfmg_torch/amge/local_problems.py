@@ -1,19 +1,25 @@
 """Per-agglomerate local operators as one padded dense batch (host).
 
-Port of the structured path of mfmg_tpu/amge/local_problems.py.  All
-agglomerate operators are materialized as one (n_agg, m, m) dense batch so
-the eigensolve runs as one batched loop (reference
-dealii/amge_host.templates.hpp:586-615 solves them one at a time).  The
-dense assembly runs in the host library (``native.py``); ``assemble_plain``
-is its numpy version.  The light batch (``assemble_operator=False``) carries
-no dense operators: the device eigensolve (``eigen/device_eig.py``)
-assembles them on the card.
+Port of mfmg_tpu/amge/local_problems.py.  All agglomerate operators are
+materialized as one (n_agg, m_max, m_max) dense batch so the eigensolve
+runs as one batched loop (reference dealii/amge_host.templates.hpp:586-615
+solves them one at a time).  Two builders, dispatched as in the reference:
+  * the uniform block partition of a structured mesh: one index structure
+    shared by every agglomerate (``block_layout``), the dense assembly in
+    the host library (``native.py``; ``assemble_plain`` is its numpy
+    version).  Its light batch (``assemble_operator=False``) carries no
+    dense operators: the device eigensolve (``eigen/device_eig.py``)
+    assembles them on the card;
+  * anything else (unstructured meshes, ragged parts from the walk, RCB or
+    METIS): the generic builder ``_build_generic``, one agglomerate at a
+    time, ragged sizes padded to m_max (dof_map -1 and ``valid`` False on
+    the padding, a unit diagonal there so its eigenpairs are decoupled).
 
 Boundary conditions per agglomerate mirror the reference
 (tests/test_hierarchy_helpers.hpp:253-259): Dirichlet only where the
 agglomerate touches the global Dirichlet boundary, natural (Neumann) on
-interior agglomerate boundaries.  The generic ragged-agglomerate builder is
-not ported yet (ROADMAP Queue 1, Slice E).
+interior agglomerate boundaries.  Hanging slaves are constrained dofs like
+the Dirichlet ones (``Mesh.constrained_mask``).
 """
 
 from __future__ import annotations
@@ -59,16 +65,24 @@ class AgglomerateBatch:
 def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
                             batch_dtype=np.float64,
                             assemble_operator: bool = True) -> AgglomerateBatch:
-    """Assemble local dense operators for every agglomerate of a uniform
-    block partition of a structured mesh.
+    """Assemble local dense operators for every agglomerate: the vectorized
+    builder for the uniform block partition of a structured mesh, the
+    generic one for anything else.
 
     batch_dtype: dtype of the dense A_agg batch (float32 for float32
     hierarchies, as in mfmg_tpu); the PoU diagonals are always float64.
-    assemble_operator=False gives the light batch (A_agg None): dof map,
-    float64 PoU diagonals and constrained mask, all the restriction, the
-    PoU check and the structured transfers read.
+    assemble_operator=False gives the light batch (A_agg None) on the
+    structured path: dof map, float64 PoU diagonals and constrained mask,
+    all the restriction, the PoU check and the structured transfers read.
+    The generic path always assembles, as the reference's does.
     """
-    cells_per_agg, local_cells, dof_map, m = block_layout(mesh, agg_ids)
+    lay = _structured_layout(mesh, agg_ids)
+    if lay is None:
+        batch = _build_generic(mesh, A_loc, agg_ids)
+        if np.dtype(batch_dtype) != np.float64:
+            batch.A_agg = batch.A_agg.astype(batch_dtype)
+        return batch
+    cells_per_agg, local_cells, dof_map, m = lay
     n_agg = len(cells_per_agg)
     constrained = mesh.constrained_mask[dof_map]
     valid = np.ones((n_agg, m), dtype=bool)
@@ -92,6 +106,63 @@ def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
     A_agg *= keep[:, :, None] * keep[:, None, :]
     gi2, ii2 = np.nonzero(constrained)
     A_agg[gi2, ii2, ii2] = diag[gi2, ii2].astype(batch_dtype)
+
+    return AgglomerateBatch(dof_map=dof_map, valid=valid, A_agg=A_agg,
+                            diag=diag, constrained=constrained, sizes=sizes)
+
+
+def _build_generic(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray) -> AgglomerateBatch:
+    """The reference's generic builder (mfmg_tpu/amge/local_problems.py:
+    208-259): each agglomerate's dofs in ascending order, its operator
+    assembled by a scatter-add of its cells' matrices in float64, padded
+    to the largest agglomerate."""
+    n_agg = int(agg_ids.max()) + 1
+    n_loc = mesh.n_loc
+
+    # group cells by agglomerate
+    cells_sorted = np.argsort(agg_ids, kind="stable")
+    counts = np.bincount(agg_ids, minlength=n_agg)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+
+    dof_maps = []
+    sizes = np.empty(n_agg, dtype=np.int64)
+    local_cells = []       # per agg: (n_agg_cells, n_loc) local dof indices
+    for g in range(n_agg):
+        cs = cells_sorted[offsets[g]: offsets[g + 1]]
+        dofs = mesh.cells[cs]                              # (k, n_loc)
+        uniq, inv = np.unique(dofs, return_inverse=True)
+        dof_maps.append(uniq)
+        sizes[g] = len(uniq)
+        local_cells.append(inv.reshape(dofs.shape))
+
+    m_max = int(sizes.max())
+    dof_map = -np.ones((n_agg, m_max), dtype=np.int64)
+    valid = np.zeros((n_agg, m_max), dtype=bool)
+    A_agg = np.zeros((n_agg, m_max, m_max))
+    for g in range(n_agg):
+        m = sizes[g]
+        dof_map[g, :m] = dof_maps[g]
+        valid[g, :m] = True
+        cs = cells_sorted[offsets[g]: offsets[g + 1]]
+        li = local_cells[g]                                # (k, n_loc)
+        rows = np.broadcast_to(li[:, :, None], (len(cs), n_loc, n_loc))
+        cols = np.broadcast_to(li[:, None, :], (len(cs), n_loc, n_loc))
+        np.add.at(A_agg[g], (rows.reshape(-1), cols.reshape(-1)),
+                  A_loc[cs].reshape(-1))
+
+    diag = np.einsum("gii->gi", A_agg).copy()              # raw local diagonals
+    constrained = np.zeros((n_agg, m_max), dtype=bool)
+    constrained[valid] = mesh.constrained_mask[dof_map[valid]]
+
+    # elimination inside each agglomerate: zero constrained rows and
+    # columns, keep the raw diagonal entry (ops/sparse.eliminate_dirichlet)
+    keep = ~constrained
+    A_agg *= keep[:, :, None] * keep[:, None, :]
+    gi, ii = np.nonzero(constrained)
+    A_agg[gi, ii, ii] = diag[gi, ii]
+    # unit diagonal on padding so padded eigenpairs are decoupled
+    gi, ii = np.nonzero(~valid)
+    A_agg[gi, ii, ii] = 1.0
 
     return AgglomerateBatch(dof_map=dof_map, valid=valid, A_agg=A_agg,
                             diag=diag, constrained=constrained, sizes=sizes)
@@ -137,10 +208,19 @@ class BlockLayout(NamedTuple):
 
 def block_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout:
     """The closed-form layout of a uniform block partition of a structured
-    mesh; raises NotImplementedError for anything else."""
+    mesh; raises ValueError for anything else."""
+    lay = _structured_layout(mesh, agg_ids)
+    if lay is None:
+        raise ValueError("the agglomerates are not the closed-form uniform "
+                         "block partition of a structured mesh")
+    return lay
+
+
+def _structured_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout | None:
+    """block_layout, or None where the generic builder applies (an
+    unstructured mesh, ragged or non-block agglomerates)."""
     if not mesh.is_structured:
-        raise NotImplementedError("unstructured agglomerate batches are not "
-                                  "ported yet (ROADMAP Queue 1, Slice E)")
+        return None
     n_agg = int(agg_ids.max()) + 1
     counts = np.bincount(agg_ids, minlength=n_agg)
     nc = np.asarray(mesh.structured_shape)
@@ -153,8 +233,7 @@ def block_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout:
     stride = np.cumprod(np.concatenate([[1], n_agg_dim[:-1]]))
     if (counts.min() != counts.max() or np.prod(bdims) != counts[0]
             or np.any(nc % bdims) or not np.array_equal(agg_ids, agg_mi @ stride)):
-        raise NotImplementedError("ragged agglomerates are not ported yet "
-                                  "(ROADMAP Queue 1, Slice E)")
+        return None
 
     # local structure shared by all agglomerates
     m_dims = bdims * k + 1                # local nodes per dim

@@ -127,3 +127,10 @@ def local_stiffness_matrices(mesh: Mesh, geom: GeometryFactors,
         B = np.einsum("qdi,qdj->qij", G1, G1).reshape(n_q, n_loc * n_loc)
         return (s @ B).reshape(len(s), n_loc, n_loc)
     return np.einsum("cqdi,cq,cqdj->cij", geom.G, s, geom.G, optimize=True)
+
+
+def local_mass_rhs(mesh: Mesh, geom: GeometryFactors, f_at_q: np.ndarray) -> np.ndarray:
+    """Cell load vectors rhs_loc[c,i] = sum_q JxW * f * phi_i
+    (laplace.hpp:192-193), float64."""
+    ref = reference_element(mesh.dim, mesh.degree)
+    return np.einsum("cq,qi->ci", geom.JxW * f_at_q, ref.N)

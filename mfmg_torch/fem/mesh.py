@@ -1,15 +1,17 @@
-"""Meshes and DoF numbering (structured hyper_cube path).
+"""Meshes and DoF numbering.
 
-Port of the structured part of mfmg_tpu/fem/mesh.py, which replaces the
-deal.II Triangulation/DoFHandler subset the reference tests use (reference
-tests/laplace.hpp:88-152: hyper_cube + refine_global + boundary id 1
-everywhere + optional distort_random).
+Port of mfmg_tpu/fem/mesh.py, which replaces the deal.II
+Triangulation/DoFHandler subset the reference tests use (reference
+tests/laplace.hpp:88-152: hyper_cube/hyper_ball + refine_global + boundary
+id 1 everywhere + optional distort_random).
 
 A mesh is plain host data: node coordinates, cell->dof connectivity, and a
 Dirichlet-boundary dof mask.  DoFs are geometric Lagrange nodes (continuous
-Q_k).  The structured metadata (cells per dim, degree) lets the stencil and
-structured-transfer paths use closed-form index maps.  Ball, adaptive and
-renumbered meshes are not ported yet (ROADMAP Queue 1, Slice E).
+Q_k).  The structured hyper_cube keeps its metadata (cells per dim, degree)
+so the stencil and structured-transfer paths can use closed-form index
+maps; ball and adaptive meshes (``hyper_ball``, ``from_cell_complex``,
+fem/adaptive.py) are unstructured and go through the generic arrays.
+Renumbered meshes (``renumber_dofs``) are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ class Mesh:
     cells: np.ndarray            # (n_cells, n_loc) int32 global dof ids, lexicographic local order
     boundary_dofs: np.ndarray    # (n_nodes,) bool — Dirichlet (boundary id 1) dofs
     structured_shape: tuple | None = None   # cells per dim, e.g. (4, 4, 4)
+    # Hanging-node constraints of a 1-irregular adaptive mesh (Q1 only);
+    # None on conforming meshes.  See fem/adaptive.py.
+    hanging: "HangingConstraints | None" = None
 
     @property
     def n_nodes(self) -> int:
@@ -48,9 +53,13 @@ class Mesh:
 
     @property
     def constrained_mask(self) -> np.ndarray:
-        """Dofs with constrained rows (Dirichlet; hanging-node meshes are not
-        ported, so nothing else is constrained)."""
-        return self.boundary_dofs
+        """Dofs with constrained rows in the condensed system: Dirichlet plus
+        hanging slaves.  The AMGe setup and solvers treat both identically
+        (identity rows, untouched by the V-cycle); hanging values are
+        recovered by ``LaplaceProblem.distribute`` after the solve."""
+        if self.hanging is None:
+            return self.boundary_dofs
+        return self.boundary_dofs | self.hanging.slave_mask(self.n_nodes)
 
     def cell_multi_index(self) -> np.ndarray:
         """(n_cells, dim) integer cell coordinates for structured meshes."""
@@ -63,6 +72,104 @@ class Mesh:
             out[:, d] = idx % shape[d]
             idx = idx // shape[d]
         return out
+
+
+def hyper_ball(dim: int, n_refinements: int, degree: int = 1,
+               radius: float = 1.0,
+               distort_random: bool = False, distort_factor: float = 0.1,
+               seed: int = 0) -> Mesh:
+    """Ball mesh à la dealii::GridGenerator::hyper_ball + refine_global
+    (reference tests/laplace.hpp:92-93): 5 (2D) / 7 (3D) coarse cells refined
+    with spherical projection of new boundary points."""
+    from mfmg_torch.fem.ball import hyper_ball_base, refine_ball
+
+    verts, cells_v = hyper_ball_base(dim, radius)
+    for _ in range(n_refinements):
+        verts, cells_v = refine_ball(verts, cells_v, radius)
+    mesh = from_cell_complex(verts, cells_v, degree)
+    if distort_random:
+        # deal.II distort_random semantics (see structured_cube): exact-length
+        # shift factor * (shortest adjacent edge) in a random direction.  The
+        # per-vertex shortest adjacent edge is approximated by the cell-min
+        # first-edge length over cells touching the vertex.
+        rng = np.random.default_rng(seed)
+        edge = np.linalg.norm(mesh.nodes[mesh.cells[:, 1]] - mesh.nodes[mesh.cells[:, 0]], axis=1)
+        h_min = edge.min()
+        shift = rng.uniform(-1.0, 1.0, size=mesh.nodes.shape)
+        norm = np.linalg.norm(shift, axis=1, keepdims=True)
+        shift *= distort_factor * h_min / np.where(norm > 0, norm, 1.0)
+        mesh.nodes = mesh.nodes + (~mesh.boundary_dofs)[:, None] * shift
+    return mesh
+
+
+def from_cell_complex(verts: np.ndarray, cells_v: np.ndarray, degree: int = 1,
+                      interior_faces: set | None = None) -> Mesh:
+    """Build a Mesh (Q_degree dofs) from a vertex/hex-cell complex.
+
+    Higher-order nodes are placed by the multilinear (MappingQ1-equivalent,
+    deal.II's default) map of the cell vertices and deduplicated by
+    coordinate hashing; Dirichlet dofs are the nodes on boundary faces (faces
+    belonging to exactly one cell — all boundary gets id 1, laplace.hpp:100-108).
+
+    interior_faces: sorted-vertex-tuple facets that are interior despite
+    appearing in only one cell — the hanging interfaces of a 1-irregular
+    adaptive complex (see fem/adaptive.py)."""
+    dim = verts.shape[1]
+    n_cells = len(cells_v)
+    k = degree
+    ref = reference_element(dim, k)
+
+    if k == 1:
+        nodes = np.asarray(verts, dtype=float)
+        cells = np.asarray(cells_v, dtype=np.int32)
+    else:
+        # multilinear map of reference support points
+        corners = verts[cells_v]                       # (c, 2^dim, dim)
+        pts = ref.nodes                                # (n_loc, dim) in [0,1]^dim
+        w = np.ones((ref.n_loc, 2 ** dim))
+        for ci in range(2 ** dim):
+            corner = [(ci >> d) & 1 for d in range(dim)]
+            for d in range(dim):
+                t = pts[:, d]
+                w[:, ci] *= t if corner[d] else (1.0 - t)
+        phys = np.einsum("lc,gcd->gld", w, corners)    # (c, n_loc, dim)
+        flat = phys.reshape(-1, dim)
+        key = np.round(flat / 1e-10).astype(np.int64)
+        uniq, inv = np.unique(key, axis=0, return_inverse=True)
+        # representative coordinates
+        nodes = np.zeros((len(uniq), dim))
+        nodes[inv] = flat
+        cells = inv.reshape(n_cells, ref.n_loc).astype(np.int32)
+
+    # boundary faces -> boundary dofs
+    lm = ref.local_multi_index
+    face_nodes = [np.nonzero(lm[:, d] == side)[0]
+                  for d in range(dim) for side in (0, k)]
+    boundary = np.zeros(len(nodes), dtype=bool)
+    ci, fi = boundary_faces(cells_v, interior_faces)
+    for f, fn in enumerate(face_nodes):
+        boundary[cells[ci[fi == f]][:, fn]] = True
+
+    return Mesh(dim=dim, degree=k, nodes=np.asarray(nodes, dtype=float),
+                cells=cells, boundary_dofs=boundary, structured_shape=None)
+
+
+def boundary_faces(cells_v: np.ndarray, interior_faces: set | None = None):
+    """(cell, local face) index pairs of the faces that belong to one cell
+    only and are not in interior_faces, in cell-major order: the
+    reference's face count (mfmg_tpu/fem/mesh.py:155-166) as one sort of
+    the sorted face-vertex keys."""
+    from mfmg_torch.fem.ball import _cell_faces
+    cells_v = np.asarray(cells_v, dtype=np.int64)
+    faces = np.asarray(_cell_faces(int(np.log2(cells_v.shape[1]))))
+    keys = np.sort(cells_v[:, faces], axis=2).reshape(-1, faces.shape[1])
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True,
+                               return_counts=True)
+    once = counts[inv.reshape(-1)] == 1
+    if interior_faces:
+        for r in np.nonzero(once)[0]:
+            once[r] = tuple(keys[r].tolist()) not in interior_faces
+    return np.divmod(np.nonzero(once)[0], len(faces))
 
 
 def hyper_cube(dim: int, n_refinements: int, degree: int = 1,

@@ -30,9 +30,14 @@ class DirectCoarseSolver(nn.Module):
         return self.inv @ b
 
 
-def build_coarse_solver(A_c: sp.spmatrix, coarse_cfg, dtype=torch.float64):
+def build_coarse_solver(A_c: sp.spmatrix, coarse_cfg, dtype, device):
     """Factory (analog of HierarchyHelpers::build_coarse_solver), "direct"
-    family only."""
+    family only.  A large float32 problem takes the reference's jittered
+    float32 Cholesky inverse on the host; otherwise, and where that
+    factorization fails (a consistent-singular coarse matrix, e.g. the
+    ball's level 2 at 14,336 dofs), the pseudoinverse comes from float64
+    ``torch.linalg.eigh`` on ``device`` with the reference's relative
+    cutoff.  The inverse is returned on the device it was made on."""
     ctype = coarse_cfg.type.strip().lower()
     if ctype not in ("direct", "cholesky", "lu_dense", "amesos-klu"):
         raise NotImplementedError(f"coarse solver {coarse_cfg.type!r} is not "
@@ -52,7 +57,7 @@ def build_coarse_solver(A_c: sp.spmatrix, coarse_cfg, dtype=torch.float64):
                 return DirectCoarseSolver(torch.from_numpy(inv).to(dtype))
         except scipy.linalg.LinAlgError:
             pass                           # fall through to the eigh pinv
-    w, V = np.linalg.eigh(Ad)
-    cut = w > 1e-10 * max(w[-1], 0.0)
-    inv = (V[:, cut] / w[cut]) @ V[:, cut].T
-    return DirectCoarseSolver(torch.from_numpy(inv).to(dtype))
+    w, V = torch.linalg.eigh(torch.from_numpy(Ad).to(device, torch.float64))
+    cut = w > 1e-10 * max(float(w[-1]), 0.0)
+    Vc = V[:, cut]
+    return DirectCoarseSolver(((Vc / w[cut]) @ Vc.T).to(dtype))

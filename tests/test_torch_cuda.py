@@ -16,7 +16,10 @@ runs), the chain where the rule sends these grids, on Q1 planes and the Q2
 cube's 62 pairs, and with K1 at 171 pairs on a symmetrized Q3 stencil.
 K1/K3's tiled kernel is held on ragged grids (x extents no multiple of a
 16-byte chunk), radius 1-3, dense and sparse offsets, row segments and a
-one-slice grid, and repeats its bits.
+one-slice grid, and repeats its bits.  The unstructured meshes (a
+hyper_ball with the block walk, an adaptive cube with hanging nodes and RCB
+parts, ELL at every level) are held against the CPU port: level sizes and
+PCG counts equal, the float64 V-cycle rate within 1e-6.
 
 Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
@@ -872,3 +875,48 @@ def test_ell_float32_on_the_card(cuda, monkeypatch):
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
+
+
+def _unstructured_config(mesh, dtype="float32"):
+    """chip_smoke.py's phase-10 configuration: the main configuration with
+    operator="ell", the 4x4x4 walk on a ball, n_cells // 64 RCB parts on an
+    adaptive cube."""
+    cfg = _main_config(dtype=dtype, coeff_dtype=None)
+    cfg.operator = "ell"
+    if mesh.hanging is not None:
+        cfg.agglomeration = tcfg.AgglomerationConfig(
+            partitioner="rcb", n_agglomerates=mesh.n_cells // 64)
+    return cfg
+
+
+@pytest.mark.parametrize("case", ["ball", "adaptive"])
+def test_unstructured_meshes_on_the_card(cuda, case):
+    """hyper_ball(3, 3) with the 4x4x4 walk and adaptive_cube(3, 3) with
+    RCB parts (ragged, hanging nodes) on the card against the CPU port:
+    level sizes and PCG counts equal, the float64 V-cycle rate within 1e-6,
+    the hanging slaves of the solution at 0."""
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.fem.adaptive import adaptive_cube
+    from mfmg_torch.fem.mesh import hyper_ball
+    from mfmg_torch.ops.sparse import ELLMatrix
+    mesh = (hyper_ball(3, 3) if case == "ball" else
+            adaptive_cube(3, 3, lambda c: np.all(c < 0.5, axis=1)))
+    prob = LaplaceProblem.from_mesh(mesh, "linear")
+    cfg = _unstructured_config(mesh)
+    hg, hc = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cpu")
+    assert hg.setup_route == hc.setup_route == "host"
+    assert hg._A_shapes == hc._A_shapes and len(hg.levels) == 3
+    assert all(isinstance(lv.op, ELLMatrix) and lv.op.vals.is_cuda
+               for lv in hg.levels)
+    b = np.random.default_rng(13).uniform(size=prob.n_dofs).astype(np.float32)
+    b[prob.constrained] = 0.0
+    xg, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
+    _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
+    assert ig["iterations"] == ic["iterations"]
+    if mesh.hanging is not None:
+        assert float(xg[mesh.hanging.slaves].abs().max()) <= 1e-8
+    cfg64 = _unstructured_config(mesh, dtype="float64")
+    cfg64.is_preconditioner = False
+    rg = measure_vcycle_rate(Hierarchy(prob, cfg64))
+    rc = measure_vcycle_rate(Hierarchy(prob, cfg64, device="cpu"))
+    assert abs(rg - rc) <= 1e-6, (rg, rc)

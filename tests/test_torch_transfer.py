@@ -124,7 +124,7 @@ def test_builders_match_jax(carried):
         ji = np.asarray(j_coarse(A2, jcfg.CoarseConfig(type=ctype),
                                  dtype=jnp.float64).inv)
         ti = t_coarse(A2, tcfg.CoarseConfig(type=ctype),
-                      dtype=torch.float64).inv.numpy()
+                      dtype=torch.float64, device="cpu").inv.numpy()
         np.testing.assert_allclose(ti, ji, rtol=0, atol=1e-12 * np.abs(ji).max())
     gt = jh.levels[1].transfer
     Rd = np.asarray(gt.Rd)
@@ -153,5 +153,5 @@ def test_direct_coarse_solver_cholesky_branch_matches_jax():
     ji = np.asarray(j_coarse(A, jcfg.CoarseConfig(type="direct"),
                              dtype=jnp.float32).inv)
     ti = t_coarse(A, tcfg.CoarseConfig(type="direct"),
-                  dtype=torch.float32).inv.numpy()
+                  dtype=torch.float32, device="cpu").inv.numpy()
     np.testing.assert_array_equal(ti, ji)
