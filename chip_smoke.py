@@ -106,7 +106,24 @@ each phase prints its wall time):
     setup seconds (per stage), setup's peak host RSS and device memory,
     agglomerate sizes, PCG count, recursive and true relres against the
     reference's (UNSTRUCTURED_REF), ELL applies per V-cycle, the V-cycle
-    in CUDA-event ms and profiler device ms, and the idle share.
+    in CUDA-event ms and profiler device ms, and the idle share;
+11. the reference's other operators and smoothers, each the main
+    configuration with one change, through Hierarchy and solve_cg, its
+    PCG count equal to the reference's (NEW_PATHS_REF), its levels, setup
+    stages, true relres, launches and V-cycle ms (events and device):
+    (a) operator="matrix_free" on Q1 65^3 (identity mode, host route, the
+    fine matrix never assembled), its apply timed against its byte bound
+    beside the ELL apply and K1 of the same matrix, two applies bit-equal;
+    (b) operator="sumfac" on the Q2 cube, the same for its apply;
+    (c) operator="matrix_free" on phase 10's adaptive cube (the condensed
+    cell-wise apply); (d) multicolor symmetric Gauss-Seidel on the stencil
+    path at 65^3 (8 lattice colors, the sublattice sweep; K1 in the
+    residual and the outer CG, K4/K5 once per V-cycle) and on
+    operator="ell" (greedy colors), level 0 by the host route; (e)
+    float64 on hyper_cube(3, 2): lexicographic GS in deal.II's order
+    against the golden 0.0235237332 within 1e-6 and ILU(0) against the
+    CPU port within 1e-10, then one dense triangular smoothing step of
+    each at 4,913 dofs, timed.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -212,6 +229,31 @@ SETUP_EVAL_TOL, SETUP_SV_MIN, SETUP_V1_MIN, SETUP_K_TOL = 1e-2, 0.98, 0.999, 1e-
 # eigenvectors; read 4.5e-6 on an H100 (PERF.md)
 DEVICE_ROUTE_VCYCLE_TOL = 1e-4
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12    # H100 SXM data sheet
+# phase 11, the reference's levels, PCG count and true relres on the same
+# RHS (mfmg_tpu on the CPU with x64, scripts/reference_cpu_counts.py:
+# "6 1 --operator matrix_free", "5 2 --operator sumfac", "5 1 --operator
+# matrix_free --mesh adaptive --partitioner rcb", "6 1 --smoother sgs",
+# "6 1 --operator ell --smoother sgs"); the true relres bound is twice the
+# reference's.  The Gauss-Seidel paths set level 0 up by the host route
+# (backend="host"), as these counts do: with the reference's device
+# pipeline (--device-pipeline) both take 8 iterations, but they stop at
+# relres 8.24e-6 and 9.57e-6, so close to PCG_TOL that an eigensolver's
+# float32 roundoff decides between 8 and 9.
+NEW_PATHS_REF = {
+    "matrix_free 65^3": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                             true_relres=1.846e-5),
+    "sumfac Q2 65^3": dict(levels=[274625, 1024, 32], pcg_iterations=15,
+                           true_relres=4.673e-5),
+    "matrix_free adaptive": dict(levels=[66961, 1920, 3840], pcg_iterations=10,
+                                 true_relres=9.330e-6),
+    "sgs stencil 65^3": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                             true_relres=2.026e-5),
+    "sgs ell 65^3": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                         true_relres=2.011e-5),
+}
+# phase 11 (e): the matrix-path golden (test_hierarchy.cc:343) at the
+# reference test's 1e-6, and a float64 rate on the card against the CPU port
+GOLDEN_MATRIX_SGS_3D, GOLDEN_TOL, RATE_TOL_F64 = 0.0235237332, 1e-6, 1e-10
 
 
 def fail(msg):
@@ -680,6 +722,277 @@ def unstructured_phase(cfg, tk):
                                           lambda c: np.all(c < 0.5, axis=1)),
         cfg, tk)
     return ball, adaptive
+
+
+def new_path_config(cfg, operator="stencil", smoother=None, mesh=None):
+    """Phase 11's configurations: the main configuration with the operator
+    (and on a hanging mesh phase 10's RCB parts) or the smoother changed; a
+    changed smoother sets level 0 up by the host route (NEW_PATHS_REF)."""
+    c = main_config(cfg, backend="auto" if smoother is None else "host")
+    c.operator = operator
+    if mesh is not None and mesh.hanging is not None:
+        c.agglomeration = cfg.AgglomerationConfig(
+            partitioner="rcb", n_agglomerates=mesh.n_cells // 64)
+    if smoother is not None:
+        c.smoother = smoother
+    return c
+
+
+def run_new_path(label, prob, config, route, tk, kernels=()):
+    """One path of phase 11 through Hierarchy and solve_cg, the counts set
+    to 0 just before and read just after: levels, setup stages, the PCG
+    count and the true relres in float64 against the reference's
+    (NEW_PATHS_REF), launches of the solve and of one V-cycle (each kernel
+    of `kernels` launched, no other), the V-cycle in CUDA-event ms and
+    profiler device ms, and the idle share.  The right-hand side is phase
+    5's (phase 10's, zero at the constrained dofs, on a hanging mesh)."""
+    from mfmg_torch import Hierarchy
+    ref = NEW_PATHS_REF[label]
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hier = Hierarchy(prob, config, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    assembled = prob._A is not None
+    b = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
+    if prob.mesh.hanging is not None:
+        b[prob.constrained] = 0.0
+    t0 = time.perf_counter()
+    xs, info = hier.solve_cg(b, tol=PCG_TOL, maxiter=PCG_MAX)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    sizes = [lv.op.shape[0] for lv in hier.levels]
+    types = [f"{type(lv.op).__name__}/{type(lv.smoother).__name__}"
+             for lv in hier.levels]
+    colors = [getattr(lv.smoother, "n_colors", None) for lv in hier.levels[:-1]]
+    x64 = xs.cpu().double().numpy()
+    b64 = b.astype(np.float64)
+    tr = float(np.linalg.norm(b64 - prob.A @ x64) / np.linalg.norm(b64))
+    print(f"{label}: setup {setup_s:.2f} s ({hier.setup_route} route, "
+          f"constrained mode {hier._constrained_mode()}, fine matrix assembled "
+          f"in setup: {assembled}, peak device memory {setup_peak / 2**30:.3f} "
+          f"GiB), levels {sizes} ({', '.join(types)}), colors per level "
+          f"{colors}", flush=True)
+    print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
+                                         for k, v in hier.setup_seconds.items()),
+          flush=True)
+    print(f"  solve_cg: {info['iterations']} iterations (reference "
+          f"{ref['pcg_iterations']}), relres {info['relres']:.3e}, true relres "
+          f"(f64 host) {tr:.3e} (reference {ref['true_relres']:.3e}), "
+          f"{solve_s:.3f} s; launches {launches}", flush=True)
+    check(hier.setup_route == route, f"{label}: setup took the "
+          f"{hier.setup_route} route, not {route}")
+    check(sizes == ref["levels"], f"{label}: levels {sizes}, the reference's "
+          f"{ref['levels']}")
+    check(xs.shape == (prob.n_dofs,) and bool(torch.isfinite(xs).all()),
+          f"{label}: solution not finite or of the wrong shape")
+    check(all(t.is_cuda for lv in hier.levels for t in lv.buffers()),
+          f"{label}: a level buffer is not on cuda")
+    check(info["iterations"] == ref["pcg_iterations"],
+          f"{label}: PCG took {info['iterations']} iterations, the reference "
+          f"{ref['pcg_iterations']}")
+    check(info["relres"] <= PCG_TOL, f"{label}: relres {info['relres']:.3e}")
+    check(tr <= 2 * ref["true_relres"], f"{label}: true relres {tr:.3e} > "
+          f"twice the reference's {ref['true_relres']:.3e}")
+    check(set(launches) == set(kernels), f"{label}: launched {launches}, "
+          f"wanted each of {kernels} and no other")
+    bd = torch.from_numpy(b).to("cuda")
+    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+    ms = [median_ms(lambda: hier.vmult(bd), n=10, batch=2) for _ in range(2)]
+    dev_ms, dev_top, _ = device_ms_per_cycle(hier, bd, n=5)
+    idle = 1.0 - dev_ms / float(np.mean(ms))
+    print(f"  per V-cycle: kernel launches {cycle_launches}, ELL applies "
+          f"{cycle_ell}; ms (CUDA events, two medians) {ms}; device ms "
+          f"(profiler) {dev_ms:.4f}, idle share {idle:.3f}; by kernel: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in dev_top), flush=True)
+    summary = dict(n_dofs=prob.n_dofs, setup_s=setup_s,
+                   setup_route=hier.setup_route,
+                   constrained_mode=hier._constrained_mode(),
+                   fine_matrix_assembled_in_setup=assembled,
+                   setup_stages=hier.setup_seconds,
+                   setup_peak_device_gib=setup_peak / 2**30, levels=sizes,
+                   level_types=types, colors=colors,
+                   pcg_iterations=info["iterations"], relres=info["relres"],
+                   true_relres=tr, solve_s=solve_s, launches=launches,
+                   launches_per_vcycle=cycle_launches,
+                   ell_applies_per_vcycle=cycle_ell, ms_per_vcycle=ms,
+                   device_ms_per_vcycle=dev_ms, device_top=dev_top,
+                   device_idle_share=idle, reference=ref)
+    return hier, summary
+
+
+def apply_timing(name, op, x, work):
+    """An operator's apply on the card: two applies' bits, the median time
+    in CUDA events and the profiler's device time per apply, against the
+    bound of work = (bytes, flops)."""
+    y1, y2 = op(x), op(x)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y1, y2))
+    b_ms, b_by = bound(*work)
+    r = dict(ms=median_ms(lambda: op(x)),
+             device_ms=sum(device_ms_by_name(lambda: op(x), 20).values()),
+             bound_ms=b_ms, bound_by=b_by, bytes=work[0], flops=work[1],
+             same_bits=same, finite=bool(torch.isfinite(y1).all()))
+    print(f"  {name} apply: {json.dumps(r)}", flush=True)
+    check(r["finite"], f"{name}: non-finite apply")
+    return y1, r
+
+
+def new_paths_phase(cfg, tk):
+    """Phase 11: the reference's other operators and smoothers on the card.
+    (a) operator="matrix_free" on Q1 65^3 (identity mode, host route) with
+    its apply against its bound, the ELL apply and K1 of the same problem;
+    (b) operator="sumfac" on the Q2 cube; (c) operator="matrix_free" on
+    phase 10's adaptive cube; (d) multicolor symmetric Gauss-Seidel on the
+    stencil main path and on operator="ell" at 65^3; (e) lexicographic GS
+    (deal.II order) and ILU(0) in float64 on hyper_cube(3, 2) against the
+    golden and the CPU port, and one dense triangular step on
+    hyper_cube(3, 4).  The matrix-free and sum-factorized applies must give
+    the same bits twice."""
+    from mfmg_torch import Hierarchy, LaplaceProblem
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.fem.adaptive import adaptive_cube
+    from mfmg_torch.ops import stencil as st
+    from mfmg_torch.solve.smoothers import build_smoother
+    out = {}
+    sgs = cfg.SmootherConfig(type="symmetric gauss-seidel")
+
+    # (a) matrix-free Q1 65^3
+    prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
+    hier, out["matrix_free 65^3"] = run_new_path(
+        "matrix_free 65^3", prob, new_path_config(cfg, "matrix_free"), "host", tk)
+    check(not out["matrix_free 65^3"]["fine_matrix_assembled_in_setup"],
+          "matrix_free 65^3: setup assembled the fine matrix")
+    op = hier.levels[0].op
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        prob.n_dofs)).to("cuda", torch.float32)
+    n = prob.n_dofs
+    y_mf, r_mf = apply_timing("matrix_free", op, x, (
+        nbytes(op.A_loc, op.cells) + 8 * n, 2 * op.A_loc.numel()))
+    ell = prob.ell_operator(dtype=torch.float32, device="cuda")
+    y_ell, r_ell = apply_timing("ell (same A)", ell, x, (
+        nbytes(ell.vals, ell.cols) + 8 * n, 2 * ell.vals.numel()))
+    k1 = st.stencil_to_device(st.stencil_from_cell_matrices(
+        prob.mesh, prob.A_loc, prob.constrained, prob.diag_raw,
+        dtype=torch.float32), "cuda")
+    y_k1, r_k1 = apply_timing("K1 (same A, f32 planes)", k1, x,
+                              k1_work(k1.planes, n))
+    for name, y in (("ell", y_ell), ("K1", y_k1)):
+        rel = float((y_mf - y).abs().max() / y.abs().max())
+        print(f"  matrix_free against {name}: |dy|/|y| {rel:.3e}", flush=True)
+        check(rel <= ELL_TOL, f"matrix_free apply against {name}: {rel:.3e}")
+    check(r_mf["same_bits"], "matrix_free: two applies differ")
+    out["matrix_free 65^3"]["applies"] = dict(matrix_free=r_mf, ell=r_ell,
+                                              k1=r_k1)
+    del hier, op, ell, k1, prob
+
+    # (b) sum-factorized Q2 cube
+    prob = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
+                                     material_property="linear")
+    hier, out["sumfac Q2 65^3"] = run_new_path(
+        "sumfac Q2 65^3", prob, new_path_config(cfg, "sumfac"), "host", tk)
+    op = hier.levels[0].op
+    n_cells, n_q = op.K.shape[:2]
+    n1, nq1 = op.V.shape[1], op.V.shape[0]
+    # per cell: dim directions x dim 1-D contractions forward and backward
+    # (at most n1^2 x nq1 multiply-adds on (n1 or nq1)^2 lines each), the
+    # 3x3 metric
+    flops = n_cells * (2 * 9 * 2 * nq1 ** 3 * n1 + 2 * 9 * n_q)
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        prob.n_dofs)).to("cuda", torch.float32)
+    _, r_sf = apply_timing("sumfac", op, x, (
+        nbytes(op.K, op.cells, op.V, op.D) + 8 * prob.n_dofs, flops))
+    check(r_sf["same_bits"], "sumfac: two applies differ")
+    out["sumfac Q2 65^3"]["applies"] = dict(sumfac=r_sf)
+    del hier, op, prob
+
+    # (c) matrix-free on the adaptive cube (the condensed cell-wise apply)
+    mesh = adaptive_cube(3, N_REF_ADAPTIVE, lambda c: np.all(c < 0.5, axis=1))
+    prob = LaplaceProblem.from_mesh(mesh, "linear")
+    hier, out["matrix_free adaptive"] = run_new_path(
+        "matrix_free adaptive", prob,
+        new_path_config(cfg, "matrix_free", mesh=mesh), "host", tk)
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        prob.n_dofs)).to("cuda", torch.float32)
+    op = hier.levels[0].op
+    _, r_ad = apply_timing("matrix_free adaptive", op, x, (
+        nbytes(op.A_loc, op.cells) + 8 * prob.n_dofs, 2 * op.A_loc.numel()))
+    check(r_ad["same_bits"], "matrix_free adaptive: two applies differ")
+    out["matrix_free adaptive"]["applies"] = dict(matrix_free=r_ad)
+    del hier, op, prob
+
+    # (d) multicolor symmetric Gauss-Seidel at 65^3: the stencil main path
+    # (lattice colors, the sublattice sweep; K1 in the residual and the
+    # outer CG, K4/K5 the fine transfer) and operator="ell" (greedy colors)
+    prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
+    hier, out["sgs stencil 65^3"] = run_new_path(
+        "sgs stencil 65^3", prob, new_path_config(cfg, smoother=sgs), "host",
+        tk, kernels=("stencil_apply_sym", "structured_restrict",
+                     "structured_prolong"))
+    s = out["sgs stencil 65^3"]
+    n_cyc = s["pcg_iterations"] + 1
+    check(s["colors"][0] == 8
+          and s["launches"].get("structured_restrict") == n_cyc
+          and s["launches"].get("structured_prolong") == n_cyc
+          and s["launches_per_vcycle"].get("stencil_apply_sym") == 1,
+          f"sgs stencil 65^3: colors {s['colors']}, launches {s['launches']}, "
+          f"per V-cycle {s['launches_per_vcycle']}")
+    del hier
+    hier, out["sgs ell 65^3"] = run_new_path(
+        "sgs ell 65^3", prob, new_path_config(cfg, "ell", smoother=sgs),
+        "host", tk)
+    del hier, prob
+
+    # (e) lexicographic GS and ILU(0), float64, on the card
+    prob = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+
+    def cfg_3d(smoother):
+        return cfg.Config(operator="ell", is_preconditioner=False,
+                          eigensolver=cfg.EigensolverConfig(type="lapack",
+                                                            n_eigenvectors=2),
+                          smoother=smoother,
+                          agglomeration=cfg.AgglomerationConfig(nx=2, ny=2, nz=2))
+
+    lex = cfg.SmootherConfig(type="gauss-seidel", coloring="lexicographic",
+                             ordering="dealii")
+    rate_gs = measure_vcycle_rate(Hierarchy(prob, cfg_3d(lex)))
+    ilu = cfg.SmootherConfig(type="ilu")
+    rate_ilu = {dev: measure_vcycle_rate(Hierarchy(prob, cfg_3d(ilu), device=dev))
+                for dev in ("cuda", "cpu")}
+    print(f"lexicographic GS (deal.II order): rate {rate_gs!r} (golden "
+          f"{GOLDEN_MATRIX_SGS_3D}); ILU(0): rate {rate_ilu['cuda']!r} (card) "
+          f"vs {rate_ilu['cpu']!r} (CPU)", flush=True)
+    check(abs(rate_gs - GOLDEN_MATRIX_SGS_3D) <= GOLDEN_TOL,
+          f"lexicographic GS rate {rate_gs} against the golden "
+          f"{GOLDEN_MATRIX_SGS_3D}")
+    check(abs(rate_ilu["cuda"] - rate_ilu["cpu"]) <= RATE_TOL_F64,
+          f"ILU rate {rate_ilu['cuda']} (card) vs {rate_ilu['cpu']} (CPU)")
+    steps = {}
+    prob4 = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    op4 = prob4.ell_operator(device="cuda")
+    xb = torch.from_numpy(np.random.default_rng(24).uniform(
+        size=prob4.n_dofs)).to("cuda")
+    for name, scfg in (("symmetric gauss-seidel lexicographic",
+                        cfg.SmootherConfig(type="symmetric gauss-seidel",
+                                           coloring="lexicographic")),
+                       ("ilu", ilu)):
+        t0 = time.perf_counter()
+        sm = build_smoother(op4, scfg, dtype=torch.float64, A_scipy=prob4.A,
+                            problem=prob4)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        steps[name] = dict(setup_s=setup, n=prob4.n_dofs,
+                           ms=median_ms(lambda: sm.apply(op4, xb, xb), n=10,
+                                        batch=2))
+    print(f"dense triangular steps at {prob4.n_dofs} dofs: {json.dumps(steps)}",
+          flush=True)
+    out["dense triangular"] = dict(rate_gs_dealii=rate_gs, rate_ilu=rate_ilu,
+                                   steps=steps)
+    return out
 
 
 class Phase:
@@ -1755,6 +2068,10 @@ def main():
     with Phase("10 unstructured meshes: hyper_ball, adaptive_cube"):
         summary_ball, summary_adaptive = unstructured_phase(cfg, tk)
 
+    # ---- 11. the other operators and smoothers -----------------------------
+    with Phase("11 matrix-free and sum-factorized operators, Gauss-Seidel, ILU"):
+        summary_new = new_paths_phase(cfg, tk)
+
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
 
@@ -1821,7 +2138,7 @@ def main():
                  "Q2 65^3 distorted 3 levels": summary_a,
                  "65^3 4 levels": summary_b, "65^3 ELL": summary_c,
                  "default Config": summary_d, "ball": summary_ball,
-                 "adaptive cube": summary_adaptive}
+                 "adaptive cube": summary_adaptive, **summary_new}
     for label, s in summaries.items():
         if s is not None:
             s["card"] = card

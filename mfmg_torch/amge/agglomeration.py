@@ -11,9 +11,11 @@ AMGe::build_agglomerates (reference common/amge.templates.hpp:51-85):
     over the cell connectivity graph (amge.templates.hpp:501-594);
   * "zoltan"/"rcb": recursive coordinate bisection of the cell centroids
     (Zoltan's default, balanced parts).
-The ids are those of mfmg_tpu on the same mesh.  "block_dealii" (the walk in
-deal.II's cell order, for the literal agglomerate-id goldens) needs
-fem/dealii_order.py, which is not ported yet (ROADMAP Queue 1).
+  * "block_dealii": the walk seeded in deal.II's cell iteration order
+    (fem/dealii_order.py), which gives the reference's literal
+    agglomerate-id goldens (test_agglomerate.cc:79-288); structured
+    power-of-two hyper_cubes only.
+The ids are those of mfmg_tpu on the same mesh.
 """
 
 from __future__ import annotations
@@ -29,11 +31,9 @@ def build_agglomerates(mesh: Mesh, agg_cfg) -> np.ndarray:
     if agg_cfg.partitioner == "block":
         return build_agglomerates_block(mesh, agg_cfg.block_dims(mesh.dim))
     if agg_cfg.partitioner == "block_dealii":
-        raise NotImplementedError(
-            "partitioner 'block_dealii' walks the cells in deal.II's order "
-            "(fem/dealii_order.py), which is not ported yet (ROADMAP Queue 1); "
-            "partitioner 'block' gives the same partition where the block "
-            "dims divide the mesh")
+        from mfmg_torch.fem.dealii_order import dealii_cell_order
+        return _block_walk_unstructured(mesh, agg_cfg.block_dims(mesh.dim),
+                                        seed_order=dealii_cell_order(mesh))
     if agg_cfg.partitioner == "metis":
         from mfmg_torch.amge.graph_partition import build_agglomerates_multilevel
         return build_agglomerates_multilevel(mesh, agg_cfg.n_agglomerates)
@@ -98,13 +98,15 @@ def face_neighbors(mesh: Mesh) -> np.ndarray:
     return nbrs.reshape(n_cells, n_faces)
 
 
-def _block_walk_unstructured(mesh: Mesh, block_dims) -> np.ndarray:
+def _block_walk_unstructured(mesh: Mesh, block_dims,
+                             seed_order=None) -> np.ndarray:
     """The reference's x->y->z block walk, verbatim semantics
     (amge.templates.hpp:422-494): seed at the first unassigned cell in cell
     order, then walk nx cells through each cell's local x+ face, stepping the
     row start through y+ and the plane start through z+.  Cells are
     (re)marked unconditionally during a walk, as the reference's
-    set_user_index does."""
+    set_user_index does.  seed_order: the cell order of the seeds (deal.II's
+    for "block_dealii"), the mesh's own by default."""
     dim = mesh.dim
     nbrs = face_neighbors(mesh).tolist()
     X_P, Y_P, Z_P = 1, 3, 5                     # local face ids (x+, y+, z+)
@@ -113,7 +115,7 @@ def _block_walk_unstructured(mesh: Mesh, block_dims) -> np.ndarray:
     current = 0
     nx, ny = block_dims[0], block_dims[1]
     d3 = block_dims[2] if dim == 3 else 1
-    for c0 in range(n_cells):
+    for c0 in (range(n_cells) if seed_order is None else seed_order.tolist()):
         if agg[c0] != 0:
             continue
         current += 1

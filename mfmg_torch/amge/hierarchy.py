@@ -1,16 +1,19 @@
 """The multigrid hierarchy: host setup, then a V-cycle of PyTorch modules.
 
 Port of mfmg_tpu/amge/hierarchy.py (reference include/mfmg/common/
-hierarchy.hpp:155-309) for the stencil and the assembled (ELL) operator
-paths.  Each level is a ``LevelData`` module (operator, smoother, transfer,
-coarse solver); setup runs on the host in numpy/scipy exactly as in the
+hierarchy.hpp:155-309) for every operator of the reference: the stencil,
+the assembled (ELL) and the matrix-free ("matrix_free", "sumfac") paths.
+Each level is a ``LevelData`` module (operator, smoother, transfer, coarse
+solver); setup runs on the host in numpy/scipy exactly as in the
 reference, and each level is moved to the hierarchy's device once, when it
 is appended.
 
 Setup pipeline per level (hierarchy.hpp:178-234):
     operator -> smoother -> agglomerates -> batched eigensolve -> R (PoU
     weighted) -> A_coarse = R A R^T (per-agglomerate Galerkin blocks with
-    fast_ap, the host SpGEMM without) -> transfer (structured or window on
+    fast_ap, the host SpGEMM without; fast_ap is on by default for the
+    stencil and matrix-free operators, whose setup then never assembles the
+    fine matrix) -> transfer (structured or window on
     a structured agglomerate grid, else R and R^T as ELL matrices) ->
     coarse operator (block stencil inside its window, else ELL) -> recurse
     / coarse solver.
@@ -63,7 +66,8 @@ class LevelData(nn.Module):
                  fused=None):
         super().__init__()
         self.op = op                      # StencilOperator | BlockStencilOperator
-                                          # | ELLMatrix
+                                          # | ELLMatrix | MatrixFreeOperator
+                                          # | SumFactoredOperator
         self.smoother = smoother          # None on the coarsest level
         self.transfer = transfer          # restriction into the next level:
                                           # Structured-, GeneralWindow- or
@@ -126,6 +130,11 @@ def vcycle(levels, b, x, n_smoothing_steps=1, is_preconditioner=True,
                    cycle_type)
 
 
+# operators whose setup never assembles the fine matrix under fast_ap
+# (mfmg_tpu/amge/hierarchy.py:159)
+MF_TYPES = ("matrix_free", "sumfac", "stencil")
+
+
 def _torch_dtype(name) -> torch.dtype:
     dt = getattr(torch, str(name), None)
     if not isinstance(dt, torch.dtype):
@@ -147,14 +156,20 @@ class Hierarchy:
 
     device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
     device and never falls back to the CPU.
-    Supported configurations: operator="stencil" (structured meshes only;
-    an unstructured mesh raises the reference's ValueError) or "ell" (the
-    default) on any mesh of fem/ (hyper_cube, hyper_ball, adaptive meshes
-    with hanging nodes, where the Galerkin product goes through the
-    condensed A), the "block" (closed-form or walked), "rcb"/"zoltan" and
-    "metis" partitioners, the "lapack" eigensolver, Jacobi or Chebyshev
-    smoothing, and the "direct" coarse solver, at any max_levels; anything
-    else raises NotImplementedError naming its ROADMAP item.
+    Supported configurations: operator="stencil" (structured meshes with
+    lexicographic dofs only; an unstructured or renumbered mesh raises the
+    reference's ValueError), "ell" (the default), "matrix_free" or "sumfac"
+    on any mesh of fem/ (hyper_cube, renumbered cubes, hyper_ball, adaptive
+    meshes with hanging nodes, where the Galerkin product goes through the
+    condensed A), the "block" (closed-form or walked), "block_dealii",
+    "rcb"/"zoltan" and "metis" partitioners, the "lapack" eigensolver in
+    every constrained mode ("auto" is "identity" for the matrix-free
+    operators, "pin" otherwise, as in the reference), every smoother of
+    the reference (Jacobi, Chebyshev with the Lanczos or deal.II CG
+    estimate, multicolor or lexicographic Gauss-Seidel, ILU(0)), and the
+    "direct" coarse solver, at any max_levels; the other eigensolvers, the
+    other coarse solvers and distributed setup raise NotImplementedError
+    naming their ROADMAP item.
     """
 
     def __init__(self, problem, config: Config | None = None, device="cuda"):
@@ -175,19 +190,14 @@ class Hierarchy:
     def _check_supported(self):
         cfg = self.config
         unsupported = []
-        if cfg.operator not in ("stencil", "ell"):
-            unsupported.append(f"operator={cfg.operator!r} (Slice E)")
         if cfg.distributed_setup:
-            unsupported.append("distributed_setup (Slice G)")
+            unsupported.append("distributed_setup (ROADMAP Queue 1, item 8)")
         if cfg.eigensolver.type != "lapack":
-            unsupported.append(f"eigensolver {cfg.eigensolver.type!r} (Slice E)")
-        if cfg.eigensolver.constrained_mode not in ("auto", "pin"):
-            unsupported.append(f"constrained_mode "
-                               f"{cfg.eigensolver.constrained_mode!r} (Slice E)")
+            unsupported.append(f"eigensolver {cfg.eigensolver.type!r} "
+                               f"(ROADMAP Queue 1, item 5)")
         if unsupported:
             raise NotImplementedError("mfmg_torch does not support "
-                                      + ", ".join(unsupported)
-                                      + " yet (ROADMAP Queue 1)")
+                                      + ", ".join(unsupported) + " yet")
 
     # ------------------------------------------------------------- setup --
     def _setup(self):
@@ -206,9 +216,11 @@ class Hierarchy:
         problem = self.problem
         stencil = cfg.operator == "stencil"
         # fast_ap auto: the per-agglomerate Galerkin blocks for the stencil
-        # path (the fine matrix is never assembled), the host SpGEMM for the
-        # assembled ELL path (mfmg_tpu/amge/hierarchy.py:155-171)
-        fast_ap = stencil if cfg.fast_ap is None else bool(cfg.fast_ap)
+        # and matrix-free paths (the fine matrix is never assembled), the
+        # host SpGEMM for the assembled ELL path
+        # (mfmg_tpu/amge/hierarchy.py:155-171)
+        fast_ap = (cfg.operator in MF_TYPES if cfg.fast_ap is None
+                   else bool(cfg.fast_ap))
         if problem.mesh.hanging is not None:
             # the coarse operator must be Galerkin in the condensed matrix
             # (master rows carry w A w corrections the raw per-agglomerate
@@ -225,10 +237,16 @@ class Hierarchy:
             op = stencil_from_cell_matrices(problem.mesh, problem.A_loc,
                                             problem.constrained,
                                             problem.diag_raw, dtype=coeff_dt)
+        elif cfg.operator in ("matrix_free", "sumfac"):
+            op = problem.matrix_free_operator(
+                dtype=self.dtype, device=self.device,
+                mode="sumfac" if cfg.operator == "sumfac" else "local_matrix")
         else:
             op = problem.ell_operator(dtype=self.dtype, device=self.device)
-        # the fine matrix is assembled unless the stencil path has fast_ap
-        A_per_level = [None if (fast_ap and stencil) else problem.A]
+        # the fine matrix is assembled unless a matrix-free-style operator
+        # has fast_ap (the cell matrices then feed the smoother's estimate)
+        A_per_level = [None if (fast_ap and cfg.operator in MF_TYPES)
+                       else problem.A]
         self._A_shapes = [(problem.n_dofs, problem.n_dofs)]
         self._A_nnzs = [problem.A.nnz if A_per_level[0] is not None
                         else self._op_nnz(op)]
@@ -248,7 +266,8 @@ class Hierarchy:
                 mark(f"coarse solver (n={A_c.shape[0]})")
                 break
             smoother = build_smoother(op, cfg.smoother, dtype=self.dtype,
-                                      A_scipy=A_per_level[level])
+                                      A_scipy=A_per_level[level],
+                                      problem=problem if level == 0 else None)
             mark(f"smoother L{level}")
             R = self._build_restrictor(level, A_per_level)
             mark(f"restrictor L{level}")
@@ -324,8 +343,9 @@ class Hierarchy:
 
     def _use_device_eig(self) -> bool:
         """The level-0 device route is wanted and can hold the hierarchy: the
-        'lapack' eigensolver with backend 'auto' or 'device' (in the 'pin'
-        constrained mode, the only one _check_supported lets through), a
+        'lapack' eigensolver with backend 'auto' or 'device' in the 'pin'
+        constrained mode (an identity-mode hierarchy, the matrix-free
+        operators' default, takes the host route, as in the reference), a
         float32 hierarchy (the pipeline is float32 throughout; a float64
         hierarchy keeps float64 eigenpairs and Galerkin blocks, as the
         reference's pipeline refuses x64), and a problem whose cell matrices
@@ -333,8 +353,19 @@ class Hierarchy:
         (not a local_matrix_fn's)."""
         e = self.config.eigensolver
         return (e.type == "lapack" and e.backend in ("auto", "device")
+                and self._constrained_mode() == "pin"
                 and self.dtype == torch.float32
                 and getattr(self.problem, "laplace_form", False))
+
+    def _constrained_mode(self) -> str:
+        """The eigensolver's constrained mode: "auto" follows the reference's
+        per-path convention (mfmg_tpu/amge/hierarchy.py:586-594): identity
+        rows for the matrix-free evaluators, shift + pin for the others."""
+        mode = self.config.eigensolver.constrained_mode
+        if mode != "auto":
+            return mode
+        return ("identity" if self.config.operator in ("matrix_free", "sumfac")
+                else "pin")
 
     def _append(self, level_data: LevelData):
         """Finalize a level and move it to the device (its one h2d copy)."""
@@ -405,7 +436,8 @@ class Hierarchy:
                                                 agg_ids, batch_dtype=batch_dtype)
                 self._mark("batch L0")
                 evals, evecs = batched_smallest_eigenpairs(
-                    batch, n_ev, constrained_mode="pin", host_dtype=batch_dtype,
+                    batch, n_ev, constrained_mode=self._constrained_mode(),
+                    host_dtype=batch_dtype,
                     use_device=cfg.eigensolver.backend == "device",
                     device=self.device)
                 self._mark("host eigensolve L0")
@@ -508,15 +540,19 @@ class Hierarchy:
     # ------------------------------------------------------------ metrics --
     @staticmethod
     def _op_nnz(op) -> int:
-        """Operator nonzero count without assembling anything global (the
-        stored planes or ELL values that are not zero)."""
+        """Operator nonzero count without assembling anything global: the
+        stored planes or ELL values that are not zero; for a matrix-free
+        operator the reference's stencil-equivalent estimate, n * 3^dim
+        with dim read off a Q1 cell (mfmg_tpu/amge/hierarchy.py:716-720)."""
         from mfmg_torch.ops.sparse import ELLMatrix
         from mfmg_torch.ops.stencil import StencilOperator
         if isinstance(op, StencilOperator):
             return int(torch.count_nonzero(op.coeffs))
         if isinstance(op, ELLMatrix):
             return int(torch.count_nonzero(op.vals))
-        raise TypeError(f"no nonzero count for {type(op).__name__}")
+        n_loc = op.cells.shape[1]
+        dim = int(round(np.log2(n_loc))) if n_loc in (2, 4, 8) else 2
+        return int(op.shape[0]) * 3 ** dim
 
     def grid_complexity(self) -> float:
         """Sum of the level sizes over the fine size (operator.hpp:49-51)."""

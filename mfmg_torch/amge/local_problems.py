@@ -218,9 +218,10 @@ def block_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout:
 
 def _structured_layout(mesh: Mesh, agg_ids: np.ndarray) -> BlockLayout | None:
     """block_layout, or None where the generic builder applies (an
-    unstructured mesh, ragged or non-block agglomerates)."""
-    if not mesh.is_structured:
-        return None
+    unstructured mesh, a renumbered one, ragged or non-block
+    agglomerates)."""
+    if not mesh.is_structured or mesh.dof_renumbered:
+        return None              # renumbered dofs: closed-form ids invalid
     n_agg = int(agg_ids.max()) + 1
     counts = np.bincount(agg_ids, minlength=n_agg)
     nc = np.asarray(mesh.structured_shape)

@@ -1,13 +1,17 @@
 """Batched dense symmetric eigensolver for agglomerate coarse spaces (host).
 
-Port of the host LAPACK ``syevx`` path of mfmg_tpu/eigen/batched_eigh.py in
-"pin" mode, the analog of the reference "lapack" eigensolver
-(dealii/amge_host.templates.hpp:384-394, 446-467):
-  * the diagonal is shifted by the mean diagonal (changes eigenvalues,
-    never eigenvectors),
-  * constrained (Dirichlet) dofs get their diagonal pinned to 200 so their
-    decoupled eigenvectors sort far above the physical smallest modes,
-  * the n_ev smallest eigenpairs are kept; eigenvalues are un-shifted.
+Port of mfmg_tpu/eigen/batched_eigh.py, the analog of the reference
+"lapack" eigensolver (dealii/amge_host.templates.hpp:384-394, 446-467).
+constrained_mode selects the reference path reproduced:
+  * "pin" (the matrix path): the diagonal is shifted by its mean (changes
+    eigenvalues, never eigenvectors) and constrained (Dirichlet) dofs get
+    their diagonal pinned to 200, so their decoupled eigenvectors sort far
+    above the physical smallest modes;
+  * "identity" (the matrix-free path): no shift, constrained dofs still
+    pinned to 200 (mfmg_tpu/eigen/batched_eigh.py:41-49 says why);
+  * "raw" (the reference's CUDA path): no shift, and the constrained
+    diagonal keeps its assembled value.
+The n_ev smallest eigenpairs are kept; eigenvalues are un-shifted.
 
 It makes the same LAPACK call as the reference package (``ssyevx`` for
 float32 hierarchies, ``dsyevx`` for float64), so both packages compute the
@@ -15,8 +19,9 @@ same basis on the same host.  ``use_device=True`` is the reference's device
 branch: the whole padded, shifted and pinned batch through one batched
 ``torch.linalg.eigh`` on ``device`` (the card unless the caller asks for the
 CPU); it serves ``backend="device"`` where the device pipeline
-(``eigen/device_eig.py``) does not apply.  The "identity"/"raw" modes are
-not ported yet (ROADMAP Queue 1).
+(``eigen/device_eig.py``) does not apply.  More than 8 eigenvectors on the
+host take one full batched ``np.linalg.eigh`` of that padded batch, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -55,19 +60,19 @@ def batched_smallest_eigenpairs(batch: AgglomerateBatch, n_ev: int,
     L2-normalized eigenvectors, zero on padding.  use_device: the batched
     torch.linalg.eigh on ``device`` in host_dtype's precision, in place of
     host LAPACK."""
-    if constrained_mode != "pin":
-        raise NotImplementedError(f"constrained_mode {constrained_mode!r} is "
-                                  f"not ported yet (ROADMAP Queue 1, Slice E)")
     n_agg, m_max = batch.dof_map.shape
     if np.any(batch.sizes < n_ev):
         raise ValueError("an agglomerate has fewer dofs than requested eigenvectors")
-    shifts = (batch.diag * batch.valid).sum(axis=1) / batch.sizes
-    if use_device:
-        return _device_eigh(batch, n_ev, shifts, host_dtype, device)
-    if n_ev > 8:
-        raise NotImplementedError("more than 8 eigenvectors per agglomerate "
-                                  "(the full batched eigh) on the host is not "
-                                  "ported yet (ROADMAP Queue 1, Slice E)")
+    if constrained_mode == "pin":
+        shifts = (batch.diag * batch.valid).sum(axis=1) / batch.sizes
+    elif constrained_mode in ("identity", "raw"):
+        shifts = np.zeros(n_agg)
+    else:
+        raise ValueError(f"unknown constrained_mode {constrained_mode!r}")
+    pin = constrained_mode in ("pin", "identity")
+    if use_device or n_ev > 8:
+        return _full_eigh(batch, n_ev, shifts, pin, host_dtype,
+                          device if use_device else None)
 
     # LAPACK's subset driver on the unpadded submatrices; only the n_ev
     # smallest pairs are computed
@@ -92,7 +97,8 @@ def batched_smallest_eigenpairs(batch: AgglomerateBatch, n_ev: int,
         Mi = np.array(Mh[i, :sz, :sz], dtype=host_dtype)
         dv = np.einsum("ii->i", Mi)
         dv += host_dtype(shifts[i])
-        dv[batch.constrained[i, :sz]] = CONSTRAINED_DIAG
+        if pin:
+            dv[batch.constrained[i, :sz]] = CONSTRAINED_DIAG
         return Mi
 
     def _solve_range(lo, hi):
@@ -125,18 +131,26 @@ def batched_smallest_eigenpairs(batch: AgglomerateBatch, n_ev: int,
     return evals, evecs * batch.valid[:, :, None]
 
 
-def _device_eigh(batch: AgglomerateBatch, n_ev, shifts, host_dtype, device):
-    """The padded batch M (shifted diagonal, constrained dofs pinned,
-    padding ~100x above every physical entry so its unit eigenvectors sort
-    last) through one batched eigh on the device."""
+def _full_eigh(batch: AgglomerateBatch, n_ev, shifts, pin, host_dtype,
+               device):
+    """The padded batch M (shifted diagonal, constrained dofs pinned where
+    pin, padding ~100x above every physical entry so its unit eigenvectors
+    sort last) through one full batched eigh: torch.linalg.eigh on device,
+    or np.linalg.eigh on the host for device None."""
     M = batch.A_agg.copy()
     ar = np.arange(batch.m_max)
     M[:, ar, ar] += shifts[:, None] * batch.valid
-    di = np.where(batch.constrained, CONSTRAINED_DIAG, M[:, ar, ar])
+    di = M[:, ar, ar]
+    if pin:
+        di = np.where(batch.constrained, CONSTRAINED_DIAG, di)
     pad_value = 100.0 * max(np.abs(M).max(), CONSTRAINED_DIAG)
     M[:, ar, ar] = np.where(~batch.valid, pad_value, di)
-    dt = torch.float64 if np.dtype(host_dtype) == np.float64 else torch.float32
-    w, v = eigh_batched(torch.as_tensor(M, dtype=dt, device=device))
-    evals = w[:, :n_ev].cpu().numpy().astype(np.float64) - shifts[:, None]
-    evecs = v[:, :, :n_ev].cpu().numpy().astype(np.float64)
-    return evals, evecs * batch.valid[:, :, None]
+    if device is None:
+        w, v = np.linalg.eigh(M.astype(host_dtype))
+        w, v = w.astype(np.float64), v.astype(np.float64)
+    else:
+        dt = torch.float64 if np.dtype(host_dtype) == np.float64 else torch.float32
+        w, v = eigh_batched(torch.as_tensor(M, dtype=dt, device=device))
+        w, v = w.cpu().numpy().astype(np.float64), v.cpu().numpy().astype(np.float64)
+    evals = w[:, :n_ev] - shifts[:, None]
+    return evals, v[:, :, :n_ev] * batch.valid[:, :, None]

@@ -3,7 +3,8 @@
 Port of mfmg_tpu/fem/geometry.py: what deal.II's FEValues mapping data
 provides (Jacobians, JxW, physical quadrature points; reference
 tests/laplace.hpp:160-195), batched over all cells as dense arrays, and the
-batched variable-coefficient Laplace cell matrices built from them.
+batched variable-coefficient Laplace cell matrices built from them, and
+the metric tensor of the sum-factorized apply (``compute_metric``).
 """
 
 from __future__ import annotations
@@ -114,6 +115,31 @@ def compute_geometry(mesh: Mesh) -> GeometryFactors:
     JxW = ref.qweights[None, :] * detJ
     qpoints_phys = np.einsum("cia,qi->cqa", xe, ref.N)
     return GeometryFactors(G=G, JxW=JxW, qpoints_phys=qpoints_phys)
+
+
+def compute_metric(mesh: Mesh, coeff_at_q: np.ndarray) -> np.ndarray:
+    """Per-quadrature-point metric of the sum-factorized apply
+    (mfmg_tpu/fem/geometry.py:137-164): K[c,q,a,b] = JxW[c,q] * coeff[c,q]
+    * (J^{-1} J^{-T})[a,b], so the weak form is t_i . K . t_j with t the
+    reference-space gradients (deal.II MatrixFree's MappingInfo
+    compression).  (n_cells, n_q, dim, dim) float64."""
+    ref = reference_element(mesh.dim, mesh.degree)
+    dim = mesh.dim
+    n_q = ref.D.shape[0]
+    xe = mesh.nodes[mesh.cells]
+    if _translation_invariant(xe):
+        J1 = np.einsum("ia,qbi->qab", xe[0], ref.D)
+        det1, Jinv1 = _det_inv_small(J1)
+        K1 = np.einsum("qad,qbd->qab", Jinv1, Jinv1)
+        s = (ref.qweights * det1)[None, :] * coeff_at_q    # (c, q)
+        return s[:, :, None, None] * K1[None]
+    D2 = ref.D.reshape(-1, ref.D.shape[-1])
+    J = (xe.transpose(0, 2, 1) @ D2.T).reshape(
+        len(xe), dim, n_q, dim).transpose(0, 2, 1, 3)
+    detJ, Jinv = _det_inv_small(J)
+    s = ref.qweights[None, :] * detJ * coeff_at_q          # (c, q)
+    K = np.einsum("cqad,cqbd->cqab", Jinv, Jinv, optimize=True)
+    return K * s[:, :, None, None]
 
 
 def local_stiffness_matrices(mesh: Mesh, geom: GeometryFactors,

@@ -6,8 +6,10 @@ problem holds the host data the hierarchy setup consumes: per-cell matrices
 the partition-of-unity weights, and the constrained mask ``constrained``
 (Dirichlet dofs and hanging slaves).  The assembled matrix ``A_raw`` and the
 condensed (hanging-node), Dirichlet-eliminated ``A`` are built lazily: the
-stencil setup path never needs them; the assembled path (``ell_operator``,
-``Config(operator="ell")``) applies ``A`` as an ``ELLMatrix``.  On an
+stencil and matrix-free setup paths never need them; the assembled path
+(``ell_operator``, ``Config(operator="ell")``) applies ``A`` as an
+``ELLMatrix``, the matrix-free paths (``matrix_free_operator``,
+``Config(operator="matrix_free" | "sumfac")``) the cell matrices.  On an
 adaptive mesh the solve happens in range(C): ``assemble_rhs`` gives the
 condensed load and ``distribute`` recovers the hanging values after it.
 """
@@ -70,6 +72,54 @@ class LaplaceProblem:
         SparseMatrixDevice).  device is "cuda" unless the caller asks for the
         CPU; "cuda" needs a CUDA device and never falls back to the CPU."""
         return ell_from_scipy(self.A, dtype=dtype, device=checked_device(device))
+
+    def matrix_free_operator(self, dtype=torch.float64,
+                             mode: str = "local_matrix", device="cuda"):
+        """The matrix-free operator on ``device`` (the analog of the
+        reference's DealIIMatrixFreeOperator; mfmg_tpu/fem/laplace.py:
+        118-167): mode "local_matrix" or "quadrature" gives a
+        MatrixFreeOperator (ops/local_apply.py), "sumfac" a
+        SumFactoredOperator (ops/sumfac.py).  Hanging-node meshes apply the
+        condensed C^T A C cell-wise; the condensed diagonal is read once
+        from the assembled A.  device is "cuda" unless the caller asks for
+        the CPU."""
+        from mfmg_torch.ops.local_apply import MatrixFreeOperator
+        device = checked_device(device)
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        if mode == "sumfac":
+            from mfmg_torch.ops.sumfac import build_sumfac_operator
+            return build_sumfac_operator(self.mesh, self.coeff_at_q,
+                                         self.diag_raw, self.A_loc,
+                                         dtype=dtype, device=device)
+        hc_kw = {}
+        if self.mesh.hanging is not None:
+            h = self.mesh.hanging
+            valid = np.arange(h.masters.shape[1])[None] < h.n_masters[:, None]
+            hc_kw = dict(
+                hc_slaves=dev(h.slaves, torch.int64),
+                hc_masters=dev(np.where(valid, h.masters, 0), torch.int64),
+                hc_weights=dev(np.where(valid, h.weights, 0.0)),
+                hc_n_masters=np.asarray(h.n_masters),
+                diag_all=dev(self.A.diagonal()))
+        common = dict(cells=dev(self.mesh.cells, torch.int64),
+                      constrained=dev(self.mesh.boundary_dofs, torch.bool),
+                      diag=dev(self.diag_raw), **hc_kw)
+        if mode == "local_matrix":
+            return MatrixFreeOperator(A_loc=dev(self.A_loc), **common)
+        if mode == "quadrature":
+            # the shared single-cell gradients of an undistorted grid are
+            # broadcast on the device; the (n_cells, n_q, dim, n_loc) table
+            # is held only in this mode
+            G = (dev(self.geom.G_shared).expand(self.mesh.n_cells,
+                                                *self.geom.G_shared.shape)
+                 if self.geom.G_shared is not None else dev(self.geom.G))
+            return MatrixFreeOperator(
+                G=G.contiguous(), scale=dev(self.geom.JxW * self.coeff_at_q),
+                **common)
+        raise ValueError(f"unknown matrix-free mode {mode!r}")
 
     @staticmethod
     def hyper_cube(dim: int, n_refinements: int, degree: int = 1,

@@ -11,7 +11,10 @@ Q_k).  The structured hyper_cube keeps its metadata (cells per dim, degree)
 so the stencil and structured-transfer paths can use closed-form index
 maps; ball and adaptive meshes (``hyper_ball``, ``from_cell_complex``,
 fem/adaptive.py) are unstructured and go through the generic arrays.
-Renumbered meshes (``renumber_dofs``) are not ported yet (ROADMAP Queue 1).
+``renumber_dofs`` gives a mesh whose dof ids are no longer lexicographic
+(Reverse Cuthill-McKee, King); it keeps its structured metadata for the
+cell-geometric machinery, and every closed-form dof path declines it
+(``Mesh.dof_renumbered``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ class Mesh:
     # Hanging-node constraints of a 1-irregular adaptive mesh (Q1 only);
     # None on conforming meshes.  See fem/adaptive.py.
     hanging: "HangingConstraints | None" = None
+    # True after renumber_dofs: node ids are no longer lexicographic, so the
+    # closed-form structured dof paths (stencil extraction, the vectorized
+    # batch, the device eigensolve) must not be used; the cell-geometric
+    # machinery (agglomeration) is unaffected
+    dof_renumbered: bool = False
 
     @property
     def n_nodes(self) -> int:
@@ -243,3 +251,84 @@ def structured_cube(dim: int, cells_per_dim: tuple, degree: int = 1,
     return Mesh(dim=dim, degree=degree, nodes=nodes,
                 cells=cells.astype(np.int32), boundary_dofs=boundary,
                 structured_shape=nc)
+
+
+def renumber_dofs(mesh: Mesh, method: str) -> Mesh:
+    """Global dof renumbering (analog of dealii::DoFRenumbering, which the
+    reference's test driver applies through laplace.reordering,
+    tests/laplace.hpp:115-122).
+
+    "reverse cuthill_mckee" / "reverse cuthill-mckee" (scipy csgraph RCM on
+    the node-connectivity graph, deal.II's Cuthill_McKee with reversed
+    numbering) and "king" (``_king_ordering``); "none" returns the mesh
+    unchanged.  Any other method, and a mesh with hanging nodes, raise
+    ValueError, as in mfmg_tpu."""
+    m = method.strip().lower().replace("-", "_").replace(" ", "_")
+    if m in ("none", ""):
+        return mesh
+    if m not in ("reverse_cuthill_mckee", "reverse_cuthill_mckee_true", "rcm",
+                 "king"):
+        raise ValueError(f"unsupported reordering {method!r}")
+    if mesh.hanging is not None:
+        raise ValueError("renumbering of hanging-node meshes not supported")
+    import scipy.sparse as sp
+
+    n = mesh.n_nodes
+    c = mesh.cells
+    rows = np.repeat(c, c.shape[1], axis=1).reshape(-1)
+    cols = np.tile(c, (1, c.shape[1])).reshape(-1)
+    A = sp.csr_matrix((np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n))
+    if m == "king":
+        p = _king_ordering(A)
+    else:
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        p = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+    q = np.empty(n, dtype=np.int64)
+    q[p] = np.arange(n)
+    return dataclasses.replace(
+        mesh, nodes=mesh.nodes[p], cells=q[mesh.cells].astype(mesh.cells.dtype),
+        boundary_dofs=mesh.boundary_dofs[p], dof_renumbered=True)
+
+
+def _king_ordering(A) -> np.ndarray:
+    """King ordering of a symmetric sparsity graph: a breadth-first
+    numbering that at each step takes the frontier vertex adding the fewest
+    new vertices to the wavefront (ties by discovery step, then degree),
+    each component seeded at its least-degree vertex (King 1970, the
+    criterion of boost::king_ordering; mfmg_tpu/fem/mesh.py:313-350).
+    Setup-time host loop, O(n * front * degree)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    indptr, indices = A.indptr, A.indices
+    deg = np.diff(indptr)
+    order = np.empty(n, dtype=np.int64)
+    numbered = np.zeros(n, dtype=bool)
+    in_front = np.zeros(n, dtype=bool)
+    discovery = np.full(n, n, dtype=np.int64)
+    front: list[int] = []
+    for k in range(n):
+        if not front:
+            rest = np.nonzero(~numbered)[0]
+            start = rest[np.argmin(deg[rest])]
+            front = [int(start)]
+            in_front[start] = True
+            discovery[start] = k
+        best, best_key = None, None
+        for v in front:
+            nb = indices[indptr[v]: indptr[v + 1]]
+            key = (int(np.count_nonzero(~numbered[nb] & ~in_front[nb])),
+                   discovery[v], deg[v])
+            if best is None or key < best_key:
+                best, best_key = v, key
+        order[k] = best
+        numbered[best] = True
+        in_front[best] = False
+        front.remove(best)
+        nb = indices[indptr[best]: indptr[best + 1]]
+        for w in nb[~numbered[nb] & ~in_front[nb]]:
+            in_front[w] = True
+            discovery[w] = k
+            front.append(int(w))
+    return order

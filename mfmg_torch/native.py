@@ -2,8 +2,8 @@
 
 The library is the setup's host hot paths in framework-neutral C++: the
 batched agglomerate assembly, the stencil extraction scatter, the
-per-agglomerate restriction blocks, the per-super Galerkin/Gram scatter and
-the CSR -> ELL packing.
+per-agglomerate restriction blocks, the per-super Galerkin/Gram scatter,
+the CSR -> ELL packing and the greedy coloring of an ELL adjacency.
 It is compiled at first use with
 
     g++ -O3 -march=native -shared -fPIC -pthread mfmg_host.cpp
@@ -110,6 +110,7 @@ def _library():
         lib.scatter_super_blocks_f64.argtypes = [i64, i64, f64, f64, f64, f64,
                                                  n, n, n]
         lib.ell_pack.argtypes = [i64, i32, f64, f64, i32, n, n]
+        lib.greedy_color.argtypes = [i32, f64, i32, n, n]
         _lib = lib
     return _lib
 
@@ -259,3 +260,19 @@ def ell_pack(indptr, indices, data, n_rows: int, L: int):
                  _ptr(data, ctypes.c_double), _ptr(vals, ctypes.c_double),
                  _ptr(cols, ctypes.c_int32), n_rows, L)
     return vals, cols
+
+
+def greedy_color(cols, vals) -> np.ndarray:
+    """Sequential first-fit distance-1 coloring of an (n, L) ELL adjacency
+    (entries with value 0 and the diagonal skipped), rows in order:
+    (n,) int32 colors."""
+    lib = _library()
+    cols = _c(cols, np.int32)
+    vals = _c(vals, np.float64)
+    if cols.shape != vals.shape or cols.ndim != 2:
+        raise ValueError(f"greedy_color: cols {cols.shape}, vals {vals.shape}")
+    n, L = cols.shape
+    colors = np.full(n, -1, dtype=np.int32)
+    lib.greedy_color(_ptr(cols, ctypes.c_int32), _ptr(vals, ctypes.c_double),
+                     _ptr(colors, ctypes.c_int32), n, L)
+    return colors

@@ -23,6 +23,7 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 from torch import nn
 
@@ -130,6 +131,32 @@ def stencil_apply(op: StencilOperator, x: torch.Tensor) -> torch.Tensor:
                                                    op.grid_shape)
 
 
+def full_planes(op: StencilOperator) -> torch.Tensor:
+    """Every plane of ``op.offsets``, (n_off,) + grid_shape in the storage
+    dtype: ``coeffs`` as built, or, for a symmetric operator finalized to its
+    center and positive planes, each negative plane rebuilt as
+    C_{-o}[i] = C_o[i-o] (zero where i-o leaves the grid)."""
+    if op.coeffs is not None:
+        return op.coeffs
+    pos = {op.offsets[i]: j + 1 for j, i in enumerate(op.sym_pos)}
+    zero = (0,) * len(op.grid_shape)
+    out = torch.zeros((len(op.offsets),) + op.grid_shape, dtype=op.planes.dtype,
+                      device=op.planes.device)
+    for i, off in enumerate(op.offsets):
+        if off == zero:
+            out[i] = op.planes[0]
+        elif off in pos:
+            out[i] = op.planes[pos[off]]
+        else:
+            neg = tuple(-c for c in off)
+            src = tuple(slice(max(0, -o), min(n, n - o))
+                        for o, n in zip(neg, op.grid_shape))
+            dst = tuple(slice(max(0, o), min(n, n + o))
+                        for o, n in zip(neg, op.grid_shape))
+            out[i][dst] = op.planes[pos[neg]][src]
+    return out
+
+
 def _gather_planes(op: StencilOperator) -> torch.Tensor:
     ctr = op.offsets.index((0,) * len(op.grid_shape))
     return op.coeffs[[ctr, *op.sym_pos]].contiguous()
@@ -190,9 +217,10 @@ def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
     constrained rows keep only the raw-diagonal center, and couplings into
     constrained columns are zeroed.  The planes stay on the host (setup
     reads them there); the hierarchy moves them once, at finalization."""
-    if not mesh.is_structured:
+    if not mesh.is_structured or mesh.dof_renumbered:
         raise ValueError("stencil operator requires a structured mesh with "
-                         "lexicographic dof numbering")
+                         "lexicographic dof numbering (use operator='ell' "
+                         "after renumber_dofs)")
     k = mesh.degree
     offsets, oid_ab, grid_shape, n_nodes = stencil_layout(mesh)
     from mfmg_torch import native
@@ -210,6 +238,47 @@ def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
         else:
             coeffs[i] = np.where(constrained | col_con, 0.0, coeffs[i])
 
+    coeffs = coeffs.reshape((len(offsets),) + grid_shape)
+    nonzero = [i for i in range(len(offsets)) if np.any(coeffs[i])]
+    coeffs = coeffs[nonzero]
+    offsets = tuple(offsets[i] for i in nonzero)
+    sym_pos = detect_symmetry(coeffs, offsets, grid_shape)
+    return StencilOperator(torch.from_numpy(coeffs).to(dtype), offsets,
+                           grid_shape, sym_pos)
+
+
+def stencil_from_csr(A: sp.spmatrix, mesh: Mesh,
+                     dtype=torch.float32) -> StencilOperator:
+    """Exact stencil extraction from an assembled matrix on a structured mesh
+    (mfmg_tpu/ops/stencil.py:350-393): each entry's per-axis offset comes
+    from the row and column multi-indices; all-zero planes are dropped.
+    The operator keeps all its planes on the host (``coeffs``)."""
+    if not mesh.is_structured:
+        raise ValueError("stencil operator requires a structured mesh")
+    k = mesh.degree
+    dim = mesh.dim
+    n1 = tuple(k * c + 1 for c in mesh.structured_shape)   # x first
+    grid_shape = tuple(reversed(n1))           # C order: (z, y, x)
+
+    A = sp.coo_matrix(A)
+
+    def multi(idx):
+        out = []
+        rem = idx.astype(np.int64)
+        for d in range(dim):
+            out.append(rem % n1[d])
+            rem = rem // n1[d]
+        return np.stack(out, axis=-1)          # (..., dim) x first
+
+    diff = multi(A.col) - multi(A.row)         # per-axis offsets, x first
+    if np.abs(diff).max() > k:
+        raise ValueError("matrix has entries outside the (2k+1)^dim stencil")
+    offsets = list(itertools.product(*[range(-k, k + 1)] * dim))  # (z..x)
+    oid = np.zeros(len(A.data), dtype=np.int64)
+    for d in range(dim - 1, -1, -1):
+        oid = oid * (2 * k + 1) + (diff[:, d] + k)
+    coeffs = np.zeros((len(offsets), int(np.prod(n1))))
+    np.add.at(coeffs, (oid, A.row), A.data)
     coeffs = coeffs.reshape((len(offsets),) + grid_shape)
     nonzero = [i for i in range(len(offsets)) if np.any(coeffs[i])]
     coeffs = coeffs[nonzero]

@@ -41,7 +41,7 @@ def build_coarse_solver(A_c: sp.spmatrix, coarse_cfg, dtype, device):
     ctype = coarse_cfg.type.strip().lower()
     if ctype not in ("direct", "cholesky", "lu_dense", "amesos-klu"):
         raise NotImplementedError(f"coarse solver {coarse_cfg.type!r} is not "
-                                  f"ported yet (ROADMAP Queue 1, Slice E)")
+                                  f"ported yet (ROADMAP Queue 1, item 6)")
     Ad = np.asarray(A_c.todense())
     Ad = 0.5 * (Ad + Ad.T)                 # symmetrize against assembly roundoff
     n = Ad.shape[0]

@@ -3,7 +3,8 @@
 Port of mfmg_tpu/solve/operator.py (reference include/mfmg/common/
 operator.hpp:25-52).  The operators are ``nn.Module``s whose ``forward`` is
 the apply: the fine-grid ``StencilOperator`` (float32 or bfloat16 planes),
-the coarse ``BlockStencilOperator`` and the assembled ``ELLMatrix``.
+the coarse ``BlockStencilOperator``, the assembled ``ELLMatrix`` and the
+matrix-free ``MatrixFreeOperator`` and ``SumFactoredOperator``.
 """
 
 from __future__ import annotations
@@ -19,8 +20,15 @@ def operator_diagonal(op) -> torch.Tensor:
     """Diagonal of an operator (Jacobi/Chebyshev smoother setup), in the
     operator's storage dtype."""
     from mfmg_torch.ops.block_stencil import BlockStencilOperator
+    from mfmg_torch.ops.local_apply import MatrixFreeOperator, mf_diagonal
     from mfmg_torch.ops.sparse import ELLMatrix
     from mfmg_torch.ops.stencil import StencilOperator
+    from mfmg_torch.ops.sumfac import SumFactoredOperator
+
+    if isinstance(op, MatrixFreeOperator):
+        return mf_diagonal(op)
+    if isinstance(op, SumFactoredOperator):
+        return op.op_diag
 
     if isinstance(op, ELLMatrix):
         rows = torch.arange(op.shape[0], device=op.cols.device)[:, None]
@@ -31,5 +39,4 @@ def operator_diagonal(op) -> torch.Tensor:
     if isinstance(op, BlockStencilOperator):
         zero = op.offsets.index((0,) * len(op.agg_shape))
         return torch.diagonal(op.coeffs[zero], dim1=-2, dim2=-1).reshape(-1)
-    raise TypeError(f"operator type {type(op).__name__} is not ported yet "
-                    f"(ROADMAP Queue 1, Slice E)")
+    raise TypeError(f"unknown operator type {type(op).__name__}")

@@ -2,7 +2,9 @@
 chip_smoke.py.
 
     JAX_PLATFORMS=cpu python scripts/reference_cpu_counts.py N_REF DEGREE \
-        [--distort] [--max-levels L] [--operator stencil|ell] \
+        [--distort] [--max-levels L] \
+        [--operator stencil|ell|matrix_free|sumfac] \
+        [--smoother chebyshev|sgs|gs-lex-dealii|ilu] \
         [--device-pipeline] [--mesh cube|ball|adaptive] \
         [--partitioner block|rcb|metis]
 
@@ -17,7 +19,16 @@ relres and the true relres ||b - A x|| / ||b|| in float64.  129^3 (N_REF 7,
 DEGREE 1) takes about a minute of setup.  --operator ell takes the
 assembled path (ELL at every level, the host SpGEMM Galerkin product; the
 bf16 coeff_dtype applies to stencil planes only, so it has no effect
-there).
+there).  --operator matrix_free / sumfac take the matrix-free operators
+(the cell matrices, or the sum-factorized apply; the "auto" constrained
+mode is then "identity", and level 0 is set up on the host).  --smoother
+replaces Chebyshev degree 2 at every level: "sgs" multicolor symmetric
+Gauss-Seidel (lattice colors on stencils, greedy colors on ELL),
+"gs-lex-dealii" lexicographic Gauss-Seidel in deal.II's dof order and "ilu"
+ILU(0), the last two with --operator ell on a level 0 of at most 8,192
+dofs; deal.II's order exists on level 0 only, so "gs-lex-dealii" takes
+--max-levels 2 (e.g. "3 1 --operator ell --smoother gs-lex-dealii
+--max-levels 2": 5 iterations at 729 dofs).
 
 --mesh ball takes hyper_ball(3, N_REF) and --mesh adaptive
 adaptive_cube(3, N_REF, x, y, z < 0.5) (Q1 only; DEGREE must be 1) in
@@ -53,15 +64,20 @@ def main():
     ap.add_argument("degree", type=int)
     ap.add_argument("--distort", action="store_true")
     ap.add_argument("--max-levels", type=int, default=3)
-    ap.add_argument("--operator", choices=("stencil", "ell"), default="stencil")
+    ap.add_argument("--operator", choices=("stencil", "ell", "matrix_free",
+                                           "sumfac"), default="stencil")
+    ap.add_argument("--smoother", choices=("chebyshev", "sgs", "gs-lex-dealii",
+                                           "ilu"), default="chebyshev")
     ap.add_argument("--device-pipeline", action="store_true")
     ap.add_argument("--mesh", choices=("cube", "ball", "adaptive"),
                     default="cube")
     ap.add_argument("--partitioner", choices=("block", "rcb", "metis"),
                     default="block")
     args = ap.parse_args()
-    if args.mesh != "cube" and (args.degree != 1 or args.operator != "ell"):
-        sys.exit("--mesh ball|adaptive takes DEGREE 1 and --operator ell")
+    if args.mesh != "cube" and (args.degree != 1 or args.operator
+                                in ("stencil", "sumfac")):
+        sys.exit("--mesh ball|adaptive takes DEGREE 1 and --operator "
+                 "ell|matrix_free")
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -91,7 +107,12 @@ def main():
         coeff_dtype="bfloat16",
         eigensolver=cfg.EigensolverConfig(type="lapack", n_eigenvectors=2,
                                           n_eigenvectors_deep=4),
-        smoother=cfg.SmootherConfig(type="chebyshev", degree=2),
+        smoother={"chebyshev": cfg.SmootherConfig(type="chebyshev", degree=2),
+                  "sgs": cfg.SmootherConfig(type="symmetric gauss-seidel"),
+                  "gs-lex-dealii": cfg.SmootherConfig(
+                      type="gauss-seidel", coloring="lexicographic",
+                      ordering="dealii"),
+                  "ilu": cfg.SmootherConfig(type="ilu")}[args.smoother],
         agglomeration=cfg.AgglomerationConfig(
             partitioner=args.partitioner, nx=4, ny=4, nz=4,
             n_agglomerates=prob.mesh.n_cells // 64),
@@ -128,7 +149,8 @@ def main():
               flush=True)
     print(f"mesh {args.mesh} partitioner {args.partitioner} "
           f"n_ref {args.n_ref} degree {args.degree} distort {args.distort} "
-          f"max_levels {args.max_levels} operator {args.operator} device_pipeline "
+          f"max_levels {args.max_levels} operator {args.operator} smoother "
+          f"{args.smoother} device_pipeline "
           f"{args.device_pipeline}: {prob.n_dofs} dofs, "
           f"{int(info['iterations'])} iterations, relres "
           f"{float(info['relres']):.3e}, true relres {true:.3e}", flush=True)

@@ -7,11 +7,9 @@ Both packages get the same Config: operator="ell", the "lapack"
 eigensolver in the "pin" constrained mode with 2 eigenvectors (4 on the
 deeper levels), Chebyshev smoothing of degree 2 with the converged
 "lanczos" interval, and the direct coarse solve.  The reference's ball
-goldens (tests/test_ball.py) use the "identity" mode and the "dealii_cg"
-estimate, neither of which the port has yet, so those goldens are not
-covered here: test_ball_hierarchy_rates_near_reference and
-test_ball_matrix_path_goldens_two_sided (its lexicographic Gauss-Seidel is
-not ported either).
+goldens (tests/test_ball.py), which use the "identity" mode with the
+"dealii_cg" estimate and lexicographic Gauss-Seidel, are held in
+tests/test_torch_matrix_free.py and tests/test_torch_gauss_seidel.py.
 """
 
 import numpy as np

@@ -19,7 +19,11 @@ K1/K3's tiled kernel is held on ragged grids (x extents no multiple of a
 one-slice grid, and repeats its bits.  The unstructured meshes (a
 hyper_ball with the block walk, an adaptive cube with hanging nodes and RCB
 parts, ELL at every level) are held against the CPU port: level sizes and
-PCG counts equal, the float64 V-cycle rate within 1e-6.
+PCG counts equal, the float64 V-cycle rate within 1e-6.  The matrix-free
+and sum-factorized applies repeat their bits; the multicolor colorings are
+proper on the card; the MF-Chebyshev golden (four operators), the
+lexicographic GS golden, ILU(0) and multicolor SGS hold in float64 on the
+card, each rate equal to the CPU port's within 1e-10.
 
 Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
@@ -920,3 +924,97 @@ def test_unstructured_meshes_on_the_card(cuda, case):
     rg = measure_vcycle_rate(Hierarchy(prob, cfg64))
     rc = measure_vcycle_rate(Hierarchy(prob, cfg64, device="cpu"))
     assert abs(rg - rc) <= 1e-6, (rg, rc)
+
+
+def _cfg_3d(**kw):
+    base = dict(is_preconditioner=False,
+                eigensolver=tcfg.EigensolverConfig(type="lapack",
+                                                   n_eigenvectors=2),
+                agglomeration=tcfg.AgglomerationConfig(nx=2, ny=2, nz=2))
+    base.update(kw)
+    return tcfg.Config(**base)
+
+
+@pytest.mark.parametrize("mesh,mode", [
+    ("cube", "local_matrix"), ("cube", "quadrature"), ("cube", "sumfac"),
+    ("hanging", "local_matrix"), ("hanging", "quadrature")])
+def test_matrix_free_applies_repeat_their_bits(cuda, mesh, mode):
+    """The matrix-free and sum-factorized applies sum by gather in a fixed
+    order: two applies give the same bits, and the card's apply equals the
+    CPU's within float64 roundoff (the sum-factorized operator has no
+    hanging-node form, in the reference neither)."""
+    from mfmg_torch.fem.adaptive import adaptive_cube
+    m = (adaptive_cube(3, 2, lambda c: np.all(c < 0.5, axis=1))
+         if mesh == "hanging" else None)
+    p = (LaplaceProblem.from_mesh(m, "linear") if m is not None else
+         LaplaceProblem.hyper_cube(3, 3, degree=2 if mode == "sumfac" else 1,
+                                   material_property="linear"))
+    x = np.random.default_rng(4).standard_normal(p.n_dofs)
+    for dtype in (torch.float32, torch.float64):
+        op = p.matrix_free_operator(dtype=dtype, mode=mode, device=cuda)
+        xd = torch.from_numpy(x).to(cuda, dtype)
+        y1, y2 = op(xd), op(xd)
+        assert torch.equal(y1, y2)
+    y_cpu = p.matrix_free_operator(mode=mode, device="cpu")(torch.from_numpy(x))
+    np.testing.assert_allclose(y1.cpu().numpy(), y_cpu.numpy(), rtol=0,
+                               atol=1e-12 * float(y_cpu.abs().max()))
+
+
+def test_multicolor_colors_on_the_card(cuda):
+    """Lattice colors of the stencil (8 in 3-D), greedy colors of the ELL
+    matrix (the host library), block-stencil colors of level 1: each a
+    proper coloring, on the card with the operator."""
+    p = LaplaceProblem.hyper_cube(3, 3, material_property="linear")
+    sgs = tcfg.SmootherConfig(type="symmetric gauss-seidel")
+    # the host setup route on both sides, so that the bases are LAPACK's
+    h = Hierarchy(p, tcfg.Config(operator="stencil", dtype="float32",
+                                 coeff_dtype="bfloat16", smoother=sgs,
+                                 eigensolver=tcfg.EigensolverConfig(
+                                     backend="host"),
+                                 agglomeration=tcfg.AgglomerationConfig(
+                                     nx=2, ny=2, nz=2)))
+    assert h.levels[0].smoother.n_colors == 8
+    assert h.levels[0].smoother.colors.is_cuda
+    E = p.ell_operator(device=cuda)
+    sm = build_smoother(E, sgs, dtype=torch.float64)
+    A = p.A.tocoo()
+    colors = sm.colors.cpu().numpy()
+    off = (A.row != A.col) & (A.data != 0)
+    assert not np.any(colors[A.row[off]] == colors[A.col[off]])
+    # the sublattice sweep on the card against the CPU on the same planes
+    b = np.random.default_rng(1).uniform(size=p.n_dofs).astype(np.float32)
+    x_gpu = h.vmult(torch.from_numpy(b).to(cuda)).cpu()
+    h_cpu = Hierarchy(p, h.config, device="cpu")
+    x_cpu = h_cpu.vmult(torch.from_numpy(b))
+    assert float((x_gpu - x_cpu).abs().max() / x_cpu.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("operator", ["matrix_free", "sumfac", "stencil", "ell"])
+def test_golden_mf_chebyshev_on_the_card(cuda, operator):
+    """0.0880045475 (test_hierarchy.cc:353) at 1e-4 on every operator, in
+    float64 on the card, equal to the CPU port's rate within 1e-10."""
+    p = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+    cfg = _cfg_3d(operator=operator,
+                  smoother=tcfg.SmootherConfig(type="chebyshev", degree=1))
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    r = measure_vcycle_rate(Hierarchy(p, cfg))
+    assert abs(r - 0.0880045475) <= 1e-4, r
+    assert abs(r - measure_vcycle_rate(Hierarchy(p, cfg, device="cpu"))) <= 1e-10
+
+
+@pytest.mark.parametrize("smoother", ["gs-lex-dealii", "ilu", "sgs"])
+def test_matrix_path_smoothers_on_the_card(cuda, smoother):
+    """Lexicographic GS in deal.II order (the golden 0.0235237332 at 1e-6),
+    ILU(0) and multicolor SGS, float64 on the card, each rate equal to the
+    CPU port's within 1e-10."""
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    sc = {"gs-lex-dealii": tcfg.SmootherConfig(
+              type="gauss-seidel", coloring="lexicographic", ordering="dealii"),
+          "ilu": tcfg.SmootherConfig(type="ilu"),
+          "sgs": tcfg.SmootherConfig(type="symmetric gauss-seidel")}[smoother]
+    p = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+    cfg = _cfg_3d(operator="ell", smoother=sc)
+    r = measure_vcycle_rate(Hierarchy(p, cfg))
+    if smoother == "gs-lex-dealii":
+        assert abs(r - 0.0235237332) <= 1e-6, r
+    assert abs(r - measure_vcycle_rate(Hierarchy(p, cfg, device="cpu"))) <= 1e-10

@@ -268,7 +268,18 @@ def test_complexities_match_the_reference(path):
 
 
 def test_unported_operators_raise_naming_their_item():
+    """Every operator is ported (tests/test_torch_matrix_free.py); what
+    still raises names its ROADMAP item: the "lanczos" eigensolver, the
+    "ml" coarse solver and distributed setup."""
     prob = TLaplace.hyper_cube(3, 2)
-    for operator in ("matrix_free", "sumfac"):
-        with pytest.raises(NotImplementedError, match="Slice E.*ROADMAP"):
-            THierarchy(prob, tcfg.Config(operator=operator), device="cpu")
+    cases = (
+        (dict(eigensolver=tcfg.EigensolverConfig(type="lanczos")),
+         "eigensolver 'lanczos' \\(ROADMAP Queue 1, item 5\\)"),
+        (dict(coarse=tcfg.CoarseConfig(type="ml")),
+         "coarse solver 'ml'.*ROADMAP Queue 1, item 6"),
+        (dict(distributed_setup=True),
+         "distributed_setup \\(ROADMAP Queue 1, item 8\\)"),
+    )
+    for kw, match in cases:
+        with pytest.raises(NotImplementedError, match=match):
+            THierarchy(prob, tcfg.Config(**kw), device="cpu")

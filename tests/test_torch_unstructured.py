@@ -23,12 +23,11 @@ partitioners, and the generic (ragged) agglomerate batch.
   eigh, to 1e-10.
 - The disk Poisson problem of tests/test_ball.py through the port's
   ``cg_solve`` (max error < 5e-3), ``LaplaceProblem.ell_operator``'s card
-  default, and the configurations that still raise.
+  default; the stencil and "block_dealii" refusing the ball, and the
+  identity and raw constrained modes on it against mfmg_tpu.
 
-Not covered yet: the ball goldens of tests/test_ball.py
-(test_ball_hierarchy_rates_near_reference, test_ball_matrix_path_goldens_
-two_sided), which need the "identity" constrained mode, the "dealii_cg"
-estimate and Gauss-Seidel smoothing (tests/_torch_unstructured.py).
+The ball goldens of tests/test_ball.py are held in
+tests/test_torch_gauss_seidel.py and tests/test_torch_matrix_free.py.
 """
 
 import jax.numpy as jnp
@@ -55,7 +54,8 @@ from mfmg_torch.fem import geometry as tgeo
 from mfmg_torch.fem import mesh as tmesh
 from mfmg_torch.solve.cg import cg_solve
 
-from _torch_unstructured import compare_hierarchies, quadrant, unstructured_config
+from _torch_unstructured import (RATE_TOL, compare_hierarchies, quadrant,
+                                 unstructured_config)
 
 NODE_TOL = 1e-14        # the same float64 expressions in the same order
 BATCH_TOL = 1e-14       # the same scatter-adds of the same cell matrices
@@ -327,17 +327,27 @@ def test_ell_operator_defaults_to_the_card():
 
 
 def test_unsupported_configurations_raise_naming_their_reason():
+    """The stencil and "block_dealii" (deal.II's cell order) refuse the ball
+    with the reference's ValueError; the identity and raw constrained
+    modes build on it and give mfmg_tpu's V-cycle rate."""
     prob = TLaplace.from_mesh(tmesh.hyper_ball(3, 1), "linear")
     with pytest.raises(ValueError, match="structured mesh"):
         THierarchy(prob, tcfg.Config(operator="stencil"), device="cpu")
     cfg = unstructured_config(tcfg, "float64")
     cfg.agglomeration.partitioner = "block_dealii"
-    with pytest.raises(NotImplementedError, match="block_dealii.*dealii_order"):
+    with pytest.raises(ValueError, match="structured hyper_cube meshes only"):
         THierarchy(prob, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="dealii_order"):
+    with pytest.raises(ValueError, match="structured hyper_cube meshes only"):
         tagg.build_agglomerates(prob.mesh, cfg.agglomeration)
+    from mfmg_tpu import Hierarchy as JHierarchy
+    from mfmg_tpu.amge.hierarchy import measure_vcycle_rate as j_rate
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate as t_rate
+    jprob = JLaplace.from_mesh(jmesh.hyper_ball(3, 1), "linear")
     for mode in ("identity", "raw"):
-        cfg = unstructured_config(tcfg, "float64")
-        cfg.eigensolver.constrained_mode = mode
-        with pytest.raises(NotImplementedError, match=f"constrained_mode '{mode}'"):
-            THierarchy(prob, cfg, device="cpu")
+        cfgs = [unstructured_config(c, "float64", max_levels=2) for c in (tcfg, jcfg)]
+        for c in cfgs:
+            c.eigensolver.constrained_mode = mode
+        th = THierarchy(prob, cfgs[0], device="cpu")
+        assert th._constrained_mode() == mode and th.setup_route == "host"
+        t, j = t_rate(th), j_rate(JHierarchy(jprob, cfgs[1]))
+        assert abs(t - j) <= RATE_TOL, (mode, t, j)
