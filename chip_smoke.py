@@ -123,7 +123,27 @@ each phase prints its wall time):
     float64 on hyper_cube(3, 2): lexicographic GS in deal.II's order
     against the golden 0.0235237332 within 1e-6 and ILU(0) against the
     CPU port within 1e-10, then one dense triangular smoothing step of
-    each at 4,913 dofs, timed.
+    each at 4,913 dofs, timed;
+12. the eigensolvers, the coarse solvers and the command line, each the
+    main configuration at 65^3 with one change, through Hierarchy and
+    solve_cg, its levels and PCG count equal to the reference's and its
+    true relres within twice the reference's (SLICE_REF), with its setup
+    stages (the eigensolve's own line), setup's peak device memory, the
+    eigensolver's seconds on the card, the launches of one V-cycle, its
+    CUDA-event and profiler times and the idle share: (a) "lanczos" (the
+    Lanczos vectors kept on the card), (b) "anasazi" (LOBPCG) at tolerance
+    1e-3 with fast_ap, (c) "arpack" (host, 4,096 agglomerates at tolerance
+    ARPACK_TOL, in worker processes), each with
+    the fused tail once per V-cycle; (d) the "cg", "amg" (one nested AMGe
+    level) and "ml" coarse solvers, level 0 by the host route, each
+    declining the tail (the generic recursion, K4/K5 once per V-cycle);
+    (e) python3 -m mfmg_torch.driver on tests/torch_data/hierarchy_input.info
+    (-d 3 --n-refinements 6 --operator stencil --dtype float32) in rate mode
+    and with --solve -t 1e-6 (its level line, rate, PCG count and true
+    relres against the reference's driver; its saved hierarchy loaded here
+    for the launches and times of its V-cycle); (f) path (a)'s hierarchy
+    saved and loaded onto the card, the loaded V-cycle bit-equal to the
+    saved one's with the same launches.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -251,6 +271,45 @@ NEW_PATHS_REF = {
     "sgs ell 65^3": dict(levels=[274625, 8192, 256], pcg_iterations=9,
                          true_relres=2.011e-5),
 }
+# phase 12, the reference's levels, PCG count, recursive and true relres on
+# the same RHS (mfmg_tpu on the CPU with x64, scripts/reference_cpu_counts.py
+# "6 1 --eigensolver lanczos", "... anasazi --eig-tol 1e-3", "... arpack
+# --eig-tol 1e-6" (the reference's sequential path; at its default 1e-14
+# also 9 iterations, relres 4.431e-6, true relres 2.017e-5), "6 1 --coarse
+# cg|amg|ml"); the true
+# relres bound is twice the reference's.  "driver": its --driver mode on
+# tests/torch_data/hierarchy_input.info at -d 3 --n-refinements 6 --operator
+# stencil --dtype float32, the rate of the rate mode and the solve of
+# --solve -t 1e-6 (RHS default_rng(0), zero at the boundary).
+SLICE_REF = {
+    "lanczos": dict(levels=[274625, 8192, 256], pcg_iterations=8,
+                    relres=8.800e-06, true_relres=2.214e-05),
+    "anasazi": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                    relres=5.123e-06, true_relres=2.015e-05),
+    "arpack": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                   relres=4.423e-06, true_relres=2.001e-05),
+    "coarse cg": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                      relres=4.425e-06, true_relres=1.996e-05),
+    "coarse amg": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                       relres=4.463e-06, true_relres=2.014e-05),
+    "coarse ml": dict(levels=[274625, 8192, 256], pcg_iterations=9,
+                      relres=5.002e-06, true_relres=2.012e-05),
+    "driver": dict(levels_line="n_dofs: 274625  levels: 3  grid complexity: "
+                   "1.030  operator complexity: 1.060", rate=0.6918416424,
+                   pcg_iterations=12, relres=9.123e-07, true_relres=2.351e-05),
+}
+# phase 12 (c)'s ARPACK tolerance: at the config's default 1e-14 an
+# interior agglomerate of 65^3 (no constrained dof, its spectrum shifted by
+# its mean diagonal) takes ~391 ms on one core of the card's host, the
+# 2,744 of them ~18 minutes; at 1e-6 81 ms (scripts/eigensolver_timings.py)
+ARPACK_TOL = 1e-6
+# the driver's rate against the reference's: its forced LOBPCG at 1e-3
+# runs into its cap of 200 iterations with many blocks unconverged, at
+# iterates that follow roundoff on agglomerates with constrained dofs
+# (tests/test_torch_lobpcg_arpack.py), and the rate follows the coarse
+# space: the port read 0.6790 on the CPU and 0.6763 on an H100 against the
+# reference's 0.6918 (the PCG count, 12, is the same)
+DRIVER_RATE_TOL = 3e-2
 # phase 11 (e): the matrix-path golden (test_hierarchy.cc:343) at the
 # reference test's 1e-6, and a float64 rate on the card against the CPU port
 GOLDEN_MATRIX_SGS_3D, GOLDEN_TOL, RATE_TOL_F64 = 0.0235237332, 1e-6, 1e-10
@@ -738,7 +797,7 @@ def new_path_config(cfg, operator="stencil", smoother=None, mesh=None):
     return c
 
 
-def run_new_path(label, prob, config, route, tk, kernels=()):
+def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     """One path of phase 11 through Hierarchy and solve_cg, the counts set
     to 0 just before and read just after: levels, setup stages, the PCG
     count and the true relres in float64 against the reference's
@@ -747,7 +806,7 @@ def run_new_path(label, prob, config, route, tk, kernels=()):
     profiler device ms, and the idle share.  The right-hand side is phase
     5's (phase 10's, zero at the constrained dofs, on a hanging mesh)."""
     from mfmg_torch import Hierarchy
-    ref = NEW_PATHS_REF[label]
+    ref = ref or NEW_PATHS_REF[label]
     tk.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -780,6 +839,9 @@ def run_new_path(label, prob, config, route, tk, kernels=()):
     print("  setup stages: " + ", ".join(f"{k} {v:.2f}s"
                                          for k, v in hier.setup_seconds.items()),
           flush=True)
+    if hier.eigensolver_stats:
+        print(f"  eigensolver on the card: {json.dumps(hier.eigensolver_stats)}",
+              flush=True)
     print(f"  solve_cg: {info['iterations']} iterations (reference "
           f"{ref['pcg_iterations']}), relres {info['relres']:.3e}, true relres "
           f"(f64 host) {tr:.3e} (reference {ref['true_relres']:.3e}), "
@@ -821,7 +883,8 @@ def run_new_path(label, prob, config, route, tk, kernels=()):
                    launches_per_vcycle=cycle_launches,
                    ell_applies_per_vcycle=cycle_ell, ms_per_vcycle=ms,
                    device_ms_per_vcycle=dev_ms, device_top=dev_top,
-                   device_idle_share=idle, reference=ref)
+                   device_idle_share=idle, reference=ref,
+                   eigensolver_stats=hier.eigensolver_stats)
     return hier, summary
 
 
@@ -992,6 +1055,184 @@ def new_paths_phase(cfg, tk):
           flush=True)
     out["dense triangular"] = dict(rate_gs_dealii=rate_gs, rate_ilu=rate_ilu,
                                    steps=steps)
+    return out
+
+
+def slice_config(cfg, eigensolver=None, coarse=None):
+    """Phase 12's configurations: the main configuration with the
+    eigensolver ("lanczos"; "anasazi" at the driver's forced tolerance 1e-3
+    with fast_ap; "arpack" at ARPACK_TOL) or the coarse solver ("cg";
+    "amg" with one nested level, max_levels=2; "ml") changed.  A changed coarse solver
+    sets level 0 up by the host route, as the reference's counts were
+    taken (scripts/reference_cpu_counts.py); a changed eigensolver takes
+    it anyway (the device route is "lapack" only, as in the reference)."""
+    c = main_config(cfg, backend="auto" if coarse is None else "host")
+    if eigensolver is not None:
+        c.eigensolver.type = eigensolver
+        if eigensolver == "anasazi":
+            c.eigensolver.tolerance, c.fast_ap = 1e-3, True
+        elif eigensolver == "arpack":
+            c.eigensolver.tolerance = ARPACK_TOL
+    if coarse is not None:
+        c.coarse = cfg.CoarseConfig(type=coarse,
+                                    **(dict(max_levels=2) if coarse == "amg"
+                                       else {}))
+    return c
+
+
+def vcycle_bits_and_launches(hier, bd, tk):
+    """One V-cycle's output and its kernel launches (counts set to 0 just
+    before)."""
+    tk.reset_launch_counts()
+    y = hier.vmult(bd)
+    torch.cuda.synchronize()
+    return y, {k: v for k, v in tk.LAUNCHES.items() if v}
+
+
+def run_driver(args, timeout=600):
+    """python3 -m mfmg_torch.driver ARGS from this checkout: (its parsed
+    output lines, its wall seconds, its stdout)."""
+    import re
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mfmg_torch.driver", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=root)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the driver {' '.join(args)} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = proc.stdout
+    got = dict(levels_line=re.search(r"^n_dofs: .*$", out, re.M).group(0))
+    for key, pat in (("rate", r"Convergence rate: (\S+)"),
+                     ("pcg_iterations", r"Solved in (\d+) iterations"),
+                     ("relres", r"relative residual (\S+)"),
+                     ("true_relres", r"True relative residual \(float64, host\): (\S+)"),
+                     ("peak_device_gib", r"Peak device memory: (\S+) GiB")):
+        m = re.search(pat, out)
+        if m:
+            got[key] = (int if key == "pcg_iterations" else float)(m.group(1))
+    got["timer"] = {m.group(1).strip(): float(m.group(2)) for m in re.finditer(
+        r"^\| (.+?)\s+\|\s+([0-9.]+)s \|", out, re.M)}
+    return got, wall, out
+
+
+def slice_phase(cfg, tk):
+    """Phase 12: the eigensolvers, the coarse solvers and the command line
+    on the card, each the main configuration at 65^3 with one change,
+    through Hierarchy and solve_cg (run_new_path, the counts set to 0 just
+    before and read just after, against the reference's SLICE_REF): (a)
+    "lanczos", (b) "anasazi" at 1e-3 with fast_ap, (c) "arpack" at
+    ARPACK_TOL (host worker processes, 4,096 agglomerates), each with the
+    fused tail once per V-cycle; (d)
+    the "cg", "amg" (one nested level) and "ml" coarse solvers, each
+    declining the tail (the generic recursion: K4/K5 once per V-cycle);
+    (e) the driver (python3 -m mfmg_torch.driver) on
+    tests/torch_data/hierarchy_input.info at -d 3 --n-refinements 6
+    --operator stencil --dtype float32, in rate mode and with --solve -t
+    1e-6, its hierarchy saved and loaded here for its V-cycle's launches
+    and times; (f) path (a)'s hierarchy saved and loaded onto the card: the
+    loaded V-cycle bit-equal to the saved one's, with the same launches."""
+    import tempfile
+
+    from mfmg_torch import Hierarchy, LaplaceProblem
+    out = {}
+    prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
+    bd = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=prob.n_dofs).astype(np.float32)).to("cuda")
+    tail_kernels = ("stencil_apply_sym", "cheb_smooth", "cheb_smooth_chain",
+                    "fused_tail")
+    generic_kernels = ("stencil_apply_sym", "cheb_smooth", "cheb_smooth_chain",
+                       "structured_restrict", "structured_prolong")
+    hier_a = None
+    for label, kw in (("lanczos", dict(eigensolver="lanczos")),
+                      ("anasazi", dict(eigensolver="anasazi")),
+                      ("arpack", dict(eigensolver="arpack")),
+                      ("coarse cg", dict(coarse="cg")),
+                      ("coarse amg", dict(coarse="amg")),
+                      ("coarse ml", dict(coarse="ml"))):
+        tail = "eigensolver" in kw
+        hier, s = run_new_path(label, prob, slice_config(cfg, **kw), "host", tk,
+                               kernels=tail_kernels if tail else generic_kernels,
+                               ref=SLICE_REF[label])
+        per = s["launches_per_vcycle"]
+        check(per.get("fused_tail", 0) == (1 if tail else 0),
+              f"{label}: the fused tail launched {per.get('fused_tail', 0)} "
+              f"times in one V-cycle")
+        if not tail:
+            check(hier.levels[0].fused is None
+                  and per.get("structured_restrict") == 1
+                  and per.get("structured_prolong") == 1,
+                  f"{label}: not the generic recursion: {per}")
+        s["coarse_solver"] = type(hier.levels[-1].coarse).__name__
+        s["true_relres_limit"] = 2 * SLICE_REF[label]["true_relres"]
+        out[label] = s
+        if label == "lanczos":
+            hier_a = hier
+        else:
+            del hier
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (f) path (a)'s hierarchy saved and loaded onto the card
+        path = os.path.join(tmp, "lanczos.pt")
+        t0 = time.perf_counter()
+        hier_a.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Hierarchy.load(path, prob)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        y0, l0 = vcycle_bits_and_launches(hier_a, bd, tk)
+        y1, l1 = vcycle_bits_and_launches(loaded, bd, tk)
+        same = bool(torch.equal(y0, y1))
+        out["save/load"] = dict(file_bytes=os.path.getsize(path), save_s=save_s,
+                                load_s=load_s, bit_equal=same, launches_saved=l0,
+                                launches_loaded=l1)
+        print(f"save/load of (a): {json.dumps(out['save/load'])}", flush=True)
+        check(same, "the loaded hierarchy's V-cycle differs from the saved one's")
+        check(l0 == l1 and l1.get("fused_tail") == 1,
+              f"save/load: launches {l0} (saved) and {l1} (loaded)")
+        del hier_a, loaded
+
+        # (e) the command line, in its own process
+        ref = SLICE_REF["driver"]
+        base = ["-f", os.path.join("tests", "torch_data", "hierarchy_input.info"),
+                "-d", "3", "--n-refinements", str(N_REF), "--operator",
+                "stencil", "--dtype", "float32"]
+        rate, rate_wall, _ = run_driver(base)
+        hpath = os.path.join(tmp, "driver.pt")
+        solve, solve_wall, text = run_driver(base + [
+            "--solve", "-t", "1e-6", "--true-residual", "--save-hierarchy", hpath])
+        print(text, flush=True)
+        print(f"driver: rate mode {json.dumps(rate)} in {rate_wall:.1f} s; solve "
+              f"mode {json.dumps(solve)} in {solve_wall:.1f} s", flush=True)
+        check(rate["levels_line"] == ref["levels_line"] == solve["levels_line"],
+              f"driver: {rate['levels_line']!r}, the reference's "
+              f"{ref['levels_line']!r}")
+        check(abs(rate["rate"] - ref["rate"]) <= DRIVER_RATE_TOL,
+              f"driver: rate {rate['rate']} against the reference's {ref['rate']}")
+        check(solve["pcg_iterations"] == ref["pcg_iterations"],
+              f"driver: PCG took {solve['pcg_iterations']} iterations, the "
+              f"reference {ref['pcg_iterations']}")
+        check(solve["relres"] <= 1e-6, f"driver: relres {solve['relres']}")
+        check(solve["true_relres"] <= 2 * ref["true_relres"],
+              f"driver: true relres {solve['true_relres']:.3e} > twice the "
+              f"reference's {ref['true_relres']:.3e}")
+        dh = Hierarchy.load(hpath, prob)
+        _, per = vcycle_bits_and_launches(dh, bd, tk)
+        ms = [median_ms(lambda: dh.vmult(bd), n=10, batch=2) for _ in range(2)]
+        dev_ms, dev_top, _ = device_ms_per_cycle(dh, bd, n=5)
+        idle = 1.0 - dev_ms / float(np.mean(ms))
+        print(f"  the driver's hierarchy, loaded: launches per V-cycle {per}; "
+              f"ms (CUDA events, two medians) {ms}; device ms (profiler) "
+              f"{dev_ms:.4f}, idle share {idle:.3f}; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in dev_top), flush=True)
+        check(per.get("fused_tail") == 1, f"driver: launches per V-cycle {per}")
+        out["driver"] = dict(rate_mode=rate, solve_mode=solve, rate_wall_s=rate_wall,
+                             solve_wall_s=solve_wall, launches_per_vcycle=per,
+                             ms_per_vcycle=ms, device_ms_per_vcycle=dev_ms,
+                             device_top=dev_top, device_idle_share=idle,
+                             reference=ref)
+        del dh
     return out
 
 
@@ -2072,6 +2313,10 @@ def main():
     with Phase("11 matrix-free and sum-factorized operators, Gauss-Seidel, ILU"):
         summary_new = new_paths_phase(cfg, tk)
 
+    # ---- 12. the eigensolvers, the coarse solvers and the driver ----------
+    with Phase("12 eigensolvers, coarse solvers and the driver"):
+        summary_slice = slice_phase(cfg, tk)
+
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
 
@@ -2138,7 +2383,8 @@ def main():
                  "Q2 65^3 distorted 3 levels": summary_a,
                  "65^3 4 levels": summary_b, "65^3 ELL": summary_c,
                  "default Config": summary_d, "ball": summary_ball,
-                 "adaptive cube": summary_adaptive, **summary_new}
+                 "adaptive cube": summary_adaptive, **summary_new,
+                 **{f"phase 12 {k}": v for k, v in summary_slice.items()}}
     for label, s in summaries.items():
         if s is not None:
             s["card"] = card

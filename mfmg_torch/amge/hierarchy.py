@@ -37,6 +37,7 @@ the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -47,13 +48,14 @@ from torch import nn
 from mfmg_torch.amge.agglomeration import build_agglomerates
 from mfmg_torch.amge.local_problems import build_agglomerate_batch
 from mfmg_torch.amge.restriction import build_restriction, check_restriction
-from mfmg_torch.config import Config
+from mfmg_torch.config import CoarseConfig, Config
 from mfmg_torch.eigen.batched_eigh import batched_smallest_eigenpairs
 from mfmg_torch.ops.fused_cycle import (build_fused_tail,
                                         fused_correction_apply,
                                         fused_subcycle_apply)
 from mfmg_torch.solve.cg import cg_solve
-from mfmg_torch.solve.coarse import build_coarse_solver
+from mfmg_torch.solve.coarse import (AMGCoarseSolver, build_coarse_solver,
+                                     parse_ml_params)
 from mfmg_torch.solve.operator import apply_op
 from mfmg_torch.solve.smoothers import build_smoother
 from mfmg_torch.utils.device import checked_device
@@ -130,6 +132,8 @@ def vcycle(levels, b, x, n_smoothing_steps=1, is_preconditioner=True,
                    cycle_type)
 
 
+EIGENSOLVERS = ("lapack", "lanczos", "anasazi", "arpack")
+
 # operators whose setup never assembles the fine matrix under fast_ap
 # (mfmg_tpu/amge/hierarchy.py:159)
 MF_TYPES = ("matrix_free", "sumfac", "stencil")
@@ -140,6 +144,14 @@ def _torch_dtype(name) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def _nested_smoother_type(ml_type: str) -> str:
+    """An ML "smoother: type" as the smoother of the nested AMGe levels
+    (mfmg_tpu/amge/hierarchy.py:265-270)."""
+    t = ml_type.strip().lower()
+    return ("chebyshev" if "cheby" in t else
+            "symmetric gauss-seidel" if "gauss" in t else "jacobi")
 
 
 def _np_dtype(dt: torch.dtype):
@@ -162,14 +174,19 @@ class Hierarchy:
     on any mesh of fem/ (hyper_cube, renumbered cubes, hyper_ball, adaptive
     meshes with hanging nodes, where the Galerkin product goes through the
     condensed A), the "block" (closed-form or walked), "block_dealii",
-    "rcb"/"zoltan" and "metis" partitioners, the "lapack" eigensolver in
-    every constrained mode ("auto" is "identity" for the matrix-free
-    operators, "pin" otherwise, as in the reference), every smoother of
-    the reference (Jacobi, Chebyshev with the Lanczos or deal.II CG
-    estimate, multicolor or lexicographic Gauss-Seidel, ILU(0)), and the
-    "direct" coarse solver, at any max_levels; the other eigensolvers, the
-    other coarse solvers and distributed setup raise NotImplementedError
-    naming their ROADMAP item.
+    "rcb"/"zoltan" and "metis" partitioners, every eigensolver of the
+    reference ("lapack" in every constrained mode, "auto" being "identity"
+    for the matrix-free operators and "pin" otherwise, as in the reference;
+    "lanczos" and "anasazi" (LOBPCG) on the hierarchy's device, "arpack" on
+    the host), every smoother of the reference (Jacobi, Chebyshev with the
+    Lanczos or deal.II CG estimate, multicolor or lexicographic
+    Gauss-Seidel, ILU(0)), and every coarse solver ("direct", "cg", "amg"/
+    "amgx" (the AMGe recursion continued for coarse.max_levels - 1 nested
+    levels), "ml" (smoothed aggregation)), at any max_levels.  Distributed
+    setup raises NotImplementedError naming its ROADMAP item.
+    ``eigensolver_stats`` holds the level-0 eigensolver's device seconds and
+    iterations for "lanczos" and "anasazi".  ``save``/``load`` persist the
+    built levels (utils/serialize.py).
     """
 
     def __init__(self, problem, config: Config | None = None, device="cuda"):
@@ -184,6 +201,8 @@ class Hierarchy:
         self._exact_op_cache = None
         self._device_A = None
         self._level0_blocks = None
+        self.eigensolver_stats = {}
+        self._unfused_smoother0 = None
         self._check_supported()
         self._setup()
 
@@ -192,9 +211,8 @@ class Hierarchy:
         unsupported = []
         if cfg.distributed_setup:
             unsupported.append("distributed_setup (ROADMAP Queue 1, item 8)")
-        if cfg.eigensolver.type != "lapack":
-            unsupported.append(f"eigensolver {cfg.eigensolver.type!r} "
-                               f"(ROADMAP Queue 1, item 5)")
+        if cfg.eigensolver.type not in EIGENSOLVERS:
+            raise ValueError(f"unknown eigensolver type {cfg.eigensolver.type!r}")
         if unsupported:
             raise NotImplementedError("mfmg_torch does not support "
                                       + ", ".join(unsupported) + " yet")
@@ -254,18 +272,39 @@ class Hierarchy:
 
         n_ev0 = cfg.eigensolver.n_eigenvectors
         n_evd = cfg.eigensolver.n_eigenvectors_deep or n_ev0
+        # the coarse-solver families (mfmg_tpu/amge/hierarchy.py:205-228):
+        # "amg"/"amgx" continue the AMGe recursion for coarse.max_levels - 1
+        # nested levels, packaged below as an AMGCoarseSolver with a direct
+        # bottom (with one nested level it is the direct solve exactly);
+        # "ml" is smoothed aggregation on the coarsest matrix, seeded with
+        # the restricted fine-grid constant (ML's default nullspace)
+        ctype = cfg.coarse.type.strip().lower()
+        amg_coarse, ml_coarse = ctype in ("amg", "amgx"), ctype == "ml"
+        ml_knobs = parse_ml_params(cfg.coarse) if amg_coarse else None
+        nested_extra = max(0, ml_knobs["max_levels"] - 1) if amg_coarse else 0
+        total_levels = cfg.max_levels + nested_extra
         agg_grid = None
-        for level in range(cfg.max_levels):
-            if level == cfg.max_levels - 1:
+        for level in range(total_levels):
+            if level == total_levels - 1:
                 A_c = A_per_level[level]
                 if A_c is None:
                     A_c = problem.A          # max_levels == 1
-                coarse = build_coarse_solver(A_c, cfg.coarse, dtype=self.dtype,
-                                             device=self.device)
+                near_null = None
+                if ml_coarse:
+                    near_null = (self._R_composed @ np.ones(self._R_composed.shape[1])
+                                 if level > 0 else np.ones(A_c.shape[0]))
+                coarse = build_coarse_solver(
+                    A_c, CoarseConfig(type="direct") if amg_coarse else cfg.coarse,
+                    dtype=self.dtype, device=self.device, near_null=near_null)
                 self._append(LevelData(op, coarse=coarse))
                 mark(f"coarse solver (n={A_c.shape[0]})")
                 break
-            smoother = build_smoother(op, cfg.smoother, dtype=self.dtype,
+            smoother_cfg = cfg.smoother
+            if (amg_coarse and level >= cfg.max_levels - 1
+                    and ml_knobs["smoother_type"]):
+                smoother_cfg = dataclasses.replace(
+                    cfg.smoother, type=_nested_smoother_type(ml_knobs["smoother_type"]))
+            smoother = build_smoother(op, smoother_cfg, dtype=self.dtype,
                                       A_scipy=A_per_level[level],
                                       problem=problem if level == 0 else None)
             mark(f"smoother L{level}")
@@ -332,6 +371,15 @@ class Hierarchy:
             self._append(LevelData(op, smoother=smoother, transfer=transfer))
             op = op_coarse
             mark(f"level L{level} placed on {self.device}")
+        if nested_extra > 0:
+            # the continued levels become the coarse solver of the last
+            # outer level
+            nested = list(self.levels[cfg.max_levels - 1:])
+            solver = AMGCoarseSolver(
+                nested, n_smoothing_steps=ml_knobs["n_smoothing_steps"])
+            self.levels = nn.ModuleList(
+                list(self.levels[:cfg.max_levels - 1])
+                + [LevelData(nested[0].op, coarse=solver)])
         self._A_per_level = A_per_level
         self._finalize_cuda_kernels()
 
@@ -356,6 +404,35 @@ class Hierarchy:
                 and self._constrained_mode() == "pin"
                 and self.dtype == torch.float32
                 and getattr(self.problem, "laplace_form", False))
+
+    def _eigensolve(self, batch):
+        """Level 0's eigenpairs from the assembled batch by the configured
+        eigensolver (mfmg_tpu/amge/hierarchy.py:596-622): "lapack" on the
+        host (or, for backend="device", batched eigh on the device),
+        "lanczos" and "anasazi" on the hierarchy's device, "arpack" on the
+        host."""
+        cfg = self.config.eigensolver
+        mode = self._constrained_mode()
+        if cfg.type == "lapack":
+            return batched_smallest_eigenpairs(
+                batch, cfg.n_eigenvectors, constrained_mode=mode,
+                host_dtype=_np_dtype(self.dtype),
+                use_device=cfg.backend == "device", device=self.device)
+        if cfg.type == "arpack":
+            from mfmg_torch.eigen.arpack import batched_arpack_smallest
+            return batched_arpack_smallest(batch, cfg, constrained_mode=mode)
+        if cfg.type == "lanczos":
+            from mfmg_torch.eigen.lanczos import batched_lanczos_smallest
+            return batched_lanczos_smallest(batch, cfg, constrained_mode=mode,
+                                            device=self.device,
+                                            stats=self.eigensolver_stats)
+        from mfmg_torch.eigen.lobpcg import batched_lobpcg_smallest
+        guess = None
+        if cfg.use_initial_guess and getattr(self, "_level0_eigendata", None):
+            guess = self._level0_eigendata[2]      # the previous setup's vectors
+        return batched_lobpcg_smallest(batch, cfg, constrained_mode=mode,
+                                       initial_guess=guess, device=self.device,
+                                       stats=self.eigensolver_stats)
 
     def _constrained_mode(self) -> str:
         """The eigensolver's constrained mode: "auto" follows the reference's
@@ -388,6 +465,7 @@ class Hierarchy:
         l0 = self.levels[0]
         fsm = fuse_chebyshev(l0.smoother, l0.op) if l0.smoother is not None else None
         if fsm is not None:
+            self._unfused_smoother0 = l0.smoother     # what save() stores
             l0.smoother = fsm
         cfg = self.config
         if (l0.fused is not None or cfg.cycle_type != "v"
@@ -435,12 +513,9 @@ class Hierarchy:
                 batch = build_agglomerate_batch(problem.mesh, problem.A_loc,
                                                 agg_ids, batch_dtype=batch_dtype)
                 self._mark("batch L0")
-                evals, evecs = batched_smallest_eigenpairs(
-                    batch, n_ev, constrained_mode=self._constrained_mode(),
-                    host_dtype=batch_dtype,
-                    use_device=cfg.eigensolver.backend == "device",
-                    device=self.device)
-                self._mark("host eigensolve L0")
+                evals, evecs = self._eigensolve(batch)
+                self._mark("host eigensolve L0" if cfg.eigensolver.type == "lapack"
+                           else f"eigensolve L0 ({cfg.eigensolver.type})")
             check_restriction(batch, problem.diag_raw, problem.n_dofs)
             self._level0_eigendata = (batch, evals, evecs)
             R = build_restriction(batch, evecs, problem.diag_raw, problem.n_dofs)
@@ -536,6 +611,20 @@ class Hierarchy:
                                            p.diag_raw, dtype=self.dtype),
                 self.device)
         return self._exact_op_cache
+
+    # ------------------------------------------------------- persistence --
+    def save(self, path: str) -> None:
+        """Write the built levels to ``path`` in the port's own format
+        (utils/serialize.py; mfmg_tpu's .npz files are not read)."""
+        from mfmg_torch.utils.serialize import save_hierarchy
+        save_hierarchy(self, path)
+
+    @staticmethod
+    def load(path: str, problem=None, device="cuda") -> "Hierarchy":
+        """A Hierarchy from ``save``'s file, without setup: every level on
+        ``device``, the fused smoother and tail rebuilt on the card."""
+        from mfmg_torch.utils.serialize import load_hierarchy
+        return load_hierarchy(path, problem, device=device)
 
     # ------------------------------------------------------------ metrics --
     @staticmethod

@@ -1,0 +1,223 @@
+"""hierarchy_driver: the command line of mfmg_torch.
+
+The port of mfmg_tpu/driver.py (the reference's tests/hierarchy_driver.cc):
+reads an mfmg-style .info (or .json) configuration, builds the Laplace
+problem and the hierarchy on the card, and either runs 20 standalone
+V-cycles and prints the asymptotic convergence rate
+(hierarchy_driver.cc:75-102) or runs the hierarchy-preconditioned CG and
+prints its iteration count (hierarchy_driver.cc:104-116), then the timer
+summary.
+
+    python3 -m mfmg_torch.driver -f input.info -d 3 [--solve] [-t 1e-6]
+
+A .info input gets the reference driver's forced settings
+(hierarchy_driver.cc:255-272): fast AP, the "anasazi" (LOBPCG) eigensolver
+at tolerance 1e-3, and with --raw-ml (or use_raw_ml) the "hidden" subtree
+uncovered.  --device picks the device (default "cuda", which needs a CUDA
+device and never falls back to the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import warnings
+
+import numpy as np
+
+
+def _parser():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("-f", "--file", help="mfmg-style .info (or .json) config file")
+    p.add_argument("-d", "--dim", type=int, default=2)
+    p.add_argument("-m", "--matrix-free", action="store_true",
+                   help="use the matrix-free operator path")
+    p.add_argument("--operator", default=None,
+                   help="operator representation: ell | stencil | matrix_free | sumfac")
+    p.add_argument("-t", "--tolerance", type=float, default=None,
+                   help="CG solver tolerance (default: .info "
+                        "solver.tolerance, else 1e-6)")
+    p.add_argument("--solve", action="store_true",
+                   help="CG-preconditioner mode (default: 20 V-cycles + rate)")
+    p.add_argument("--n-refinements", type=int, default=None)
+    p.add_argument("--dtype", default=None)
+    p.add_argument("--max-levels", type=int, default=None)
+    p.add_argument("--fe-degree", type=int, default=None,
+                   help="Q_k element degree (laplace.fe_degree in .info)")
+    p.add_argument("--device", default="cuda",
+                   help="device of the hierarchy (default cuda; cpu on request)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the apply phase to "
+                        "DIR/trace.json")
+    p.add_argument("--spmd", type=int, metavar="N", default=None,
+                   help="the apply phase slab-sharded over N devices (not "
+                        "ported yet: ROADMAP Queue 1, item 8)")
+    p.add_argument("--save-hierarchy", metavar="PATH", default=None,
+                   help="write the built hierarchy (mfmg_torch's own format) "
+                        "for later reuse")
+    p.add_argument("--load-hierarchy", metavar="PATH", default=None,
+                   help="skip setup; reload a hierarchy saved earlier")
+    p.add_argument("--raw-ml", action="store_true",
+                   help="uncover the .info 'hidden' ML subtree (the "
+                        "reference driver's use_raw_ml switch): a single "
+                        "mfmg level with the smoothed-aggregation ML coarse "
+                        "solver")
+    p.add_argument("--true-residual", action="store_true",
+                   help="after the CG solve, also print ||b - A x|| / ||b|| "
+                        "in float64 on the host (assembles A)")
+    return p
+
+
+def load_config(args):
+    """(Config, the input as nested dicts) with the reference driver's
+    forced settings applied to a .info input and the command line's
+    overrides."""
+    from mfmg_torch.config import Config
+    cfg_dict = {}
+    if args.file:
+        if args.file.endswith(".json"):
+            import json
+            with open(args.file) as f:
+                cfg_dict = json.load(f)
+        else:
+            from mfmg_torch.utils.info_parser import load_info
+            cfg_dict = load_info(args.file)
+    is_info = bool(args.file) and not args.file.endswith(".json")
+    if cfg_dict and is_info:
+        # the reference driver's forced settings apply to .info runs only:
+        # fast AP, LOBPCG at 1e-3, and the use_raw_ml uncover of the hidden
+        # ML subtree; JSON configs keep their eigensolver
+        use_raw_ml = (args.raw_ml or str(cfg_dict.get("use_raw_ml", "false"))
+                      .strip().lower() in ("true", "1", "yes"))
+        if (not args.matrix_free and use_raw_ml
+                and isinstance(cfg_dict.get("hidden"), dict)):
+            for k, v in cfg_dict["hidden"].items():
+                cfg_dict[k] = v
+        cfg_dict["fast_ap"] = True
+        cfg_dict.setdefault("eigensolver", {})
+        cfg_dict["eigensolver"]["type"] = "anasazi"
+        cfg_dict["eigensolver"]["tolerance"] = 1e-3
+    cfg = Config.from_dict(cfg_dict, info_style=is_info)
+    if args.matrix_free:
+        cfg.operator = "matrix_free"
+        if cfg.smoother.type == "jacobi":
+            cfg.smoother.type = "chebyshev"
+    if args.operator:
+        cfg.operator = args.operator
+    if args.dtype:
+        cfg.dtype = args.dtype
+    if args.max_levels:
+        cfg.max_levels = args.max_levels
+    return cfg, cfg_dict
+
+
+def build_problem(args, cfg, cfg_dict):
+    """The Laplace problem of the .info "laplace" subtree and the command
+    line (mesh, refinements, distortion, degree, dof renumbering)."""
+    from mfmg_torch import LaplaceProblem
+    from mfmg_torch.fem.mesh import hyper_ball, hyper_cube, renumber_dofs
+    laplace = cfg_dict.get("laplace", {})
+    n_ref = args.n_refinements or int(laplace.get("n_refinements", 3))
+    material = cfg_dict.get("material_property", {}).get("type", "constant")
+    distort = str(laplace.get("distort_random", "false")).lower() == "true"
+    fe_degree = args.fe_degree or int(laplace.get("fe_degree", 1))
+    make = hyper_ball if laplace.get("mesh", "hyper_cube") == "hyper_ball" else hyper_cube
+    mesh = make(args.dim, n_ref, degree=fe_degree, distort_random=distort)
+    # dof renumbering (laplace.hpp:115-122): RCM and King; the reference's
+    # goldens are reordering-invariant (test_hierarchy.cc:282-307)
+    reordering = str(laplace.get("reordering", "None"))
+    if reordering.strip().lower().replace("-", "_").replace(" ", "_") not in ("none", ""):
+        try:
+            mesh = renumber_dofs(mesh, reordering)
+            if cfg.operator in ("stencil", "matrix_free", "sumfac"):
+                warnings.warn(f"laplace.reordering={reordering!r}: renumbered "
+                              "dofs are not lexicographic; switching operator "
+                              "to 'ell'")
+                cfg.operator = "ell"
+        except ValueError:
+            warnings.warn(f"laplace.reordering={reordering!r} is not supported "
+                          "(only Reverse Cuthill_McKee and King); proceeding "
+                          "with the natural numbering")
+    return LaplaceProblem.from_mesh(mesh, material)
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.spmd:
+        raise NotImplementedError("--spmd (the slab-sharded apply over several "
+                                  "devices) is not ported yet: ROADMAP Queue 1, "
+                                  "item 8")
+    import torch
+
+    from mfmg_torch import Hierarchy
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.utils.timer import TimerOutput
+
+    cfg, cfg_dict = load_config(args)
+    timer = TimerOutput()
+    with timer.section("Setup: problem"):
+        prob = build_problem(args, cfg, cfg_dict)
+    with timer.section("Setup: hierarchy"):
+        if args.load_hierarchy:
+            hier = Hierarchy.load(args.load_hierarchy, prob, device=args.device)
+        else:
+            hier = Hierarchy(prob, cfg, device=args.device)
+    if args.save_hierarchy:
+        hier.save(args.save_hierarchy)
+
+    print(f"n_dofs: {prob.n_dofs}  levels: {len(hier.levels)}  "
+          f"grid complexity: {hier.grid_complexity():.3f}  "
+          f"operator complexity: {hier.operator_complexity():.3f}")
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if hier.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profile_ctx = profile(activities=activities)
+
+    def synchronize():
+        if hier.device.type == "cuda":
+            torch.cuda.synchronize(hier.device)
+
+    # CLI -t wins; else the .info solver.tolerance; else 1e-6, the
+    # reference driver's precedence (hierarchy_driver.cc:273-279)
+    solver_tol = args.tolerance
+    if solver_tol is None:
+        solver_tol = float(cfg_dict.get("solver", {}).get("tolerance", 1e-6))
+    rng = np.random.default_rng(0)
+    with profile_ctx as prof:
+        if args.solve:
+            b = rng.uniform(size=prob.n_dofs)
+            b[prob.constrained] = 0.0
+            with timer.section("Apply: CG solve"):
+                x, info = hier.solve_cg(b, tol=solver_tol)
+                synchronize()
+            print(f"Solved in {int(info['iterations'])} iterations, "
+                  f"relative residual {float(info['relres']):.3e}")
+        else:
+            with timer.section("Apply: 20 V-cycles"):
+                rate = measure_vcycle_rate(hier, n_cycles=20, seed=0)
+                synchronize()
+            print(f"Convergence rate: {rate:.10f}")
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    if hier.device.type == "cuda":
+        print(f"Peak device memory: "
+              f"{torch.cuda.max_memory_allocated(hier.device) / 2**30:.3f} GiB")
+    if args.solve and args.true_residual:
+        bt = hier._vector(b).cpu().double().numpy()
+        xt = x.cpu().double().numpy()
+        true = np.linalg.norm(bt - prob.A @ xt) / np.linalg.norm(bt)
+        print(f"True relative residual (float64, host): {true:.3e}")
+
+    print(timer.summary())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

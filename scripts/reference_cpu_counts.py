@@ -6,7 +6,11 @@ chip_smoke.py.
         [--operator stencil|ell|matrix_free|sumfac] \
         [--smoother chebyshev|sgs|gs-lex-dealii|ilu] \
         [--device-pipeline] [--mesh cube|ball|adaptive] \
-        [--partitioner block|rcb|metis]
+        [--partitioner block|rcb|metis] \
+        [--eigensolver lapack|lanczos|anasazi|arpack] [--eig-tol TOL] \
+        [--coarse direct|cg|amg|ml]
+    JAX_PLATFORMS=cpu python scripts/reference_cpu_counts.py --driver \
+        -f tests/torch_data/hierarchy_input.info -d 3 --n-refinements 6 ...
 
 Builds mfmg_tpu's hierarchy (x64 enabled, on the CPU) for the main
 configuration of bench.py:97-103 (float32 with bf16 preconditioner planes,
@@ -46,6 +50,25 @@ patched to True and the pipeline run with x64 off, its accelerator's
 types) and the Galerkin blocks against the batch it keeps
 (MFMG_DEVICE_GALERKIN).  The patches live in this script; mfmg_tpu is not
 edited.  The script fails if the hierarchy did not take that route.
+
+--eigensolver replaces "lapack" at level 0 ("anasazi" is the batched
+LOBPCG, "arpack" the host shift-invert ARPACK), at tolerance --eig-tol
+(the config's 1e-14 when not given); --coarse replaces the direct coarse
+solve: "cg" (unpreconditioned CG on the coarse ELL matrix), "amg" (the AMGe
+recursion continued for one nested level, CoarseConfig(max_levels=2)) or
+"ml" (smoothed aggregation, the restricted fine constant as near-null
+candidate).  The reference's "lanczos" level 0 on 4,096 agglomerates takes
+about a minute, "arpack" runs the reference's sequential path (its worker
+pool shares one default_rng(0) among the threads, so each v0 would depend
+on how they interleave; the script gives that module a cpu_count of 1, the
+stream of agglomerate order that mfmg_torch draws), "amg" at 65^3 builds the four-level hierarchy (its per-cell
+arrays peak near 15 GB).
+
+--driver runs mfmg_tpu's command line (mfmg_tpu.driver.main) on the CPU
+with x64 on, the remaining arguments passed to it unchanged, and prints
+after it the true relres ||b - A x|| / ||b|| in float64 of its CG solve
+(``--solve``), read from the Hierarchy.solve_cg call it made (wrapped in
+this script; mfmg_tpu is not edited).
 """
 
 import argparse
@@ -58,7 +81,36 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def driver(argv):
+    """mfmg_tpu.driver.main(argv) on the CPU with x64, and the true relres
+    of its CG solve in float64."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from mfmg_tpu.amge.hierarchy import Hierarchy
+    from mfmg_tpu.driver import main as driver_main
+    solve = Hierarchy.solve_cg
+    seen = {}
+
+    def recording_solve(self, b, *a, **k):
+        x, info = solve(self, b, *a, **k)
+        seen.update(hier=self, b=np.asarray(b, dtype=np.float64),
+                    x=np.asarray(x, dtype=np.float64))
+        return x, info
+
+    Hierarchy.solve_cg = recording_solve
+    rc = driver_main(argv)
+    if seen:
+        A = seen["hier"].problem.A
+        b = seen["b"]
+        true = np.linalg.norm(b - A @ seen["x"]) / np.linalg.norm(b)
+        print(f"true relres {true:.3e}", flush=True)
+    return rc
+
+
 def main():
+    if sys.argv[1:2] == ["--driver"]:
+        sys.exit(driver(sys.argv[2:]))
     ap = argparse.ArgumentParser()
     ap.add_argument("n_ref", type=int)
     ap.add_argument("degree", type=int)
@@ -73,6 +125,11 @@ def main():
                     default="cube")
     ap.add_argument("--partitioner", choices=("block", "rcb", "metis"),
                     default="block")
+    ap.add_argument("--eigensolver", choices=("lapack", "lanczos", "anasazi",
+                                              "arpack"), default="lapack")
+    ap.add_argument("--eig-tol", type=float, default=None)
+    ap.add_argument("--coarse", choices=("direct", "cg", "amg", "ml"),
+                    default="direct")
     args = ap.parse_args()
     if args.mesh != "cube" and (args.degree != 1 or args.operator
                                 in ("stencil", "sumfac")):
@@ -105,8 +162,9 @@ def main():
     config = cfg.Config(
         max_levels=args.max_levels, operator=args.operator, dtype="float32",
         coeff_dtype="bfloat16",
-        eigensolver=cfg.EigensolverConfig(type="lapack", n_eigenvectors=2,
-                                          n_eigenvectors_deep=4),
+        eigensolver=cfg.EigensolverConfig(
+            type=args.eigensolver, n_eigenvectors=2, n_eigenvectors_deep=4,
+            **({} if args.eig_tol is None else dict(tolerance=args.eig_tol))),
         smoother={"chebyshev": cfg.SmootherConfig(type="chebyshev", degree=2),
                   "sgs": cfg.SmootherConfig(type="symmetric gauss-seidel"),
                   "gs-lex-dealii": cfg.SmootherConfig(
@@ -116,7 +174,13 @@ def main():
         agglomeration=cfg.AgglomerationConfig(
             partitioner=args.partitioner, nx=4, ny=4, nz=4,
             n_agglomerates=prob.mesh.n_cells // 64),
-        coarse=cfg.CoarseConfig(type="direct"))
+        coarse=cfg.CoarseConfig(type=args.coarse,
+                                **(dict(max_levels=2) if args.coarse == "amg"
+                                   else {})))
+    if args.eigensolver == "arpack":
+        import types
+        from mfmg_tpu.eigen import arpack
+        arpack.os = types.SimpleNamespace(cpu_count=lambda: 1)
     if args.device_pipeline:
         from mfmg_tpu.eigen import device_eig
         run = device_eig.device_smallest_eigenpairs
@@ -150,7 +214,9 @@ def main():
     print(f"mesh {args.mesh} partitioner {args.partitioner} "
           f"n_ref {args.n_ref} degree {args.degree} distort {args.distort} "
           f"max_levels {args.max_levels} operator {args.operator} smoother "
-          f"{args.smoother} device_pipeline "
+          f"{args.smoother} eigensolver {args.eigensolver} (tolerance "
+          f"{config.eigensolver.tolerance}) coarse {args.coarse} "
+          f"device_pipeline "
           f"{args.device_pipeline}: {prob.n_dofs} dofs, "
           f"{int(info['iterations'])} iterations, relres "
           f"{float(info['relres']):.3e}, true relres {true:.3e}", flush=True)

@@ -9,6 +9,8 @@ configuration at RATE_TOL (float64 hierarchies of both packages: the same
 LAPACK calls on the same batches, applies summed in another order).
 """
 
+import pytest
+
 GOLDEN_MF_CHEBYSHEV_3D = 0.0880045475   # test_hierarchy.cc:353
 GOLDEN_MATRIX_SGS_3D = 0.0235237332     # test_hierarchy.cc:343
 RATE_TOL = 1e-10
@@ -38,3 +40,16 @@ def both_rates(jprob, tprob, make_config, n_cycles=20):
     t = t_rate(THierarchy(tprob, make_config(tcfg), device="cpu"), n_cycles)
     j = j_rate(JHierarchy(jprob, make_config(jcfg)), n_cycles)
     return t, j
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's intra-op threads set to 1 for a module, then restored.  The
+    port's batched small products on the CPU (LOBPCG's QR and matmuls on
+    (8, 24, 6) blocks) took ~8 ms per call with 8 intra-op threads on an
+    8-core host, 0.01-0.03 ms with one."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -1018,3 +1018,150 @@ def test_matrix_path_smoothers_on_the_card(cuda, smoother):
     if smoother == "gs-lex-dealii":
         assert abs(r - 0.0235237332) <= 1e-6, r
     assert abs(r - measure_vcycle_rate(Hierarchy(p, cfg, device="cpu"))) <= 1e-10
+
+
+def _cube_batch(n_ref=3):
+    from mfmg_torch.amge.agglomeration import build_agglomerates
+    from mfmg_torch.amge.local_problems import build_agglomerate_batch
+    p = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
+    agg = build_agglomerates(p.mesh, tcfg.AgglomerationConfig(nx=2, ny=2, nz=2))
+    return build_agglomerate_batch(p.mesh, p.A_loc, agg)
+
+
+def _projector_gap(a, b):
+    qa, _ = np.linalg.qr(a)
+    qb, _ = np.linalg.qr(b)
+    d = qa @ np.swapaxes(qa, 1, 2) - qb @ np.swapaxes(qb, 1, 2)
+    return float(np.linalg.norm(d, ord=2, axis=(1, 2)).max())
+
+
+def test_lanczos_on_the_card(cuda):
+    """The batched Lanczos (float64 torch.bmm, the Lanczos vectors kept on
+    the card) against the same solve on the CPU, on hyper_cube(3, 3)'s 64
+    agglomerates at the solver's tolerance floor 1e-4: a roundoff-level
+    difference in the tridiagonal coefficients can move an agglomerate's
+    stop by one check of the schedule, where its Ritz values move by about
+    residual^2 / gap (read 3.4e-8 on 4 of 128 values on an H100); and the
+    Ritz vectors carry the float64 roundoff of 125 steps without
+    reorthogonalization, amplified (spans 8.5e-6 apart where the
+    eigenvalues agree to 1e-10, 1.6e-4 over all, on an H100).  So: at least
+    56 of the 64 agglomerates equal to 1e-10 in eigenvalues and 1e-4 in
+    span, every one within 1e-6 and 1e-3, and the device loop's seconds
+    recorded."""
+    from mfmg_torch.eigen.lanczos import batched_lanczos_smallest
+    batch = _cube_batch()
+    cfg = tcfg.EigensolverConfig(type="lanczos", n_eigenvectors=2)
+    stats = {}
+    ev, vec = batched_lanczos_smallest(batch, cfg, "pin", device="cuda",
+                                       stats=stats)
+    cev, cvec = batched_lanczos_smallest(batch, cfg, "pin", device="cpu")
+    same = np.abs(ev - cev).max(axis=1) <= 1e-10
+    assert same.sum() >= 56, same.sum()
+    np.testing.assert_allclose(ev, cev, rtol=0, atol=1e-6)
+    gaps = (_projector_gap(vec[same], cvec[same]), _projector_gap(vec, cvec))
+    assert gaps[0] <= 1e-4 and gaps[1] <= 1e-3, gaps
+    assert stats["device_s"] > 0 and stats["iterations"] == [int(batch.sizes.min())]
+
+
+def test_lobpcg_on_the_card(cuda):
+    """Batched LOBPCG (float64 QR and eigh through cuSOLVER) against the
+    same solve on the CPU: on seeded SPD blocks without a constrained dof,
+    eigenvalues to 1e-10, spans to 1e-8, the same loop count; on the
+    cube's agglomerates (whose first iteration follows roundoff,
+    tests/test_torch_lobpcg_arpack.py) both converge to the exact
+    eigenvalues."""
+    from mfmg_torch.amge.local_problems import AgglomerateBatch
+    from mfmg_torch.eigen.batched_eigh import batched_smallest_eigenpairs
+    from mfmg_torch.eigen.lobpcg import batched_lobpcg_smallest
+    rng = np.random.default_rng(11)
+    B = rng.standard_normal((8, 24, 24))
+    A = B @ np.swapaxes(B, 1, 2) / 24 + 0.05 * np.eye(24)
+    spd = AgglomerateBatch(dof_map=np.tile(np.arange(24), (8, 1)),
+                           valid=np.ones((8, 24), bool), A_agg=A,
+                           diag=np.einsum("gii->gi", A),
+                           constrained=np.zeros((8, 24), bool),
+                           sizes=np.full(8, 24))
+    for full_ortho in (True, False):
+        cfg = tcfg.EigensolverConfig(n_eigenvectors=2, tolerance=1e-6,
+                                     max_iterations=300, full_ortho=full_ortho)
+        ev, vec, info = batched_lobpcg_smallest(spd, cfg, "pin", device="cuda",
+                                                return_info=True)
+        cev, cvec, cinfo = batched_lobpcg_smallest(spd, cfg, "pin", device="cpu",
+                                                   return_info=True)
+        np.testing.assert_allclose(ev, cev, rtol=0, atol=1e-10)
+        assert _projector_gap(vec, cvec) <= 1e-8
+        assert info["iterations"] == cinfo["iterations"]
+        assert info["converged"].all()
+    batch = _cube_batch(2)
+    cfg = tcfg.EigensolverConfig(n_eigenvectors=2, tolerance=1e-4,
+                                 max_iterations=300)
+    ev, _, info = batched_lobpcg_smallest(batch, cfg, "pin", device="cuda",
+                                          return_info=True)
+    exact, _ = batched_smallest_eigenpairs(batch, 2, constrained_mode="pin")
+    assert info["converged"].all()
+    np.testing.assert_allclose(ev, exact, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["lanczos", "arpack", "anasazi", "cg", "amg",
+                                  "ml"])
+def test_new_eigensolvers_and_coarse_solvers_on_the_card(cuda, case):
+    """float64 hierarchies on hyper_cube(3, 2) with each new eigensolver and
+    coarse solver: the card's V-cycle rate against the CPU port's (1e-8;
+    LOBPCG's at 1e-3, where its stopping iterate follows roundoff), the
+    coarse solver's type, no fused tail."""
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+    from mfmg_torch.solve import coarse as co
+    kw = {}
+    if case in ("lanczos", "arpack", "anasazi"):
+        kw["eigensolver"] = tcfg.EigensolverConfig(type=case, n_eigenvectors=2,
+                                                   tolerance=1e-3 if case == "anasazi"
+                                                   else 1e-14)
+    else:
+        kw["coarse"] = tcfg.CoarseConfig(type=case, max_levels=2)
+    p = LaplaceProblem.hyper_cube(3, 2, material_property="constant")
+    cfg = _cfg_3d(smoother=tcfg.SmootherConfig(type="chebyshev", degree=2), **kw)
+    h = Hierarchy(p, cfg)
+    r = measure_vcycle_rate(h)
+    rc = measure_vcycle_rate(Hierarchy(p, cfg, device="cpu"))
+    assert abs(r - rc) <= (1e-3 if case == "anasazi" else 1e-8), (r, rc)
+    want = {"cg": co.CGCoarseSolver, "amg": co.AMGCoarseSolver,
+            "ml": co.AMGCoarseSolver}.get(case, co.DirectCoarseSolver)
+    assert isinstance(h.levels[-1].coarse, want)
+    assert all(t.is_cuda for lv in h.levels for t in lv.buffers())
+
+
+def test_save_load_on_the_card(cuda, tmp_path):
+    """The main configuration (float32, bf16 planes, 3 levels) on
+    hyper_cube(3, 4): saved from the card and loaded onto it, the fused
+    smoother and tail rebuilt, the V-cycle bit-equal with the same
+    launches; loaded onto the CPU, the plain versions within the bf16
+    tail's storage gap."""
+    p = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    cfg = tcfg.Config(max_levels=3, operator="stencil", dtype="float32",
+                      coeff_dtype="bfloat16",
+                      eigensolver=tcfg.EigensolverConfig(n_eigenvectors=2,
+                                                         n_eigenvectors_deep=4),
+                      smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
+                      agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4))
+    h = Hierarchy(p, cfg)
+    assert h.levels[0].fused is not None
+    path = str(tmp_path / "h.pt")
+    h.save(path)
+    h2 = Hierarchy.load(path, p)
+    assert h2.levels[0].fused is not None
+    assert isinstance(h2.levels[0].smoother, FusedChebyshevSmoother)
+    b = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=p.n_dofs).astype(np.float32)).to("cuda")
+    counts = []
+    outs = []
+    for hh in (h, h2):
+        tk.reset_launch_counts()
+        outs.append(hh.vmult(b))
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in tk.LAUNCHES.items() if v})
+    assert torch.equal(outs[0], outs[1])
+    assert counts[0] == counts[1] and counts[0].get("fused_tail") == 1
+    h3 = Hierarchy.load(path, p, device="cpu")
+    y = h3.vmult(b.cpu())
+    rel = float(torch.linalg.norm(y - outs[0].cpu()) / torch.linalg.norm(y))
+    assert rel <= 2e-3, rel

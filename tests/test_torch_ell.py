@@ -268,18 +268,19 @@ def test_complexities_match_the_reference(path):
 
 
 def test_unported_operators_raise_naming_their_item():
-    """Every operator is ported (tests/test_torch_matrix_free.py); what
-    still raises names its ROADMAP item: the "lanczos" eigensolver, the
-    "ml" coarse solver and distributed setup."""
+    """Every operator, eigensolver and coarse solver is ported
+    (tests/test_torch_matrix_free.py, test_torch_lanczos.py,
+    test_torch_lobpcg_arpack.py, test_torch_coarse.py); distributed setup
+    still raises naming its ROADMAP item, and an unknown eigensolver or
+    coarse solver raises the reference's ValueError."""
     prob = TLaplace.hyper_cube(3, 2)
-    cases = (
-        (dict(eigensolver=tcfg.EigensolverConfig(type="lanczos")),
-         "eigensolver 'lanczos' \\(ROADMAP Queue 1, item 5\\)"),
-        (dict(coarse=tcfg.CoarseConfig(type="ml")),
-         "coarse solver 'ml'.*ROADMAP Queue 1, item 6"),
-        (dict(distributed_setup=True),
-         "distributed_setup \\(ROADMAP Queue 1, item 8\\)"),
-    )
+    with pytest.raises(NotImplementedError,
+                       match="distributed_setup \\(ROADMAP Queue 1, item 8\\)"):
+        THierarchy(prob, tcfg.Config(distributed_setup=True), device="cpu")
+    cases = ((dict(eigensolver=tcfg.EigensolverConfig(type="bogus")),
+              "unknown eigensolver type 'bogus'"),
+             (dict(coarse=tcfg.CoarseConfig(type="bogus")),
+              "unknown coarse solver type 'bogus'"))
     for kw, match in cases:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             THierarchy(prob, tcfg.Config(**kw), device="cpu")

@@ -17,6 +17,12 @@ matrix-path goldens of tests/test_hierarchy.py and tests/test_ball.py).
   (lexicographic GS, deal.II order), the ball's 0.1026 at 5e-3
   (lexicographic GS); and the multicolor SGS and ILU(0) ELL hierarchies'
   rates.
+
+The reference's greedy colors and its ELL Gauss-Seidel depend on whether
+mfmg_tpu.native loaded in the process; every test here takes the
+reference with its host library from a private build
+(tests/_torch_refnative.py), and one test shows that the parity holds when
+mfmg_tpu.native was left in its failed-load state.
 """
 
 import jax.numpy as jnp
@@ -41,6 +47,10 @@ from mfmg_torch.solve import smoothers as tsm
 from mfmg_torch.solve.operator import apply_op
 
 from _torch_rates import GOLDEN_MATRIX_SGS_3D, RATE_TOL, both_rates, cfg_3d
+from _torch_refnative import (load_reference_native,  # noqa: F401
+                              reference_native, reference_native_dir)
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 STEP_TOL = 1e-12
 
@@ -85,6 +95,33 @@ def test_greedy_color_matches_plain_and_reference(cube3):
     np.testing.assert_array_equal(colors, tsm.greedy_color_plain(cols, vals))
     np.testing.assert_array_equal(colors, jnative.greedy_color(cols, vals))
     assert _proper(colors, tp.A) and colors.max() + 1 <= 16
+
+
+def test_parity_holds_after_a_failed_reference_load(cube3, tmp_path_factory):
+    """mfmg_tpu.native forced into the state a worker is left in when it
+    loaded a half-written library (_tried set, no library): the helper
+    still gives the reference's sequential greedy colors, equal to the
+    port's, on hyper_cube(3, 2)."""
+    tp, jp, _, _ = cube3
+    saved = (jnative._tried, jnative._lib)
+    jnative._tried, jnative._lib = True, None
+    try:
+        assert jnative.greedy_color(np.zeros((1, 1), np.int32),
+                                    np.zeros((1, 1))) is None
+        restore = load_reference_native(reference_native_dir(tmp_path_factory))
+        try:
+            E = tp.ell_operator(device="cpu")
+            cols, vals = E.cols.numpy(), E.vals.numpy()
+            colors = jnative.greedy_color(cols, vals)
+            assert colors is not None
+            np.testing.assert_array_equal(colors, tnative.greedy_color(cols, vals))
+            j_e, _ = jsm._color_operator(jsp.ell_from_scipy(jp.A,
+                                                            dtype=jnp.float64))
+            np.testing.assert_array_equal(np.asarray(j_e), colors)
+        finally:
+            restore()
+    finally:
+        jnative._tried, jnative._lib = saved
 
 
 @pytest.mark.parametrize("dim,n_ref", [(2, 3), (3, 2)])

@@ -166,7 +166,11 @@ def test_f32_bf16_main_path_matches_jax():
 
 def test_import_mfmg_torch_leaves_jax_out():
     code = ("import sys, mfmg_torch, mfmg_torch.amge.hierarchy, "
-            "mfmg_torch.ops.stencil_kernels; "
+            "mfmg_torch.ops.stencil_kernels, mfmg_torch.driver, "
+            "mfmg_torch.eigen.lanczos, mfmg_torch.eigen.lobpcg, "
+            "mfmg_torch.eigen.arpack, mfmg_torch.solve.coarse, "
+            "mfmg_torch.utils.serialize, mfmg_torch.utils.io, "
+            "mfmg_torch.utils.info_parser, mfmg_torch.utils.timer; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('mfmg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -5,7 +5,9 @@ the agglomerate layouts of the 17^3 and 33^3 Q1 cubes.
 Integer outputs match exactly; float64 outputs to 1e-12 relative to the
 largest entry (the plain versions sum in another order); float32 batches
 to 2 float32 ulps of the largest entry (the same float32 additions, in the
-same order, through another compiler).
+same order, through another compiler).  mfmg_tpu.native is loaded from a
+build private to the process (tests/_torch_refnative.py), so that its
+functions never return the None of a failed load.
 """
 
 import os
@@ -23,6 +25,10 @@ from mfmg_torch.amge.restriction import build_restriction
 from mfmg_torch.config import AgglomerationConfig
 from mfmg_torch.fem.laplace import LaplaceProblem
 from mfmg_torch.ops import stencil as st
+
+from _torch_refnative import reference_native  # noqa: F401,E402
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 F64_TOL = 1e-12
 F32_ULPS = 2 * 2.0 ** -23
