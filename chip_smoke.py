@@ -143,7 +143,27 @@ each phase prints its wall time):
     relres against the reference's driver; its saved hierarchy loaded here
     for the launches and times of its V-cycle); (f) path (a)'s hierarchy
     saved and loaded onto the card, the loaded V-cycle bit-equal to the
-    saved one's with the same launches.
+    saved one's with the same launches;
+13. distribution (mfmg_torch/parallel/), each world of ranks started by
+    mfmg_torch.parallel.launch, every rank on the one card, on the
+    hierarchies phases 5-7, 9 and 11 saved (loaded on the host, each
+    rank's blocks placed on the card): (a) one rank under NCCL at Q1 65^3, the sharded
+    V-cycle within SPMD_SINGLE_TOL of the single-process V-cycle (the
+    generic recursion with the unfused smoother, on the card); (b) two
+    ranks under gloo (host-staged halos) on slabs at 65^3 and 129^3 and
+    (c) four on (2, 2) pencils at 65^3, within SPMD_TOL x max|ref|; (d) the
+    Q2 cube kept one-sided (K3) on two slabs; each with the launches (K1
+    or K3 five times, K4 and K5 once), halo exchanges and bytes of one
+    V-cycle per rank and its ms (CUDA events, the median of 7 batches of
+    10, with their range; ranks sharing a card: no scaling figure); (e)
+    Config.distributed_setup at 65^3 in two ranks: setup seconds and peak
+    host RSS per rank, R and A_c at levels 1 and 2 against phase 8's
+    replicated host route, the hierarchy's PCG count (9) and true relres;
+    (f) the driver's --spmd 2 rate against its --spmd 1 rate; (g) the
+    row-sharded hierarchy (parallel/sharding.py) of phase 9's ELL and
+    phase 11's matrix-free hierarchies at 65^3 on two ranks under gloo
+    (host-staged gathers and sums), within SPMD_TOL x max|ref| of the
+    single-process V-cycle, its gathers per rank and its ms.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; it fails if one of its kernels was never launched, or if K2 ran
 another form than its rule gives (the blocked form for the step with the
@@ -157,6 +177,7 @@ Without CUDA, or without the mfmg_torch package beside this file, it exits
 non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -905,7 +926,7 @@ def apply_timing(name, op, x, work):
     return y1, r
 
 
-def new_paths_phase(cfg, tk):
+def new_paths_phase(cfg, tk, save_for_spmd):
     """Phase 11: the reference's other operators and smoothers on the card.
     (a) operator="matrix_free" on Q1 65^3 (identity mode, host route) with
     its apply against its bound, the ELL apply and K1 of the same problem;
@@ -930,6 +951,7 @@ def new_paths_phase(cfg, tk):
         "matrix_free 65^3", prob, new_path_config(cfg, "matrix_free"), "host", tk)
     check(not out["matrix_free 65^3"]["fine_matrix_assembled_in_setup"],
           "matrix_free 65^3: setup assembled the fine matrix")
+    save_for_spmd("65^3 matrix_free", hier)
     op = hier.levels[0].op
     x = torch.from_numpy(np.random.default_rng(21).standard_normal(
         prob.n_dofs)).to("cuda", torch.float32)
@@ -1236,6 +1258,318 @@ def slice_phase(cfg, tk):
     return out
 
 
+# ---- phase 13: the sharded V-cycle and the distributed setup -------------
+
+# (a) one NCCL rank against the single-process generic V-cycle (max norm
+# over max|ref|): 0 where nothing is summed in another order, at most this
+SPMD_SINGLE_TOL = 1e-6
+# (b)-(d) the ranks' gathered output against the same: the shared planes of
+# the prolongation sum in another order (K5 on each block, then the
+# neighbour's plane added); (g) the row-sharded matrix-free apply sums the
+# ranks' cells in another order at the dofs between their cell ranges
+SPMD_TOL = 1e-5
+# (e) the distributed setup's R and A_c at levels 1 and 2 against the
+# replicated host route (max |d| / max |ref|), and its PCG count
+SPMD_R_TOL, SPMD_A_TOL, SPMD_PCG_ITERS = 1e-6, 1e-5, 9
+# (f) the driver's --spmd 2 rate against its --spmd 1 rate, relative
+SPMD_DRIVER_TOL = 1e-3
+SPMD_TIMEOUT = 300            # s, each world of ranks
+SPMD_REPEATS, SPMD_BATCH = 7, 10
+
+
+def spmd_rank(mesh, jobs):
+    """Phase 13's work in one rank: {job name: result} (see spmd_phase)."""
+    run = dict(setup=spmd_setup_job, cycle=spmd_cycle_job, rows=spmd_rows_job)
+    return {job["name"]: run[job["kind"]](mesh, job) for job in jobs}
+
+
+def spmd_event_ms(fn):
+    """ms per call of fn (CUDA events): the median, least and most of
+    SPMD_REPEATS batches of SPMD_BATCH calls."""
+    times = []
+    for _ in range(SPMD_REPEATS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(SPMD_BATCH):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / SPMD_BATCH)
+    return dict(ms=float(np.median(times)), ms_min=float(min(times)),
+                ms_max=float(max(times)))
+
+
+def spmd_cycle_job(mesh, job):
+    """A saved hierarchy loaded on the host, this rank's blocks on its card,
+    one sharded V-cycle with the launch and exchange counts set to 0 just
+    before and read just after, its gathered output (rank 0), then the ms
+    per V-cycle (CUDA events; SPMD_REPEATS medians of SPMD_BATCH cycles)."""
+    from mfmg_torch import Hierarchy
+    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.parallel.spmd import build_spmd_vcycle
+    t0 = time.perf_counter()
+    sv = build_spmd_vcycle(Hierarchy.load(job["path"], device="cpu"), mesh,
+                           job.get("mesh_shape"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bg, xg = sv.to_grid(job["b"]), sv.to_grid(job["x"])
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    mesh.reset_stats()
+    y = sv.fn(bg, xg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    stats = dict(mesh.stats)
+    out = sv.from_grid(y).cpu().numpy()
+    return dict(out=out if mesh.rank == 0 else None, launches=launches,
+                stats=stats, build_s=build_s, **spmd_event_ms(lambda: sv.fn(bg, xg)),
+                block=[(s.start, s.stop) for s in sv.block], backend=mesh.backend,
+                device=str(mesh.device), mesh_shape=list(sv.mesh.shape))
+
+
+def spmd_rows_job(mesh, job):
+    """The row-sharded hierarchy (parallel/sharding.py) of a saved ELL or
+    matrix-free hierarchy: this rank's fine rows on its card, every coarser
+    level replicated, one V-cycle of the port's unchanged ``vcycle`` with
+    the launch and exchange counts set to 0 just before and read just
+    after, its gathered output (rank 0), then the ms per V-cycle."""
+    from mfmg_torch import Hierarchy
+    from mfmg_torch.amge.hierarchy import vcycle
+    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.parallel.sharding import (gather_vector, shard_hierarchy,
+                                              shard_vector, unpad_vector)
+    t0 = time.perf_counter()
+    h = Hierarchy.load(job["path"], device="cpu")
+    levels = shard_hierarchy(h.levels, mesh)
+    b, x = (shard_vector(mesh, torch.from_numpy(job[k])) for k in ("b", "x"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def cycle():
+        return vcycle(levels, b, x, n_smoothing_steps=h.config.smoother.n_smoothing_steps,
+                      is_preconditioner=False, cycle_type=h.config.cycle_type)
+    tk.reset_launch_counts()
+    mesh.reset_stats()
+    y = cycle()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    stats = dict(mesh.stats)
+    check(y.is_cuda, "the row-sharded V-cycle ran off the card")
+    out = unpad_vector(gather_vector(mesh, y), len(job["b"])).cpu().numpy()
+    rows = y.shape[0]
+    return dict(out=out if mesh.rank == 0 else None, launches=launches,
+                stats=stats, build_s=build_s, **spmd_event_ms(cycle),
+                block=[(mesh.rank * rows, (mesh.rank + 1) * rows)],
+                backend=mesh.backend, device=str(mesh.device),
+                mesh_shape=list(mesh.shape), op=type(levels[0].op).__name__)
+
+
+def spmd_setup_job(mesh, job):
+    """Config.distributed_setup on this rank's card: setup seconds and peak
+    host RSS per rank; rank 0 also returns R and A_c at levels 1 and 2 and
+    solves with the hierarchy in its own process (PCG count, relres, true
+    relres in float64 on the host)."""
+    import dataclasses
+
+    from mfmg_torch import Hierarchy, LaplaceProblem
+    from mfmg_torch.utils.serialize import config_from_dict
+    prob = LaplaceProblem.hyper_cube(3, job["n_ref"], material_property="linear")
+    cfg = dataclasses.replace(config_from_dict(job["config"]),
+                              distributed_setup=True)
+    t0 = time.perf_counter()
+    with HostPeak() as rss:
+        h = Hierarchy(prob, cfg, device=mesh.device)
+        torch.cuda.synchronize()
+    res = dict(setup_s=time.perf_counter() - t0, peak_rss_gib=rss.peak,
+               start_rss_gib=rss.start, route=h.setup_route,
+               distributed=h._distributed(), slab_n_agg=h._dist_slab[0].n_agg,
+               n_agg=h._level0_eigendata[0].n_agg, stages=h.setup_seconds,
+               levels=[lv.op.shape[0] for lv in h.levels])
+    if mesh.rank == 0:
+        bh = np.random.default_rng(0).uniform(size=prob.n_dofs).astype(np.float32)
+        xs, info = h.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)
+        x64 = xs.cpu().double().numpy()
+        b64 = bh.astype(np.float64)
+        res.update(R=h._R_composed, A=[h._A_per_level[lv] for lv in (1, 2)],
+                   pcg_iterations=int(info["iterations"]),
+                   relres=float(info["relres"]),
+                   true_relres=float(np.linalg.norm(b64 - prob.A @ x64)
+                                     / np.linalg.norm(b64)))
+    return res
+
+
+def spmd_phase(cfg, paths, host_ops):
+    """Phase 13: the slab/pencil-sharded V-cycle (parallel/spmd.py) and the
+    distributed setup on the card, each world of ranks started by
+    mfmg_torch.parallel.launch (a rank that fails or hangs fails the run):
+    (a) one rank under NCCL at 65^3; (b) two ranks sharing the card under
+    gloo (host-staged halos) on slabs at 65^3 and 129^3; (c) four ranks on
+    (2, 2) pencils at 65^3; (d) the Q2 cube kept one-sided (K3) on two
+    slabs; (g) the row-sharded hierarchy (parallel/sharding.py) of phase
+    9's ELL and phase 11's matrix-free hierarchies at 65^3 on two ranks
+    sharing the card; each against the single-process V-cycle of the same
+    saved hierarchy on the card (the generic recursion, the unfused
+    smoother), with the launches and halo exchanges of one sharded V-cycle
+    per rank and its ms; (e) distributed_setup=True at 65^3 in two ranks
+    against the replicated host route (``host_ops``: R, A_1, A_2) with the
+    distributed hierarchy's PCG count; (f) the driver's --spmd 2 against
+    --spmd 1."""
+    from mfmg_torch import Hierarchy
+    from mfmg_torch.amge.hierarchy import vcycle
+    from mfmg_torch.parallel import launch
+
+    def reference(key, seed):
+        """Inputs and the single-process V-cycle of the saved hierarchy on
+        the card: the generic recursion with the unfused smoother."""
+        h = Hierarchy.load(paths[key], device="cpu")
+        n = h._A_shapes[0][0]
+        rng = np.random.default_rng(seed)
+        b, x = (rng.uniform(size=n).astype(np.float32) for _ in range(2))
+        levels = h.levels.to("cuda")
+        y = vcycle(levels, torch.from_numpy(b).cuda(), torch.from_numpy(x).cuda(),
+                   n_smoothing_steps=h.config.smoother.n_smoothing_steps,
+                   is_preconditioner=False, cycle_type=h.config.cycle_type)
+        return b, x, y.cpu().numpy()
+
+    out = {}
+    refs = {key: reference(key, seed) for key, seed in
+            (("65^3", 30), ("129^3", 31), ("Q2 one-sided", 32),
+             ("65^3 ELL", 33), ("65^3 matrix_free", 34))}
+
+    def job(name, key, mesh_shape=None, kind="cycle"):
+        b, x, _ = refs[key]
+        return dict(name=name, kind=kind, path=paths[key], b=b, x=x,
+                    mesh_shape=mesh_shape)
+
+    def cycle_result(label, key, ranks, name, kernel, tol):
+        """kernel: the stencil kernel of the sharded cycle, with K4 and K5;
+        None for the row-sharded hierarchy, whose ELL and matrix-free
+        applies and ELL transfer are PyTorch ops, single-process too (it
+        must launch no kernel of ours and gather on every rank)."""
+        ref = refs[key][2]
+        r0 = ranks[0][name]
+        gap = float(np.abs(r0["out"] - ref).max() / np.abs(ref).max())
+        check(bool(np.isfinite(r0["out"]).all()), f"{label}: non-finite output")
+        check(gap <= tol, f"{label}: gap {gap:.3e} x max|ref| > {tol}")
+        want = ({} if kernel is None else
+                {kernel: 5, "structured_restrict": 1, "structured_prolong": 1})
+        if kernel is None:
+            check(all(r[name]["stats"]["gather_bytes"] > 0 for r in ranks),
+                  f"{label}: a rank gathered nothing")
+        per_rank = [dict(launches=r[name]["launches"], stats=r[name]["stats"],
+                         ms=r[name]["ms"], ms_min=r[name]["ms_min"],
+                         ms_max=r[name]["ms_max"], build_s=r[name]["build_s"],
+                         block=r[name]["block"]) for r in ranks]
+        for i, p in enumerate(per_rank):
+            check(p["launches"] == want, f"{label}: rank {i} launched "
+                  f"{p['launches']} in one V-cycle, not {want}")
+        s = dict(gap=gap, backend=r0["backend"], device=r0["device"],
+                 mesh_shape=r0["mesh_shape"], ranks=per_rank,
+                 n_dofs=int(ref.size))
+        print(f"{label}: {len(ranks)} ranks {r0['mesh_shape']} ({r0['backend']}, "
+              f"{r0['device']}), gap {gap:.3e} x max|ref|; per rank: "
+              + "; ".join(f"launches {p['launches']}, exchanges "
+                          f"{p['stats']['exchanges']}, halo bytes "
+                          f"{p['stats']['halo_bytes']}, gather bytes "
+                          f"{p['stats']['gather_bytes']}, ms per V-cycle "
+                          f"{p['ms']:.4f} [{p['ms_min']:.4f}, {p['ms_max']:.4f}]"
+                          for p in per_rank), flush=True)
+        return s
+
+    # (a) one rank under NCCL
+    t0 = time.perf_counter()
+    ranks = launch(spmd_rank, 1, args=([job("a", "65^3")],), backend="nccl",
+                   device="cuda", timeout=SPMD_TIMEOUT)
+    out["(a) 65^3 nccl x1"] = cycle_result("(a) 65^3, one rank, nccl", "65^3",
+                                           ranks, "a", "stencil_apply_sym",
+                                           SPMD_SINGLE_TOL)
+    print(f"(a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b), (d), (e): two ranks sharing the card under gloo
+    t0 = time.perf_counter()
+    jobs = [dict(name="e", kind="setup", n_ref=N_REF,
+                 config=dataclasses.asdict(main_config(cfg))),
+            job("b65", "65^3"), job("b129", "129^3"), job("d", "Q2 one-sided"),
+            job("g_ell", "65^3 ELL", kind="rows"),
+            job("g_mf", "65^3 matrix_free", kind="rows")]
+    ranks = launch(spmd_rank, 2, args=(jobs,), backend="gloo", device="cuda",
+                   timeout=SPMD_TIMEOUT)
+    out["(b) 65^3 gloo x2"] = cycle_result("(b) 65^3, two slabs", "65^3", ranks,
+                                           "b65", "stencil_apply_sym", SPMD_TOL)
+    out["(b) 129^3 gloo x2"] = cycle_result("(b) 129^3, two slabs", "129^3",
+                                            ranks, "b129", "stencil_apply_sym",
+                                            SPMD_TOL)
+    out["(d) Q2 one-sided gloo x2"] = cycle_result(
+        "(d) Q2 65^3 one-sided, two slabs", "Q2 one-sided", ranks, "d",
+        "stencil_apply", SPMD_TOL)
+    for key, name in (("65^3 ELL", "g_ell"), ("65^3 matrix_free", "g_mf")):
+        out[f"(g) {key} rows x2"] = cycle_result(
+            f"(g) {key}, row-sharded, two ranks", key, ranks, name, None,
+            SPMD_TOL)
+    e = [r["e"] for r in ranks]
+    R_rep, A_rep = host_ops[0], host_ops[1:]
+    check(all(r["distributed"] and r["route"] == "host"
+              and r["slab_n_agg"] < r["n_agg"] for r in e),
+          f"(e): not a distributed host-route setup: "
+          f"{[(r['distributed'], r['route'], r['slab_n_agg']) for r in e]}")
+    check(e[0]["R"].shape == R_rep.shape, f"(e): R {e[0]['R'].shape} against "
+          f"{R_rep.shape}")
+    dR = float(abs(e[0]["R"] - R_rep).max() / abs(R_rep).max())
+    dA = [float(abs(a - b).max() / abs(b).max()) for a, b in zip(e[0]["A"], A_rep)]
+    s = dict(R_gap=dR, A_gaps=dA, pcg_iterations=e[0]["pcg_iterations"],
+             relres=e[0]["relres"], true_relres=e[0]["true_relres"],
+             levels=e[0]["levels"],
+             ranks=[dict(setup_s=r["setup_s"], peak_rss_gib=r["peak_rss_gib"],
+                         start_rss_gib=r["start_rss_gib"],
+                         slab_n_agg=r["slab_n_agg"], stages=r["stages"])
+                    for r in e])
+    print(f"(e) 65^3 distributed setup, two ranks: levels {s['levels']}, R gap "
+          f"{dR:.3e}, A_c gaps {dA}, PCG {s['pcg_iterations']} iterations, "
+          f"relres {s['relres']:.3e}, true relres {s['true_relres']:.3e}; per "
+          f"rank: " + "; ".join(
+              f"setup {r['setup_s']:.2f} s, peak host RSS {r['peak_rss_gib']:.3f} "
+              f"GiB (from {r['start_rss_gib']:.3f}), slab of {r['slab_n_agg']} "
+              f"agglomerates" for r in s["ranks"]), flush=True)
+    check(dR <= SPMD_R_TOL, f"(e): R gap {dR:.3e} > {SPMD_R_TOL}")
+    check(max(dA) <= SPMD_A_TOL, f"(e): A_c gaps {dA} > {SPMD_A_TOL}")
+    check(s["pcg_iterations"] == SPMD_PCG_ITERS, f"(e): PCG took "
+          f"{s['pcg_iterations']} iterations, not {SPMD_PCG_ITERS}")
+    check(s["true_relres"] <= TRUE_RES_MAX,
+          f"(e): true relres {s['true_relres']:.3e} > {TRUE_RES_MAX}")
+    out["(e) 65^3 distributed setup x2"] = s
+    print(f"(b), (d), (e), (g): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) four ranks on (2, 2) pencils
+    t0 = time.perf_counter()
+    ranks = launch(spmd_rank, 4, args=([job("c", "65^3", (2, 2))],),
+                   backend="gloo", device="cuda", timeout=SPMD_TIMEOUT)
+    out["(c) 65^3 gloo (2, 2)"] = cycle_result("(c) 65^3, (2, 2) pencils", "65^3",
+                                               ranks, "c", "stencil_apply_sym",
+                                               SPMD_TOL)
+    print(f"(c): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (f) the command line: --spmd 2 against --spmd 1
+    t0 = time.perf_counter()
+    base = ["-f", os.path.join("tests", "torch_data", "hierarchy_input.info"),
+            "-d", "3", "--n-refinements", str(N_REF), "--operator", "stencil",
+            "--dtype", "float32", "--spmd-timeout", str(SPMD_TIMEOUT)]
+    r2, w2, text2 = run_driver(base + ["--spmd", "2"])
+    r1, w1, _ = run_driver(base + ["--spmd", "1"])
+    print(text2, flush=True)
+    rel = abs(r2["rate"] - r1["rate"]) / abs(r1["rate"])
+    out["(f) driver"] = dict(rate_spmd2=r2["rate"], rate_spmd1=r1["rate"], rel=rel,
+                             wall_spmd2_s=w2, wall_spmd1_s=w1,
+                             timer_spmd2=r2["timer"], timer_spmd1=r1["timer"])
+    print(f"(f) driver: --spmd 2 rate {r2['rate']!r} ({w2:.1f} s), --spmd 1 "
+          f"rate {r1['rate']!r} ({w1:.1f} s), rel {rel:.3e}", flush=True)
+    check(rel <= SPMD_DRIVER_TOL, f"(f): --spmd 2 rate {r2['rate']} against "
+          f"--spmd 1 {r1['rate']}")
+    check("Apply: 20 V-cycles (spmd n=2)" in r2["timer"]
+          and "backend gloo" in text2, "(f): the --spmd 2 run's output")
+    print(f"(f): {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 class Phase:
     def __init__(self, name):
         self.name = name
@@ -1271,6 +1605,14 @@ def main():
     from _torch_stencils import symmetrize
 
     t_start = time.perf_counter()
+    # the hierarchies phase 13 shards, saved where they are built
+    import tempfile
+    spmd_tmp = tempfile.TemporaryDirectory(prefix="mfmg_spmd_")
+    spmd_paths = {}
+
+    def save_for_spmd(key, hier):
+        spmd_paths[key] = os.path.join(spmd_tmp.name, f"{len(spmd_paths)}.pt")
+        hier.save(spmd_paths[key])
     dev = torch.device("cuda")
     problems = {}
 
@@ -1962,6 +2304,7 @@ def main():
         check_tail_rounding("fused_correction_apply/65^3/windowed",
                             tail_variants(list(hier.levels), True, True),
                             time_it=True, full=True)
+        save_for_spmd("65^3", hier)
         del hier
 
     # ---- 6. the main path at 129^3 -------------------------------------
@@ -1976,6 +2319,7 @@ def main():
                                     "fused_tail",
                                     "structured_restrict",
                                     "structured_prolong"), "device")
+        save_for_spmd("129^3", hier7)
         check(tr129 <= TRUE_RES_MAX_LARGE,
               f"129^3 true relres {tr129:.3e} > {TRUE_RES_MAX_LARGE}")
         ft129 = hier7.levels[0].fused
@@ -2117,8 +2461,10 @@ def main():
             check(hiero.levels[0].fused.fine_window == (9, 9, 9),
                   "one-sided Q2 tail windows "
                   f"{hiero.levels[0].fused.fine_window}")
+            save_for_spmd("Q2 one-sided", hiero)
             del hiero
         else:
+            save_for_spmd("Q2 one-sided", hierq)
             del hierq, trq0
 
         # (b) the distorted Q2 cube (general cell Jacobians): one-sided
@@ -2180,6 +2526,9 @@ def main():
                               stages=h.setup_seconds))
             check(h.setup_route == ("host" if backend == "host" else "device"),
                   f"backend {backend!r} took the {h.setup_route} route")
+            if backend == "host":
+                # the replicated host route, phase 13 (e)'s reference
+                host_ops = (h._R_composed, h._A_per_level[1], h._A_per_level[2])
             del h
             print(f"65^3 setup, {turns[-1]['route']} route: "
                   f"{turns[-1]['setup_s']:.2f} s, peak device memory "
@@ -2282,6 +2631,7 @@ def main():
               "65^3 ELL: the fine ELL operator was not applied")
         summary_c["restrictor_L1_s"] = hier_c.setup_seconds["restrictor L1"]
         ell_vs_csr("65^3 fine A", hier_c.levels[0].op, np.random.default_rng(18))
+        save_for_spmd("65^3 ELL", hier_c)
         del hier_c
 
         # (d) the library's default Config (ELL, float64, Jacobi, two levels)
@@ -2311,11 +2661,16 @@ def main():
 
     # ---- 11. the other operators and smoothers -----------------------------
     with Phase("11 matrix-free and sum-factorized operators, Gauss-Seidel, ILU"):
-        summary_new = new_paths_phase(cfg, tk)
+        summary_new = new_paths_phase(cfg, tk, save_for_spmd)
 
     # ---- 12. the eigensolvers, the coarse solvers and the driver ----------
     with Phase("12 eigensolvers, coarse solvers and the driver"):
         summary_slice = slice_phase(cfg, tk)
+
+    # ---- 13. the sharded V-cycle and the distributed setup -------------------
+    with Phase("13 sharded V-cycle, distributed setup, --spmd"):
+        summary13 = spmd_phase(cfg, spmd_paths, host_ops)
+    spmd_tmp.cleanup()
 
     tail_work65 = tail_work(ft65, True)
     l65 = summary65["launches"]
@@ -2389,6 +2744,8 @@ def main():
         if s is not None:
             s["card"] = card
             print(f"summary {label}: {json.dumps(s)}", flush=True)
+    summary13["card"] = card
+    print(f"summary phase 13: {json.dumps(summary13)}", flush=True)
     print(f"kernel variants: {json.dumps(variants)}", flush=True)
     print(f"setup routes: {json.dumps(setup_pipeline)}", flush=True)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s", flush=True)

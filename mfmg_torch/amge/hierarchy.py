@@ -182,8 +182,14 @@ class Hierarchy:
     Lanczos or deal.II CG estimate, multicolor or lexicographic
     Gauss-Seidel, ILU(0)), and every coarse solver ("direct", "cg", "amg"/
     "amgx" (the AMGe recursion continued for coarse.max_levels - 1 nested
-    levels), "ml" (smoothed aggregation)), at any max_levels.  Distributed
-    setup raises NotImplementedError naming its ROADMAP item.
+    levels), "ml" (smoothed aggregation)), at any max_levels.
+    ``Config.distributed_setup`` over an initialized torch.distributed group
+    of more than one rank builds each rank's slab of levels 0 and 1
+    (parallel/dist_setup.py): the fine planes from each rank's cells, the
+    level-0 eigensolve and Galerkin blocks of its super-aligned slab by the
+    host route (``_eigensolve``, never the device pipeline, as in the
+    reference), the level-1 restrictor of its supers; in a world of one it
+    builds the ordinary hierarchy.
     ``eigensolver_stats`` holds the level-0 eigensolver's device seconds and
     iterations for "lanczos" and "anasazi".  ``save``/``load`` persist the
     built levels (utils/serialize.py).
@@ -203,19 +209,23 @@ class Hierarchy:
         self._level0_blocks = None
         self.eigensolver_stats = {}
         self._unfused_smoother0 = None
+        self._dist_slab = None            # (slab batch, every rank's agg ids)
+        self._dist_super = None           # this rank's (s_lo, s_hi) supers
+        self._level0_blocks_slab = None
         self._check_supported()
         self._setup()
 
     def _check_supported(self):
         cfg = self.config
-        unsupported = []
-        if cfg.distributed_setup:
-            unsupported.append("distributed_setup (ROADMAP Queue 1, item 8)")
         if cfg.eigensolver.type not in EIGENSOLVERS:
             raise ValueError(f"unknown eigensolver type {cfg.eigensolver.type!r}")
-        if unsupported:
-            raise NotImplementedError("mfmg_torch does not support "
-                                      + ", ".join(unsupported) + " yet")
+
+    def _distributed(self) -> bool:
+        """Distributed setup is active: configured and a torch.distributed
+        group of more than one rank (mfmg_tpu/amge/hierarchy.py:579-584)."""
+        import torch.distributed as dist
+        return bool(self.config.distributed_setup and dist.is_available()
+                    and dist.is_initialized() and dist.get_world_size() > 1)
 
     # ------------------------------------------------------------- setup --
     def _setup(self):
@@ -252,9 +262,19 @@ class Hierarchy:
             # exact-dtype operator
             coeff_dt = (_torch_dtype(cfg.coeff_dtype) if cfg.coeff_dtype
                         else self.dtype)
+            raw = None
+            if self._distributed():
+                # the extraction is additive over cells: each rank scatters
+                # its own cell range, the planes are summed over the ranks
+                from mfmg_torch.ops.stencil import stencil_layout
+                from mfmg_torch.parallel import dist_setup
+                offsets, oid_ab, _, n_nodes = stencil_layout(problem.mesh)
+                raw = dist_setup.distributed_stencil_planes(
+                    problem.mesh, problem.A_loc, len(offsets), n_nodes, oid_ab)
             op = stencil_from_cell_matrices(problem.mesh, problem.A_loc,
                                             problem.constrained,
-                                            problem.diag_raw, dtype=coeff_dt)
+                                            problem.diag_raw, dtype=coeff_dt,
+                                            raw_planes=raw)
         elif cfg.operator in ("matrix_free", "sumfac"):
             op = problem.matrix_free_operator(
                 dtype=self.dtype, device=self.device,
@@ -315,7 +335,16 @@ class Hierarchy:
                 # blocks Rb_a A_a Rb_a^T (reused by the level-1 restrictor)
                 batch = self._level0_eigendata[0]
                 dof_rows, dof_vals = _dof_row_structure(R)
-                if self._device_A is not None:
+                if self._distributed():
+                    # additive over agglomerates: the slab's blocks, then a
+                    # COO sum over the ranks
+                    from mfmg_torch.parallel import dist_setup
+                    A_coarse, self._level0_blocks_slab = (
+                        dist_setup.distributed_galerkin(
+                            self._dist_slab[0], dof_rows, dof_vals, R.shape[0],
+                            return_blocks=True))
+                    mark("distributed Galerkin blocks L0")
+                elif self._device_A is not None:
                     from mfmg_torch.eigen.device_eig import \
                         device_galerkin_blocks
                     blocks = device_galerkin_blocks(batch, self._device_A,
@@ -329,8 +358,9 @@ class Hierarchy:
                     blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals,
                                                  R.shape[0], eliminate=False)
                     mark("host Galerkin blocks L0")
-                A_coarse = galerkin_product_from_blocks(blocks, R.shape[0])
-                self._level0_blocks = blocks
+                if not self._distributed():
+                    A_coarse = galerkin_product_from_blocks(blocks, R.shape[0])
+                    self._level0_blocks = blocks
             else:
                 A_coarse = (R @ A_per_level[level] @ R.T).tocsr()
             A_per_level.append(A_coarse)
@@ -489,7 +519,10 @@ class Hierarchy:
             n_ev = cfg.eigensolver.n_eigenvectors
             batch_dtype = _np_dtype(self.dtype)
             self.setup_route = "host"
-            if self._use_device_eig():
+            if self._distributed():
+                batch, evals, evecs = self._distributed_level0(agg_ids,
+                                                               batch_dtype)
+            elif self._use_device_eig():
                 from mfmg_torch.eigen import device_eig
                 if device_eig.supports(problem.mesh, agg_ids, self.device,
                                        geom=problem.geom):
@@ -509,7 +542,7 @@ class Hierarchy:
                     evals, evecs = out[:2]
                     self._device_A = out[2] if self._fast_ap else None
                     self.setup_route = "device"
-            if self.setup_route == "host":
+            if self.setup_route == "host" and not self._distributed():
                 batch = build_agglomerate_batch(problem.mesh, problem.A_loc,
                                                 agg_ids, batch_dtype=batch_dtype)
                 self._mark("batch L0")
@@ -530,22 +563,61 @@ class Hierarchy:
         # batch without blocks (the device route without fast_ap) and every
         # deeper level take the per-cell patch path
         # (mfmg_tpu/amge/hierarchy.py:550-562)
-        prev_batch = self._level0_eigendata[0] if level == 1 else None
-        prev_blocks = self._level0_blocks if level == 1 else None
-        if (prev_batch is not None and prev_batch.A_agg is None
-                and prev_blocks is None):
-            prev_batch = None
-        if prev_batch is None:
-            self.per_cell_levels.append(level)
-        R_l, cell_super, super_grid = build_recursive_restriction(
-            problem.mesh, problem.A_loc, self._cell_agg, self._R_composed,
-            A_per_level[level], problem.constrained, n_evd,
-            cfg.agglomeration.block_dims(problem.mesh.dim),
-            prev_batch=prev_batch, prev_blocks=prev_blocks)
+        bdims = cfg.agglomeration.block_dims(problem.mesh.dim)
+        if level == 1 and self._distributed():
+            # level 1 over level 0's super slabs (each slab batch is
+            # assembled): each rank solves its supers' pencils, the rows are
+            # gathered (amge.templates.hpp:596-643)
+            from mfmg_torch.parallel import dist_setup
+            R_l, cell_super, super_grid = (
+                dist_setup.distributed_recursive_restriction(
+                    problem.mesh, problem.A_loc, self._cell_agg,
+                    self._R_composed, A_per_level[level], problem.constrained,
+                    n_evd, bdims, self._dist_slab[0], self._level0_blocks_slab,
+                    self._dist_super))
+        else:
+            prev_batch = self._level0_eigendata[0] if level == 1 else None
+            prev_blocks = self._level0_blocks if level == 1 else None
+            if (prev_batch is not None and prev_batch.A_agg is None
+                    and prev_blocks is None):
+                prev_batch = None
+            if prev_batch is None:
+                self.per_cell_levels.append(level)
+            R_l, cell_super, super_grid = build_recursive_restriction(
+                problem.mesh, problem.A_loc, self._cell_agg, self._R_composed,
+                A_per_level[level], problem.constrained, n_evd, bdims,
+                prev_batch=prev_batch, prev_blocks=prev_blocks)
         self._cell_agg = cell_super
         self._R_composed = (R_l @ self._R_composed).tocsr()
         self._super_grid_xyz = super_grid
         return R_l
+
+    def _distributed_level0(self, agg_ids, batch_dtype):
+        """Level 0 of the distributed setup (mfmg_tpu/amge/hierarchy.py:
+        465-492): this rank's super-aligned slab of agglomerates assembled
+        and eigensolved by the host route, the eigenpairs gathered to every
+        rank; the full batch is the light one.  Returns (batch, evals,
+        evecs)."""
+        from mfmg_torch.amge.multilevel import group_agglomerates
+        from mfmg_torch.parallel import dist_setup
+        problem, cfg = self.problem, self.config
+        n_agg = int(agg_ids.max()) + 1
+        super_of_agg, _ = group_agglomerates(
+            problem.mesh, agg_ids, cfg.agglomeration.block_dims(problem.mesh.dim))
+        agg_sel, s_range, _, agg_sels = dist_setup.super_partition(super_of_agg)
+        batch_slab = build_agglomerate_batch(problem.mesh, problem.A_loc, agg_ids,
+                                             batch_dtype=batch_dtype,
+                                             agg_range=agg_sel)
+        batch = build_agglomerate_batch(problem.mesh, problem.A_loc, agg_ids,
+                                        batch_dtype=batch_dtype,
+                                        assemble_operator=False)
+        self._mark("slab batch L0 (distributed)")
+        evals, evecs = dist_setup.distributed_eigensolve(
+            batch_slab, agg_sels, n_agg, self._eigensolve)
+        self._mark("slab eigensolve L0 (distributed)")
+        self._dist_slab = (batch_slab, agg_sels)
+        self._dist_super = s_range
+        return batch, evals, evecs
 
     # ------------------------------------------------------------- apply --
     def to(self, device):

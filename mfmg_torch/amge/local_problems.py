@@ -63,7 +63,7 @@ class AgglomerateBatch:
 
 
 def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
-                            batch_dtype=np.float64,
+                            batch_dtype=np.float64, agg_range=None,
                             assemble_operator: bool = True) -> AgglomerateBatch:
     """Assemble local dense operators for every agglomerate: the vectorized
     builder for the uniform block partition of a structured mesh, the
@@ -75,14 +75,28 @@ def build_agglomerate_batch(mesh: Mesh, A_loc: np.ndarray, agg_ids: np.ndarray,
     structured path: dof map, float64 PoU diagonals and constrained mask,
     all the restriction, the PoU check and the structured transfers read.
     The generic path always assembles, as the reference's does.
+    agg_range: a (lo, hi) tuple or an integer index array: build only those
+    agglomerates, in that order (each rank's slab of the distributed setup,
+    parallel/dist_setup.py).
     """
+    sel = None
+    if agg_range is not None:
+        sel = (np.arange(agg_range[0], agg_range[1])
+               if isinstance(agg_range, tuple) else np.asarray(agg_range))
     lay = _structured_layout(mesh, agg_ids)
     if lay is None:
         batch = _build_generic(mesh, A_loc, agg_ids)
+        if sel is not None:
+            batch = AgglomerateBatch(
+                dof_map=batch.dof_map[sel], valid=batch.valid[sel],
+                A_agg=batch.A_agg[sel], diag=batch.diag[sel],
+                constrained=batch.constrained[sel], sizes=batch.sizes[sel])
         if np.dtype(batch_dtype) != np.float64:
             batch.A_agg = batch.A_agg.astype(batch_dtype)
         return batch
     cells_per_agg, local_cells, dof_map, m = lay
+    if sel is not None:
+        cells_per_agg, dof_map = cells_per_agg[sel], dof_map[sel]
     n_agg = len(cells_per_agg)
     constrained = mesh.constrained_mask[dof_map]
     valid = np.ones((n_agg, m), dtype=bool)

@@ -16,13 +16,14 @@ the level-0 construction on super-agglomerates:
     exists, from the per-cell blocks K_c = R_c A_c R_c^T (the per-cell patch
     path, ``_super_blocks_per_cell``), in chunks of cells,
   * the local space spans every previous-level coarse dof whose support
-    touches G,
+    touches G ("overlap", the default), or, with ``local_space="interior"``
+    on the per-agglomerate path, only the rows G owns (unit weights),
   * the eigenproblem is solved in the orthonormalized function space of the
     patch Gram M_G = R_G R_G^T (rank-revealing pivoted Cholesky, eigh as the
     fallback), and PoU weights w_i = diag(A_G)_i / diag(A_l)_i.
 
-The interior-only local spaces and the distributed slabs are not ported yet
-(ROADMAP Queue 1, Slices E and G).
+``super_range`` builds one rank's slab of supers for the distributed setup
+(parallel/dist_setup.py).
 """
 
 from __future__ import annotations
@@ -106,7 +107,9 @@ def build_recursive_restriction(mesh: Mesh, A_loc: np.ndarray,
                                 A_coarse_prev: sp.csr_matrix,
                                 boundary_dofs: np.ndarray,
                                 n_ev: int, block_dims,
-                                prev_batch=None, prev_blocks=None) -> tuple:
+                                prev_batch=None, prev_blocks=None,
+                                local_space: str = "overlap",
+                                super_range=None) -> tuple:
     """One more AMGe level; returns (R_l csr over the previous coarse space,
     cell_super, super_grid).
 
@@ -115,23 +118,53 @@ def build_recursive_restriction(mesh: Mesh, A_loc: np.ndarray,
     Galerkin blocks) or the batch's dense A_agg.  Otherwise (prev_batch None:
     levels >= 2, or a light level-0 batch without blocks) the per-cell patch
     path over the cell matrices A_loc, with the constrained fine dofs
-    (boundary_dofs) eliminated from the patch operator."""
+    (boundary_dofs) eliminated from the patch operator.
+
+    local_space="interior" (per-agglomerate path, level-0 rows
+    agglomerate-major): a super's local space is the previous-level rows it
+    owns, and its R rows keep unit weights (mfmg_tpu/amge/multilevel.py:
+    173-191).
+
+    super_range: (s_lo, s_hi), the distributed setup's slab: only these
+    supers' rows, from prev_batch (and prev_blocks) covering exactly their
+    member agglomerates; the (s_hi - s_lo) * n_ev local rows are returned
+    without dropping the empty ones (the caller offsets, gathers and drops
+    them)."""
     super_of_agg, super_grid = group_agglomerates(mesh, cell_agg_prev, block_dims)
     cell_super = super_of_agg[cell_agg_prev]
     n_super = int(cell_super.max()) + 1
     n_rows_prev = A_coarse_prev.shape[0]
     coarse_diag = np.asarray(A_coarse_prev.diagonal())
     dof_rows, dof_vals = _dof_row_structure(R_prev_local.tocsr())
+    if super_range is not None:
+        s_lo, s_hi = super_range
+        agg_sel = np.nonzero((super_of_agg >= s_lo) & (super_of_agg < s_hi))[0]
+        if prev_batch is None or prev_batch.n_agg != len(agg_sel):
+            raise ValueError("super_range needs the matching slab batch")
+        A1, M, m1s, member_pad = _super_blocks_per_agg(
+            prev_batch, super_of_agg[agg_sel] - s_lo, dof_rows, dof_vals,
+            n_rows_prev, s_hi - s_lo, blocks=prev_blocks)
+        R_l = _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
+                                  n_rows_prev, s_hi - s_lo, drop_empty=False)
+        return R_l, cell_super, super_grid
+    interior = False
     if prev_batch is not None and prev_batch.n_agg == len(super_of_agg):
+        row_super = None
+        if local_space == "interior" and n_rows_prev % prev_batch.n_agg == 0:
+            # level-0 rows are agglomerate-major (build_restriction): row r
+            # belongs to agglomerate r // n_ev, hence to that agg's super
+            n_ev_prev = n_rows_prev // prev_batch.n_agg
+            row_super = super_of_agg[np.arange(n_rows_prev) // n_ev_prev]
+            interior = True
         A1, M, m1s, member_pad = _super_blocks_per_agg(
             prev_batch, super_of_agg, dof_rows, dof_vals, n_rows_prev, n_super,
-            blocks=prev_blocks)
+            row_super=row_super, blocks=prev_blocks)
     else:
         A1, M, m1s, member_pad = _super_blocks_per_cell(
             mesh, A_loc, cell_super, dof_rows, dof_vals, boundary_dofs,
             n_rows_prev, n_super)
     R_l = _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
-                              n_rows_prev, n_super)
+                              n_rows_prev, n_super, unit_weights=interior)
     return R_l, cell_super, super_grid
 
 
@@ -365,10 +398,12 @@ def galerkin_product_from_blocks(blocks: AggBlocks, n_rows: int) -> sp.csr_matri
 def _super_blocks_per_agg(batch, super_of_agg: np.ndarray,
                           dof_rows: np.ndarray, dof_vals: np.ndarray,
                           n_rows_prev: int, n_super: int,
-                          blocks: AggBlocks | None = None):
+                          row_super=None, blocks: AggBlocks | None = None):
     """Per-super (A1, Gram) padded batches from per-agglomerate blocks:
     K_a = Rb_a A_a Rb_a^T and M_a = Rown_a Rown_a^T (Rown = Rb masked to the
-    dofs owned by a within its super, so each dof of a super counts once)."""
+    dofs owned by a within its super, so each dof of a super counts once).
+    row_super (the owning super of each previous-level row): a super's
+    member rows are only the rows it owns (interior-only local spaces)."""
     if blocks is None:
         blocks = agg_galerkin_blocks(batch, dof_rows, dof_vals, n_rows_prev)
     arows, t_s, Rb, K = blocks.arows, blocks.t_s, blocks.Rb, blocks.K
@@ -399,6 +434,10 @@ def _super_blocks_per_agg(batch, super_of_agg: np.ndarray,
     # member-row table per super + scatter
     skeys = np.where(np.arange(t_max)[None] < t_s[:, None],
                      G_of[:, None] * n_rows_prev + arows, -1)
+    if row_super is not None:
+        # rows owned by neighbouring supers drop out of the patch blocks
+        skeys = np.where((skeys >= 0) & (row_super[arows] == G_of[:, None]),
+                         skeys, -1)
     member_keys = np.unique(skeys[skeys >= 0])
     key_super = member_keys // n_rows_prev
     m1s = np.bincount(key_super, minlength=n_super)
@@ -439,11 +478,14 @@ def _run_threaded(fn, n, min_per_worker=16):
 
 
 def _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
-                        n_rows_prev, n_super):
+                        n_rows_prev, n_super, unit_weights=False,
+                        drop_empty=True):
     """Per-super rank-revealing eigensolves (threaded LAPACK) and assembly
-    of R_l with PoU weights.  The degenerate pencil (A1, M) is reduced with
-    an M-orthonormal basis W of range(M): pivoted Cholesky (Jacobi-scaled),
-    with the eigendecomposition of M as the fallback."""
+    of R_l with PoU weights (unit weights for interior-only local spaces).
+    The degenerate pencil (A1, M) is reduced with an M-orthonormal basis W
+    of range(M): pivoted Cholesky (Jacobi-scaled), with the
+    eigendecomposition of M as the fallback.  drop_empty=False keeps the
+    empty rows (a distributed slab's row offsets stay put)."""
     import scipy.linalg as sla
     from scipy.linalg.lapack import dpstrf
 
@@ -505,8 +547,11 @@ def _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
                 continue
             kk, c = out
             kks[G] = kk
-            w_pou = diag1[G, :m1] / coarse_diag[member_pad[G, :m1]]
-            cols_pad[G, :kk, :m1] = (w_pou[:, None] * c).T
+            if unit_weights:
+                cols_pad[G, :kk, :m1] = c.T
+            else:
+                w_pou = diag1[G, :m1] / coarse_diag[member_pad[G, :m1]]
+                cols_pad[G, :kk, :m1] = (w_pou[:, None] * c).T
 
     _run_threaded(_solve_range, n_super, min_per_worker=2)
 
@@ -517,5 +562,7 @@ def _solve_and_assemble(A1, M, m1s, member_pad, coarse_diag, n_ev,
     vals_out = cols_pad[gsel, jsel][mask]
     R_l = sp.csr_matrix((vals_out, (rows_out, cols_out)),
                         shape=(n_super * n_ev, n_rows_prev))
+    if not drop_empty:
+        return R_l
     nonzero = np.diff(R_l.indptr) > 0
     return R_l[nonzero]

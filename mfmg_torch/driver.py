@@ -15,6 +15,15 @@ A .info input gets the reference driver's forced settings
 at tolerance 1e-3, and with --raw-ml (or use_raw_ml) the "hidden" subtree
 uncovered.  --device picks the device (default "cuda", which needs a CUDA
 device and never falls back to the CPU).
+
+--spmd N starts N local ranks (mfmg_torch.parallel.launch), each building
+(or, with --load-hierarchy, loading) the hierarchy on its device, and runs
+the reference's 20 sharded V-cycles (parallel/spmd.py) from a random x with
+b = 0; rank 0 prints the rate and the timer section "Apply: 20 V-cycles
+(spmd n=N)".  --backend gloo (the default: the CPU, or every rank sharing
+the one card with host-staged halos) or nccl (one card per rank) is chosen
+before the ranks start and printed; a failed rank, or ranks still running
+after --spmd-timeout seconds, end the run with an error.
 """
 
 from __future__ import annotations
@@ -52,8 +61,13 @@ def _parser():
                    help="write a torch.profiler trace of the apply phase to "
                         "DIR/trace.json")
     p.add_argument("--spmd", type=int, metavar="N", default=None,
-                   help="the apply phase slab-sharded over N devices (not "
-                        "ported yet: ROADMAP Queue 1, item 8)")
+                   help="the apply phase slab-sharded over N local ranks")
+    p.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                   help="torch.distributed backend of --spmd (default gloo: "
+                        "the CPU, or the ranks sharing one card; nccl: one "
+                        "card per rank)")
+    p.add_argument("--spmd-timeout", type=float, default=1800.0,
+                   help="seconds the --spmd ranks may take (default 1800)")
     p.add_argument("--save-hierarchy", metavar="PATH", default=None,
                    help="write the built hierarchy (mfmg_torch's own format) "
                         "for later reuse")
@@ -143,16 +157,10 @@ def build_problem(args, cfg, cfg_dict):
     return LaplaceProblem.from_mesh(mesh, material)
 
 
-def main(argv=None):
-    args = _parser().parse_args(argv)
-    if args.spmd:
-        raise NotImplementedError("--spmd (the slab-sharded apply over several "
-                                  "devices) is not ported yet: ROADMAP Queue 1, "
-                                  "item 8")
-    import torch
-
+def _setup(args, device, save=True):
+    """(problem, hierarchy, timer, cfg_dict) of the command line on device,
+    with the "n_dofs ... levels ..." line printed."""
     from mfmg_torch import Hierarchy
-    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
     from mfmg_torch.utils.timer import TimerOutput
 
     cfg, cfg_dict = load_config(args)
@@ -161,23 +169,87 @@ def main(argv=None):
         prob = build_problem(args, cfg, cfg_dict)
     with timer.section("Setup: hierarchy"):
         if args.load_hierarchy:
-            hier = Hierarchy.load(args.load_hierarchy, prob, device=args.device)
+            hier = Hierarchy.load(args.load_hierarchy, prob, device=device)
         else:
-            hier = Hierarchy(prob, cfg, device=args.device)
-    if args.save_hierarchy:
+            hier = Hierarchy(prob, cfg, device=device)
+    if args.save_hierarchy and save:
         hier.save(args.save_hierarchy)
 
     print(f"n_dofs: {prob.n_dofs}  levels: {len(hier.levels)}  "
           f"grid complexity: {hier.grid_complexity():.3f}  "
           f"operator complexity: {hier.operator_complexity():.3f}")
+    return prob, hier, timer, cfg_dict
 
-    profile_ctx = contextlib.nullcontext()
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if hier.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profile_ctx = profile(activities=activities)
+
+def _profile_ctx(args, device):
+    if not args.profile:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+def _spmd_rank(mesh, argv):
+    """One rank of --spmd: its hierarchy on mesh.device, the reference's 20
+    sharded V-cycles (mfmg_tpu/driver.py:160-179); rank 0's printed lines
+    are returned to the launching process."""
+    import io
+
+    import torch
+
+    from mfmg_torch.parallel.spmd import build_spmd_vcycle
+    from mfmg_torch.solve.operator import apply_op
+
+    args = _parser().parse_args(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out if mesh.rank == 0 else io.StringIO()):
+        prob, hier, timer, _ = _setup(args, mesh.device, save=mesh.rank == 0)
+        sv = build_spmd_vcycle(hier, mesh)
+        x = np.random.default_rng(0).uniform(size=prob.n_dofs)
+        x[prob.constrained] = 0.0
+        xg = sv.to_grid(x)
+        bg = sv.to_grid(np.zeros(prob.n_dofs))
+        rate = res_prev = None
+        with _profile_ctx(args, mesh.device) as prof, timer.section(
+                f"Apply: 20 V-cycles (spmd n={args.spmd})"):
+            for _ in range(20):
+                xg = sv.fn(bg, xg)
+                xf = sv.from_grid(xg)
+                res = float(torch.linalg.norm(apply_op(hier.levels[0].op, xf)))
+                if res_prev:
+                    rate = res / res_prev
+                nrm = float(torch.linalg.norm(xf))
+                xg, res_prev = xg / nrm, res / nrm
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+        print(f"Convergence rate: {rate:.10f}")
+        if args.profile and mesh.rank == 0:
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(timer.summary())
+    return out.getvalue()
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.spmd:
+        from mfmg_torch.parallel import launch
+        print(f"spmd: {args.spmd} ranks, backend {args.backend}, device "
+              f"{args.device}, timeout {args.spmd_timeout:.0f} s", flush=True)
+        texts = launch(_spmd_rank, args.spmd, args=(argv,), backend=args.backend,
+                       device=args.device, timeout=args.spmd_timeout)
+        print(texts[0], end="")
+        return 0
+
+    import torch
+
+    from mfmg_torch.amge.hierarchy import measure_vcycle_rate
+
+    prob, hier, timer, cfg_dict = _setup(args, args.device)
+    profile_ctx = _profile_ctx(args, hier.device)
 
     def synchronize():
         if hier.device.type == "cuda":

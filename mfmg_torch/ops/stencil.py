@@ -208,7 +208,8 @@ def stencil_scatter_plain(rows, oid_ab, A_loc, n_planes, n_nodes):
 
 def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
                                constrained: np.ndarray, diag_raw: np.ndarray,
-                               dtype=torch.float32) -> StencilOperator:
+                               dtype=torch.float32,
+                               raw_planes: np.ndarray | None = None) -> StencilOperator:
     """Exact stencil extraction straight from the per-cell matrices (the
     global CSR is never assembled; dealii_matrix_free_hierarchy_helpers.cc:
     55-303 analog).  The host library's ``stencil_scatter`` adds every cell
@@ -216,16 +217,22 @@ def stencil_from_cell_matrices(mesh: Mesh, A_loc: np.ndarray,
     version); Dirichlet elimination is then applied in stencil form:
     constrained rows keep only the raw-diagonal center, and couplings into
     constrained columns are zeroed.  The planes stay on the host (setup
-    reads them there); the hierarchy moves them once, at finalization."""
+    reads them there); the hierarchy moves them once, at finalization.
+    raw_planes: the (n_offsets, n_nodes) planes already scattered, as the
+    distributed setup sums them over the ranks' cell ranges
+    (parallel/dist_setup.py); elimination then runs on them."""
     if not mesh.is_structured or mesh.dof_renumbered:
         raise ValueError("stencil operator requires a structured mesh with "
                          "lexicographic dof numbering (use operator='ell' "
                          "after renumber_dofs)")
     k = mesh.degree
     offsets, oid_ab, grid_shape, n_nodes = stencil_layout(mesh)
-    from mfmg_torch import native
-    coeffs = native.stencil_scatter(mesh.cells, oid_ab, A_loc, len(offsets),
-                                    n_nodes)
+    if raw_planes is not None:
+        coeffs = np.array(raw_planes, dtype=np.float64)
+    else:
+        from mfmg_torch import native
+        coeffs = native.stencil_scatter(mesh.cells, oid_ab, A_loc, len(offsets),
+                                        n_nodes)
 
     con = constrained.reshape(grid_shape)
     con_pad = np.pad(con, k, constant_values=False)

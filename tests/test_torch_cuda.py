@@ -1165,3 +1165,109 @@ def test_save_load_on_the_card(cuda, tmp_path):
     y = h3.vmult(b.cpu())
     rel = float(torch.linalg.norm(y - outs[0].cpu()) / torch.linalg.norm(y))
     assert rel <= 2e-3, rel
+
+
+# ------------------------------------------------- the sharded V-cycle's pieces
+
+def _slab_pieces(n_ref, P, device):
+    """The main configuration at n_ref on the card (host route), with the
+    padded slab layout of parallel/spmd.py for P slabs: (hierarchy, k, s,
+    n_loc, g_pad)."""
+    p = LaplaceProblem.hyper_cube(3, n_ref, material_property="linear")
+    cfg = tcfg.Config(operator="stencil", dtype="float32", coeff_dtype="bfloat16",
+                      smoother=tcfg.SmootherConfig(type="chebyshev", degree=2),
+                      agglomeration=tcfg.AgglomerationConfig(nx=4, ny=4, nz=4),
+                      eigensolver=tcfg.EigensolverConfig(backend="host"))
+    h = Hierarchy(p, cfg, device=device)
+    op, tr = h.levels[0].op, h.levels[0].transfer
+    s, na, g = tr.window_shape[0] - 1, tr.agg_shape[0], op.grid_shape[0]
+    npad = P * -(-na // P)
+    if npad * s < g:
+        npad += P
+    return h, 1, s, (npad // P) * s, npad * s
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_k1_on_halo_extended_slabs(cuda, P):
+    """K1 on each slab's halo-extended block (planes and x cut with one
+    plane on each side, zeros past the grid): the interior equals K1 on the
+    whole grid bit for bit."""
+    from mfmg_torch.parallel.spmd import _window
+    h, k, s, n_loc, _ = _slab_pieces(4, P, cuda)
+    op = h.levels[0].op
+    x = torch.rand(op.shape[0], generator=torch.Generator().manual_seed(0)).to(cuda)
+    y = tk.stencil_apply_sym(op.planes, x, op.pos_offsets, op.grid_shape)
+    y = y.reshape(op.grid_shape)
+    rest = op.grid_shape[1:]
+    for c in range(P):
+        lo = c * n_loc
+        planes = _window(op.planes, 1, [lo - k], [n_loc + 2 * k]).contiguous()
+        xe = _window(x.reshape(op.grid_shape), 0, [lo - k], [n_loc + 2 * k])
+        ye = tk.stencil_apply_sym(planes, xe.reshape(-1).contiguous(),
+                                  op.pos_offsets, (n_loc + 2 * k,) + rest)
+        ye = ye.reshape((n_loc + 2 * k,) + rest)[k:k + n_loc]
+        hi = min(lo + n_loc, op.grid_shape[0])
+        if hi > lo:
+            assert torch.equal(ye[:hi - lo], y[lo:hi]), c
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_k4_k5_on_slabs_with_the_neighbours_plane(cuda, P):
+    """K4 on each slab's (n_loc + 1)-plane block with its slice of W equals
+    the matching agglomerates' rows of K4 on the whole grid; K5 onto the
+    blocks, each extra plane added to the next slab's first, equals K5 on
+    the whole grid (within XFER bounds: the shared planes sum in another
+    order)."""
+    from mfmg_torch.parallel.spmd import _window
+    h, _, s, n_loc, g_pad = _slab_pieces(4, P, cuda)
+    tr = h.levels[0].transfer
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(tr.shape[1], generator=gen).to(cuda)
+    xc = torch.rand(tr.shape[0], generator=gen).to(cuda)
+    geom = (tr.window_shape, tr.agg_shape, tr.grid_shape)
+    rc = ttk.structured_restrict(tr.W, x, *geom).reshape(tr.agg_shape + (-1,))
+    yf = ttk.structured_prolong(tr.W, xc, *geom).reshape(tr.grid_shape)
+    na_loc = n_loc // s
+    rest_a, rest_g = tr.agg_shape[1:], tr.grid_shape[1:]
+    xcg = xc.reshape(tr.agg_shape + (-1,))
+    y = torch.zeros((g_pad + 1,) + rest_g, device=cuda)
+    for c in range(P):
+        a0, lo = c * na_loc, c * n_loc
+        W = _window(tr.W, 4, [a0], [na_loc]).contiguous()
+        loc = ((na_loc,) + rest_a, (n_loc + 1,) + rest_g)
+        xb = _window(x.reshape(tr.grid_shape), 0, [lo], [n_loc + 1])
+        part = ttk.structured_restrict(W, xb.reshape(-1).contiguous(),
+                                       tr.window_shape, *loc)
+        part = part.reshape((na_loc,) + rest_a + (-1,))
+        real = max(0, min(na_loc, tr.agg_shape[0] - a0))
+        assert torch.equal(part[:real], rc[a0:a0 + real]), c
+        mine = _window(xcg, 0, [a0], [na_loc]).reshape(-1).contiguous()
+        yb = ttk.structured_prolong(W, mine, tr.window_shape, *loc)
+        y[lo:lo + n_loc + 1] += yb.reshape(loc[1])
+    y = y[:tr.grid_shape[0]]
+    rel = float(torch.linalg.norm(y - yf) / torch.linalg.norm(yf))
+    assert rel <= 1e-6, rel
+
+
+def test_two_rank_gloo_world_on_the_card(cuda, tmp_path):
+    """Two ranks sharing the card (gloo, host-staged halos) run the sharded
+    main-configuration V-cycle (K1 five times, K4 and K5 once per rank) and
+    match the single-process generic V-cycle with the unfused smoother."""
+    from _torch_spmd_worker import card_world
+    from mfmg_torch.amge.hierarchy import vcycle
+    from mfmg_torch.parallel import launch
+    h, *_ = _slab_pieces(4, 2, "cpu")
+    path = str(tmp_path / "h.pt")
+    h.save(path)
+    n = h.levels[0].op.shape[0]
+    gen = np.random.default_rng(2)
+    b, x = (gen.uniform(size=n).astype(np.float32) for _ in range(2))
+    levels = copy.deepcopy(h.levels).to(cuda)
+    ref = vcycle(levels, torch.from_numpy(b).to(cuda), torch.from_numpy(x).to(cuda),
+                 n_smoothing_steps=1, is_preconditioner=False).cpu().numpy()
+    ranks = launch(card_world, 2, args=(path, b, x), device="cuda", timeout=300)
+    for r in ranks:
+        assert r["launches"] == {"stencil_apply_sym": 5, "structured_restrict": 1,
+                                 "structured_prolong": 1}, r["launches"]
+        gap = np.abs(r["out"] - ref).max() / np.abs(ref).max()
+        assert gap <= 1e-5, gap

@@ -18,8 +18,8 @@ SURVEY.md:383).
 - Save and load round trip: the loaded hierarchy's V-cycle equals the
   saved one's bit for bit (stencil with bf16 planes, nested AMG, ML, CG),
   the file reads with torch.load(weights_only=True), and through the
-  driver the rates agree at 1e-12; --spmd raises naming its ROADMAP item;
-  --profile writes a trace.
+  driver the rates agree at 1e-12; --spmd 2 (two gloo ranks) gives the
+  reference's --spmd 2 rate; --profile writes a trace.
 - VTU and Matrix Market output equal the reference's files byte for byte.
 """
 
@@ -187,8 +187,16 @@ def _tensors(node):
 
 
 def test_driver_spmd_raises_and_profile_writes(capsys, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        t_main(SMALL + ["--device", "cpu", "--spmd", "2"])
+    """--spmd 2 (two gloo ranks on the CPU, the sharded V-cycle) prints the
+    rate mfmg_tpu's driver prints with --spmd 2 on the same arguments, and
+    the timer section; --profile writes a trace."""
+    argv = SMALL + ["--operator", "stencil", "--spmd", "2"]
+    t = run(t_main, argv + ["--device", "cpu"], capsys)
+    j = run(j_main, argv, capsys)
+    assert t["levels"] == j["levels"]
+    assert t["rate"] == pytest.approx(j["rate"], rel=1e-8)
+    assert "Apply: 20 V-cycles (spmd n=2)" in t["out"]
+    assert "backend gloo" in t["out"]
     prof = tmp_path / "prof"
     out = run(t_main, ["-d", "2", "--n-refinements", "3", "--dtype", "float64",
                        "--device", "cpu", "--solve", "--true-residual",

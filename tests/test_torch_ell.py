@@ -270,13 +270,19 @@ def test_complexities_match_the_reference(path):
 def test_unported_operators_raise_naming_their_item():
     """Every operator, eigensolver and coarse solver is ported
     (tests/test_torch_matrix_free.py, test_torch_lanczos.py,
-    test_torch_lobpcg_arpack.py, test_torch_coarse.py); distributed setup
-    still raises naming its ROADMAP item, and an unknown eigensolver or
-    coarse solver raises the reference's ValueError."""
+    test_torch_lobpcg_arpack.py, test_torch_coarse.py), and so is the
+    distributed setup (tests/test_torch_dist_setup.py): in a world of one
+    (no process group) ``distributed_setup=True`` builds the same hierarchy
+    as False, as the reference's ``_distributed()`` does.  An unknown
+    eigensolver or coarse solver raises the reference's ValueError."""
     prob = TLaplace.hyper_cube(3, 2)
-    with pytest.raises(NotImplementedError,
-                       match="distributed_setup \\(ROADMAP Queue 1, item 8\\)"):
-        THierarchy(prob, tcfg.Config(distributed_setup=True), device="cpu")
+    hd = THierarchy(prob, tcfg.Config(distributed_setup=True), device="cpu")
+    h = THierarchy(prob, tcfg.Config(), device="cpu")
+    assert not hd._distributed() and hd._dist_slab is None
+    assert hd._A_shapes == h._A_shapes and hd._A_nnzs == h._A_nnzs
+    assert (hd._R_composed != h._R_composed).nnz == 0
+    b = torch.from_numpy(np.random.default_rng(0).uniform(size=prob.n_dofs))
+    assert torch.equal(hd.vmult(b), h.vmult(b))
     cases = ((dict(eigensolver=tcfg.EigensolverConfig(type="bogus")),
               "unknown eigensolver type 'bogus'"),
              (dict(coarse=tcfg.CoarseConfig(type="bogus")),

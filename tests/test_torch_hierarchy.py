@@ -170,7 +170,10 @@ def test_import_mfmg_torch_leaves_jax_out():
             "mfmg_torch.eigen.lanczos, mfmg_torch.eigen.lobpcg, "
             "mfmg_torch.eigen.arpack, mfmg_torch.solve.coarse, "
             "mfmg_torch.utils.serialize, mfmg_torch.utils.io, "
-            "mfmg_torch.utils.info_parser, mfmg_torch.utils.timer; "
+            "mfmg_torch.utils.info_parser, mfmg_torch.utils.timer, "
+            "mfmg_torch.parallel, mfmg_torch.parallel.process, "
+            "mfmg_torch.parallel.sharding, mfmg_torch.parallel.spmd, "
+            "mfmg_torch.parallel.dist_setup; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('mfmg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
