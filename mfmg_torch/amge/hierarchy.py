@@ -59,6 +59,7 @@ from mfmg_torch.solve.coarse import (AMGCoarseSolver, build_coarse_solver,
 from mfmg_torch.solve.operator import apply_op
 from mfmg_torch.solve.smoothers import build_smoother
 from mfmg_torch.utils.device import checked_device
+from mfmg_torch.utils.trace import request, span
 
 
 class LevelData(nn.Module):
@@ -87,49 +88,76 @@ def _vcycle(levels, b, x, level, n_smoothing_steps, is_preconditioner,
     return _cycle(levels, b, x, level, n_smoothing_steps, cycle_type)
 
 
+_LEVEL_SPANS = {}
+
+
+def _level_spans(level):
+    """The span names of one level's steps in ``_cycle``, made once:
+    (pre-smoothing, post-smoothing, residual, restriction, prolongation)."""
+    names = _LEVEL_SPANS.get(level)
+    if names is None:
+        names = _LEVEL_SPANS[level] = tuple(
+            f"L{level}.{step}" for step in ("smooth.pre", "smooth.post",
+                                            "residual", "restrict", "prolong"))
+    return names
+
+
 def _cycle(levels, b, x, level, n_smoothing_steps, cycle_type):
     lvl = levels[level]
     if level == len(levels) - 1:
-        return lvl.coarse.apply(b)
+        with span("coarse"):
+            return lvl.coarse.apply(b)
+    pre, post, residual, restrict, prolong = _level_spans(level)
     awr = hasattr(lvl.smoother, "apply_with_residual")
     res = None
-    for i in range(n_smoothing_steps):
-        if awr and i == n_smoothing_steps - 1:
-            # the fused smoother emits the V-cycle residual in the same call
-            x, res = lvl.smoother.apply_with_residual(lvl.op, b, x)
-        else:
-            x = lvl.smoother.apply(lvl.op, b, x)
+    with span(pre):
+        for i in range(n_smoothing_steps):
+            if awr and i == n_smoothing_steps - 1:
+                # the fused smoother emits the V-cycle residual too
+                x, res = lvl.smoother.apply_with_residual(lvl.op, b, x)
+            else:
+                x = lvl.smoother.apply(lvl.op, b, x)
     if res is None:
-        res = apply_op(lvl.op, x) - b    # negative residual (hierarchy.hpp:282-286)
+        with span(residual):
+            res = apply_op(lvl.op, x) - b  # negative residual (hierarchy.hpp:282-286)
     fused = lvl.fused if level == 0 else None
     if (fused is not None and cycle_type == "v"
             and n_smoothing_steps == fused.nss and fused.fine_grid is not None):
         # the whole coarse tail (restrict, level >= 1 cycle, prolong,
         # correction) in one kernel launch (ops/fused_cycle.py)
-        x = fused_correction_apply(fused, x, res)
+        with span("tail"):
+            x = fused_correction_apply(fused, x, res)
     elif (fused is not None and cycle_type == "v"
           and n_smoothing_steps == fused.nss):
         # fine grid beyond the full-tail gate: the fine transfer around the
         # single-kernel level-1 sub-cycle (windowed L1 -> L2 inside)
-        b_coarse = lvl.transfer.restrict(res)
-        x = x - lvl.transfer.prolong(fused_subcycle_apply(fused, b_coarse))
+        with span(restrict):
+            b_coarse = lvl.transfer.restrict(res)
+        with span("tail"):
+            x_coarse = fused_subcycle_apply(fused, b_coarse)
+        with span(prolong):
+            x = x - lvl.transfer.prolong(x_coarse)
     else:
-        b_coarse = lvl.transfer.restrict(res)
+        with span(restrict):
+            b_coarse = lvl.transfer.restrict(res)
         x_coarse = torch.zeros_like(b_coarse)
         sub_cycles = {"v": ("v",), "w": ("w", "w"), "f": ("f", "v")}[cycle_type]
         for sub in sub_cycles:
             x_coarse = _cycle(levels, b_coarse, x_coarse, level + 1,
                               n_smoothing_steps, sub)
-        x = x - lvl.transfer.prolong(x_coarse)
-    for _ in range(n_smoothing_steps):
-        x = lvl.smoother.apply(lvl.op, b, x)
+        with span(prolong):
+            x = x - lvl.transfer.prolong(x_coarse)
+    with span(post):
+        for _ in range(n_smoothing_steps):
+            x = lvl.smoother.apply(lvl.op, b, x)
     return x
 
 
 def vcycle(levels, b, x, n_smoothing_steps=1, is_preconditioner=True,
            cycle_type="v"):
-    return _vcycle(levels, b, x, 0, n_smoothing_steps, is_preconditioner,
-                   cycle_type)
+    with span("vcycle"):
+        return _vcycle(levels, b, x, 0, n_smoothing_steps, is_preconditioner,
+                       cycle_type)
 
 
 EIGENSOLVERS = ("lapack", "lanczos", "anasazi", "arpack")
@@ -163,8 +191,10 @@ class Hierarchy:
     (hierarchy.hpp:159-236), level 0's eigensolve and Galerkin blocks on the
     device where the device route applies, and places every level on
     ``device``.  ``setup_route`` is "device" or "host"; ``setup_seconds``
-    holds the seconds of each setup stage; ``per_cell_levels`` the levels
-    whose restrictor took the per-cell patch path.
+    holds the seconds of each setup stage, each up to the end of its device
+    work (the last, "cuda kernels", builds the fused smoother and tail);
+    ``per_cell_levels`` the levels whose restrictor took the per-cell patch
+    path.
 
     device is "cuda" unless the caller asks for the CPU; "cuda" needs a CUDA
     device and never falls back to the CPU.
@@ -412,9 +442,13 @@ class Hierarchy:
                 + [LevelData(nested[0].op, coarse=solver)])
         self._A_per_level = A_per_level
         self._finalize_cuda_kernels()
+        mark("cuda kernels")
 
     def _mark(self, name):
-        """Record the seconds since the previous mark as stage ``name``."""
+        """Record the seconds since the previous mark as stage ``name``, up to
+        the end of the stage's work on the hierarchy's device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         now = time.perf_counter()
         self.setup_seconds[name] = now - self._t_mark
         self._t_mark = now
@@ -638,19 +672,22 @@ class Hierarchy:
 
     def apply(self, b, x=None):
         """One V-cycle: solves/preconditions A x = b (hierarchy.hpp:246)."""
-        b = self._vector(b)
-        x = torch.zeros_like(b) if x is None else self._vector(x)
-        return vcycle(self.levels, b, x,
-                      n_smoothing_steps=self.config.smoother.n_smoothing_steps,
-                      is_preconditioner=self.config.is_preconditioner,
-                      cycle_type=self.config.cycle_type)
+        with request("vmult"):
+            b = self._vector(b)
+            x = torch.zeros_like(b) if x is None else self._vector(x)
+            return vcycle(self.levels, b, x,
+                          n_smoothing_steps=self.config.smoother.n_smoothing_steps,
+                          is_preconditioner=self.config.is_preconditioner,
+                          cycle_type=self.config.cycle_type)
 
     def vmult(self, b):
         """Preconditioner application x = M^{-1} b (hierarchy.hpp:238-244)."""
-        b = self._vector(b)
-        return vcycle(self.levels, b, torch.zeros_like(b),
-                      n_smoothing_steps=self.config.smoother.n_smoothing_steps,
-                      is_preconditioner=True, cycle_type=self.config.cycle_type)
+        with request("vmult"):
+            b = self._vector(b)
+            return vcycle(self.levels, b, torch.zeros_like(b),
+                          n_smoothing_steps=self.config.smoother.n_smoothing_steps,
+                          is_preconditioner=True,
+                          cycle_type=self.config.cycle_type)
 
     def solve_cg(self, b, tol=1e-12, maxiter=1000):
         """Hierarchy-preconditioned CG (analog of laplace.hpp:206-219).
@@ -662,8 +699,9 @@ class Hierarchy:
                           n_smoothing_steps=nss, is_preconditioner=True,
                           cycle_type=self.config.cycle_type)
 
-        return cg_solve(self._exact_fine_op(), self._vector(b),
-                        preconditioner=precond, tol=tol, maxiter=maxiter)
+        with request("solve"):
+            return cg_solve(self._exact_fine_op(), self._vector(b),
+                            preconditioner=precond, tol=tol, maxiter=maxiter)
 
     def _exact_fine_op(self):
         """Fine operator at the full hierarchy dtype for the outer Krylov

@@ -58,8 +58,8 @@ def _parser():
     p.add_argument("--device", default="cuda",
                    help="device of the hierarchy (default cuda; cpu on request)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="write a torch.profiler trace of the apply phase to "
-                        "DIR/trace.json")
+                   help="write a torch.profiler trace of the apply phase, "
+                        "with the program's spans, to DIR/trace.json")
     p.add_argument("--spmd", type=int, metavar="N", default=None,
                    help="the apply phase slab-sharded over N local ranks")
     p.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
@@ -181,14 +181,25 @@ def _setup(args, device, save=True):
     return prob, hier, timer, cfg_dict
 
 
+@contextlib.contextmanager
 def _profile_ctx(args, device):
+    """With --profile, a torch.profiler profile with the program's spans
+    (utils/trace.py) on, so that its trace shows them beside the kernels."""
     if not args.profile:
-        return contextlib.nullcontext()
+        yield None
+        return
     from torch.profiler import ProfilerActivity, profile
+
+    from mfmg_torch.utils import trace
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
+    trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        trace.disable()
 
 
 def _spmd_rank(mesh, argv):

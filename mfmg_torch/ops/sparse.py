@@ -18,6 +18,8 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from mfmg_torch.utils.trace import span
+
 
 class ELLMatrix(nn.Module):
     """ELL (padded-row) sparse matrix.
@@ -40,7 +42,8 @@ class ELLMatrix(nn.Module):
         return (self.vals.shape[0], self.n_cols)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (self.vals * x[self.cols]).sum(dim=1)
+        with span("ell.apply"):
+            return (self.vals * x[self.cols]).sum(dim=1)
 
 
 class ELLTransfer(nn.Module):
