@@ -86,19 +86,23 @@ each phase prints its wall time):
     no tail); (c) Q1 65^3 with operator="ell" in float32 (ELL at every
     level, level 1 through the per-cell path); each with its setup route and stages, its
     levels' sizes and types, PCG counts and residuals under the reference's
-    limits, the kernel launches and ELL applies of one V-cycle, the V-cycle
-    in CUDA-event ms and profiler device ms, setup's peak host RSS and
-    device memory; an ELL apply against one torch.sparse CSR matvec of the
-    same matrix (the 65^3 fine operator, the distorted cube's level-1 R);
+    limits, the kernel launches and ELL applies of one V-cycle (the ELL
+    kernel once per ELL apply, never without ELL), the V-cycle in CUDA-event
+    ms and profiler device ms, setup's peak host RSS and device memory; the
+    ELL kernel (csrc/ell_spmv.cu, ell_vs_csr) against its plain version and
+    one torch.sparse CSR matvec of the same matrix (library_ms), each timed,
+    with the kernel's device time and byte bound (the 65^3 fine operator,
+    the distorted cube's level-1 R; the ball's fine operator in phase 10);
     (d) the library's default Config (ELL, float64, Jacobi) with
     is_preconditioner=False on hyper_cube(3, 2): its V-cycle rate on the
     card against the CPU port;
 10. the unstructured meshes, each through Hierarchy and solve_cg with the
     main configuration but operator="ell" (ELL at every level, the host
-    setup route, no kernel of the port: every launch count stays 0), the
+    setup route, the ELL kernel the only one launched, once per ELL apply), the
     right-hand side zero at the constrained dofs: (a) hyper_ball(3, 5)
     (229,376 cells) with the 4x4x4 block walk, levels 232,609 -> 7,168 ->
-    14,336 (its level-2 pseudoinverse by float64 eigh on the card), and a
+    14,336 (its level-2 pseudoinverse by float64 eigh on the card; its fine
+    operator's apply timed as in phase 9, the kernel table's ELL row), and a
     float64 hyper_ball(3, 3) hierarchy's V-cycle rate against the CPU
     port's; (b) adaptive_cube(3, 5, x, y, z < 0.5) (61,440 cells, 2,256
     hanging dofs) with n_cells // 64 RCB parts, levels 66,961 -> 1,920 ->
@@ -170,7 +174,8 @@ another form than its rule gives (the blocked form for the step with the
 residual at 129^3, the chain for every other step; counted per form).  The
 line
 before the last is the kernel table as JSON, one row per TPU kernel of the
-reference (launches from the main paths' runs; bound_ms from the bytes and
+reference and one for the ELL kernel, which replaces none (launches from
+the main paths' runs, the ELL kernel's from the ball's; bound_ms from the bytes and
 operations of this run's inputs at 3.35 TB/s and 67 TFLOP/s float32, the
 H100 SXM data sheet); the last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the mfmg_torch package beside this file, it exits
@@ -241,6 +246,9 @@ UNSTRUCTURED_REF = {
 HANGING_TOL = 1e-8
 # an ELL apply against torch.sparse's CSR matvec of the same float32 matrix
 ELL_TOL = 1e-5
+# the ELL kernel against its plain version, x max|y|: float sums of the same
+# products in another order
+ELL_KERNEL_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 K1_TOL = 1e-5             # ||dy||_inf / ||y||_inf
 # K3, ||dy||_inf / ||y||_inf: float32 planes; bf16 planes hold the same bound,
 # since the kernel and its plain version accumulate in float32 the products
@@ -650,6 +658,52 @@ def per_vcycle_launches(hier, bd, tk):
     return {k: v for k, v in tk.LAUNCHES.items() if v}, applies
 
 
+def ell_vs_csr(name, ell, rng, variants):
+    """The ELL kernel on one operator against its plain version (the error
+    x max|y| under ELL_KERNEL_TOL, two launches bit-equal) and one
+    torch.sparse CSR matvec of the same matrix (padding dropped; the error
+    under ELL_TOL): CUDA-event ms of the three (the matvec is the row's
+    library_ms), profiler device ms of the kernel and the matvec, and the
+    kernel's bound (the values and columns as stored, x and y once)."""
+    from mfmg_torch.ops.sparse import ell_spmv_plain
+    from mfmg_torch.ops import stencil_kernels as tk
+    dev, dt = ell.vals.device, ell.vals.dtype
+    x = torch.from_numpy(rng.standard_normal(ell.shape[1])).to(dev, dt)
+    keep = ell.vals != 0
+    rows = torch.arange(ell.shape[0], device=dev)[:, None].expand_as(ell.cols)
+    A = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], ell.cols[keep].long()]), ell.vals[keep],
+        ell.shape).coalesce().to_sparse_csr()
+    n0 = tk.LAUNCHES["ell_spmv"]
+    y, again = ell(x), ell(x)
+    check(tk.LAUNCHES["ell_spmv"] == n0 + 2, f"ELL {name}: not one launch an apply")
+    yp, yl = ell_spmv_plain(ell.vals, ell.cols, x), torch.mv(A, x)
+    torch.cuda.synchronize()
+    err = float((y - yp).abs().max())
+    rel = err / float(yp.abs().max())
+    rel_csr = float((y - yl).abs().max() / yl.abs().max())
+    check(bool(torch.isfinite(y).all()) and rel <= ELL_KERNEL_TOL[dt],
+          f"ELL {name}: |dy|/|y| {rel:.3e} against the plain version")
+    check(rel_csr <= ELL_TOL, f"ELL {name}: |dy|/|y| {rel_csr:.3e} against "
+          f"the CSR matvec")
+    check(torch.equal(y, again), f"ELL {name}: two launches differ")
+    b_ms, b_by = bound(nbytes(ell.vals, ell.cols)
+                       + (ell.shape[0] + ell.shape[1]) * ell.vals.element_size(),
+                       2 * ell.vals.numel())
+    r = dict(shape=list(ell.shape), width=ell.vals.shape[1],
+             nnz=int(keep.sum()), dtype=str(dt), max_abs_err=err, rel_err=rel,
+             rel_err_csr=rel_csr, bound_ms=b_ms, bound_by=b_by,
+             ms=median_ms(lambda: ell(x)),
+             plain_ms=median_ms(lambda: ell_spmv_plain(ell.vals, ell.cols, x)),
+             library_ms=median_ms(lambda: torch.mv(A, x)),
+             device_ms=sum(device_ms_by_name(lambda: ell(x), 50).values()),
+             library_device_ms=sum(device_ms_by_name(lambda: torch.mv(A, x),
+                                                     50).values()))
+    variants[f"ell_apply/{name}"] = r
+    print(f"  ELL apply {name}: {json.dumps(r)}", flush=True)
+    return r
+
+
 def unstructured_config(cfg, mesh, dtype="float32"):
     """Phase 10's configuration: the main configuration with operator="ell"
     (the stencil needs a structured mesh), the 4x4x4 block walk on a ball,
@@ -670,14 +724,15 @@ def unstructured_rhs(prob):
     return b
 
 
-def run_unstructured(label, build_mesh, cfg, tk):
+def run_unstructured(label, build_mesh, cfg, tk, variants=None):
     """One unstructured path of phase 10 through Hierarchy and solve_cg, the
     counts set to 0 just before and read just after: the mesh and problem
     (the caller's), setup (host route; stages, peak host RSS and device
     memory), PCG and true relres against the reference's, the hanging
     slaves, ELL applies per V-cycle, V-cycle events, profiler device time
-    and idle share.  No kernel of the port runs on this path (ELL at every
-    level): every count must stay 0."""
+    and idle share.  ELL at every level: the ELL kernel is the only one
+    launched, once per ELL apply.  With ``variants``, the fine operator's
+    apply is timed there (ell_vs_csr)."""
     from mfmg_torch import Hierarchy, LaplaceProblem
     ref = UNSTRUCTURED_REF[label]
     t0 = time.perf_counter()
@@ -740,11 +795,16 @@ def run_unstructured(label, build_mesh, cfg, tk):
           f"twice the reference's {ref['true_relres']:.3e}")
     check(hang_max <= HANGING_TOL, f"{label}: a hanging slave of the solution "
           f"is {hang_max:.3e}, not 0")
-    check(not launches, f"{label}: kernels launched on the ELL path: {launches}")
+    check(set(launches) == {"ell_spmv"}, f"{label}: launched {launches} on "
+          f"the ELL path, not the ELL kernel alone")
     bd = torch.from_numpy(b).to("cuda")
     cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
-    check(not cycle_launches and cycle_ell.get("L0.op", 0) > 0,
+    check(cycle_launches == {"ell_spmv": sum(cycle_ell.values())}
+          and cycle_ell.get("L0.op", 0) > 0,
           f"{label}: one V-cycle launched {cycle_launches}, applied {cycle_ell}")
+    if variants is not None:
+        ell_vs_csr(f"{label} fine A", hier.levels[0].op,
+                   np.random.default_rng(19), variants)
     ms = [median_ms(lambda: hier.vmult(bd), batch=2) for _ in range(2)]
     dev_ms, dev_top, _ = device_ms_per_cycle(hier, bd)
     idle = 1.0 - dev_ms / float(np.mean(ms))
@@ -764,7 +824,7 @@ def run_unstructured(label, build_mesh, cfg, tk):
                    true_relres=tr, hanging_max=hang_max, solve_s=solve_s,
                    ell_applies_per_vcycle=cycle_ell, ms_per_vcycle=ms,
                    device_ms_per_vcycle=dev_ms, device_top=dev_top,
-                   device_idle_share=idle, reference=ref)
+                   device_idle_share=idle, reference=ref, launches=launches)
     del hier
     return summary
 
@@ -789,13 +849,15 @@ def ball_rate_check(cfg):
     return dict(n_dofs=prob.n_dofs, rate_gpu=rates["cuda"], rate_cpu=rates["cpu"])
 
 
-def unstructured_phase(cfg, tk):
+def unstructured_phase(cfg, tk, variants):
     """Phase 10: (a) hyper_ball(3, N_REF_BALL) with the 4x4x4 block walk
-    and the float64 rate check at N_REF_BALL_RATE; (b) adaptive_cube(3,
-    N_REF_ADAPTIVE, x, y, z < 0.5) with RCB parts."""
+    (its fine operator's apply timed into ``variants``) and the float64
+    rate check at N_REF_BALL_RATE; (b) adaptive_cube(3, N_REF_ADAPTIVE, x,
+    y, z < 0.5) with RCB parts."""
     from mfmg_torch.fem.adaptive import adaptive_cube
     from mfmg_torch.fem.mesh import hyper_ball
-    ball = run_unstructured("ball", lambda: hyper_ball(3, N_REF_BALL), cfg, tk)
+    ball = run_unstructured("ball", lambda: hyper_ball(3, N_REF_BALL), cfg, tk,
+                            variants)
     ball["rate_check"] = ball_rate_check(cfg)
     adaptive = run_unstructured(
         "adaptive", lambda: adaptive_cube(3, N_REF_ADAPTIVE,
@@ -824,8 +886,10 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     count and the true relres in float64 against the reference's
     (NEW_PATHS_REF), launches of the solve and of one V-cycle (each kernel
     of `kernels` launched, no other), the V-cycle in CUDA-event ms and
-    profiler device ms, and the idle share.  The right-hand side is phase
-    5's (phase 10's, zero at the constrained dofs, on a hanging mesh)."""
+    profiler device ms, and the idle share.  The ELL kernel, which every
+    ELL level or transfer launches, is left out of `kernels`.  The
+    right-hand side is phase 5's (phase 10's, zero at the constrained dofs,
+    on a hanging mesh)."""
     from mfmg_torch import Hierarchy
     ref = ref or NEW_PATHS_REF[label]
     tk.reset_launch_counts()
@@ -881,8 +945,8 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     check(info["relres"] <= PCG_TOL, f"{label}: relres {info['relres']:.3e}")
     check(tr <= 2 * ref["true_relres"], f"{label}: true relres {tr:.3e} > "
           f"twice the reference's {ref['true_relres']:.3e}")
-    check(set(launches) == set(kernels), f"{label}: launched {launches}, "
-          f"wanted each of {kernels} and no other")
+    check(set(launches) - {"ell_spmv"} == set(kernels), f"{label}: launched "
+          f"{launches}, wanted each of {kernels} and no other")
     bd = torch.from_numpy(b).to("cuda")
     cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
     ms = [median_ms(lambda: hier.vmult(bd), n=10, batch=2) for _ in range(2)]
@@ -1443,9 +1507,10 @@ def spmd_phase(cfg, paths, host_ops):
 
     def cycle_result(label, key, ranks, name, kernel, tol):
         """kernel: the stencil kernel of the sharded cycle, with K4 and K5;
-        None for the row-sharded hierarchy, whose ELL and matrix-free
-        applies and ELL transfer are PyTorch ops, single-process too (it
-        must launch no kernel of ours and gather on every rank)."""
+        None for the row-sharded hierarchy, whose sharded applies are
+        PyTorch ops, single-process too (its replicated R and coarse ELL
+        levels launch the ELL kernel and no other; it must gather on every
+        rank).  The ELL kernel's launches are not counted against `want`."""
         ref = refs[key][2]
         r0 = ranks[0][name]
         gap = float(np.abs(r0["out"] - ref).max() / np.abs(ref).max())
@@ -1461,8 +1526,10 @@ def spmd_phase(cfg, paths, host_ops):
                          ms_max=r[name]["ms_max"], build_s=r[name]["build_s"],
                          block=r[name]["block"]) for r in ranks]
         for i, p in enumerate(per_rank):
-            check(p["launches"] == want, f"{label}: rank {i} launched "
-                  f"{p['launches']} in one V-cycle, not {want}")
+            ours = {k: v for k, v in p["launches"].items() if k != "ell_spmv"}
+            check(ours == want and (kernel is not None or "ell_spmv" in p["launches"]),
+                  f"{label}: rank {i} launched {p['launches']} in one V-cycle, "
+                  f"not {want or 'the ELL kernel alone'}")
         s = dict(gap=gap, backend=r0["backend"], device=r0["device"],
                  mesh_shape=r0["mesh_shape"], ranks=per_rank,
                  n_dofs=int(ref.size))
@@ -2046,9 +2113,14 @@ def main():
                 want[f"cheb_smooth_{form}"] += n_cyc
         got = {k: launches[k] for k in want}
         check(got == want, f"{label}: fine-level launches {got}, not {want}")
+        check(launches["ell_spmv"] == 0 or ell_modules(hier), f"{label}: the "
+              f"ELL kernel launched {launches['ell_spmv']} times without ELL")
         # same-call A/B: the tail and the generic recursion, in turns
         bd = torch.from_numpy(bh).to(dev)
         cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+        check(cycle_launches.get("ell_spmv", 0) == sum(cycle_ell.values()),
+              f"{label}: one V-cycle launched the ELL kernel "
+              f"{cycle_launches.get('ell_spmv', 0)} times for ELL applies {cycle_ell}")
         print(f"  per V-cycle: kernel launches {cycle_launches}, ELL applies "
               f"{cycle_ell}", flush=True)
         keys = ("generic",) if ft is None else ("tail", "generic")
@@ -2543,30 +2615,6 @@ def main():
         from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
         from mfmg_torch.ops.structured_transfer import StructuredTransfer
 
-        def ell_vs_csr(name, ell, rng):
-            """An ELL apply against one torch.sparse CSR matvec of the same
-            matrix (padding dropped): events and profiler device time."""
-            x = torch.from_numpy(rng.standard_normal(ell.shape[1])).to(dev, ell.vals.dtype)
-            keep = ell.vals != 0
-            rows = torch.arange(ell.shape[0], device=dev)[:, None].expand_as(ell.cols)
-            A = torch.sparse_coo_tensor(
-                torch.stack([rows[keep], ell.cols[keep].long()]), ell.vals[keep],
-                ell.shape).coalesce().to_sparse_csr()
-            y, yl = ell(x), torch.mv(A, x)
-            torch.cuda.synchronize()
-            rel = float((y - yl).abs().max() / yl.abs().max())
-            check(bool(torch.isfinite(y).all()) and rel <= ELL_TOL,
-                  f"ELL {name}: |dy|/|y| {rel:.3e} against the CSR matvec")
-            r = dict(shape=list(ell.shape), width=ell.vals.shape[1],
-                     nnz=int(keep.sum()), dtype=str(ell.vals.dtype), rel_err=rel,
-                     ms=median_ms(lambda: ell(x)),
-                     csr_ms=median_ms(lambda: torch.mv(A, x)),
-                     device_ms=sum(device_ms_by_name(lambda: ell(x), 50).values()),
-                     csr_device_ms=sum(device_ms_by_name(lambda: torch.mv(A, x),
-                                                         50).values()))
-            variants[f"ell_apply/{name}"] = r
-            print(f"  ELL apply {name}: {json.dumps(r)}", flush=True)
-
         # (a) the distorted Q2 cube at three levels: its level-1 transfer
         # is not windowed (ELL R/R^T), level 2 is ELL and larger than
         # level 1 (the reference's centroid-layer grouping), no tail
@@ -2589,7 +2637,8 @@ def main():
         check(summary_a["launches"]["structured_restrict"] == n_cyc
               and summary_a["launches"]["structured_prolong"] == n_cyc,
               "distorted Q2, three levels: K4/K5 not once per V-cycle")
-        ell_vs_csr("distorted Q2 L1 R", la[1].transfer.R, np.random.default_rng(17))
+        ell_vs_csr("distorted Q2 L1 R", la[1].transfer.R, np.random.default_rng(17),
+                   variants)
         del hier_a, la
 
         # (b) Q1 65^3 at four levels: window transfers at levels 1-2, the
@@ -2630,7 +2679,8 @@ def main():
         check(summary_c["ell_applies_per_vcycle"].get("L0.op", 0) > 0,
               "65^3 ELL: the fine ELL operator was not applied")
         summary_c["restrictor_L1_s"] = hier_c.setup_seconds["restrictor L1"]
-        ell_vs_csr("65^3 fine A", hier_c.levels[0].op, np.random.default_rng(18))
+        ell_vs_csr("65^3 fine A", hier_c.levels[0].op, np.random.default_rng(18),
+                   variants)
         save_for_spmd("65^3 ELL", hier_c)
         del hier_c
 
@@ -2657,7 +2707,7 @@ def main():
 
     # ---- 10. unstructured meshes: the ball and the adaptive cube --------
     with Phase("10 unstructured meshes: hyper_ball, adaptive_cube"):
-        summary_ball, summary_adaptive = unstructured_phase(cfg, tk)
+        summary_ball, summary_adaptive = unstructured_phase(cfg, tk, variants)
 
     # ---- 11. the other operators and smoothers -----------------------------
     with Phase("11 matrix-free and sum-factorized operators, Gauss-Seidel, ILU"):
@@ -2732,6 +2782,16 @@ def main():
             "mfmg_tpu/ops/pallas_stencil.py:344", l129["cheb_smooth"],
             variants["cheb_smooth/129^3/with_residual"], k2_work129, None),
     ]
+    # the ELL kernel replaces no TPU kernel (the reference's ell_spmv is an
+    # XLA gather); its launches are the ball's solve, its times the ball's
+    # fine operator's
+    ev = variants["ell_apply/ball fine A"]
+    kernels.append(dict(name="ell_spmv", route="cuda",
+                        source="mfmg_torch/csrc/ell_spmv.cu", replaces=None,
+                        launches=summary_ball["launches"]["ell_spmv"],
+                        max_abs_err=ev["max_abs_err"], ms=ev["ms"],
+                        plain_ms=ev["plain_ms"], bound_ms=ev["bound_ms"],
+                        bound_by=ev["bound_by"], library_ms=ev["library_ms"]))
     summaries = {"65^3": summary65, "129^3": summary129, "Q2 65^3": summaryq,
                  "Q2 65^3 one-sided": summaryo,
                  "Q2 65^3 distorted": summaryd,

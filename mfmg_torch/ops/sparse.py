@@ -6,19 +6,141 @@ restriction and prolongation of levels without a structured transfer, and
 the coarse operator of levels outside the block-stencil window: padded rows
 of (value, column), applied as one gather of x and a row sum (the
 reference's ``ell_spmv``, mfmg_tpu/ops/sparse.py:48-51, an XLA gather that
-is no Pallas kernel; here PyTorch ops on the tensor's device).  Setup-time
-sparse products (the Galerkin triple product R A R^T) stay on the host in
-scipy, as in the reference.
+is no Pallas kernel).  ``ell_spmv`` applies it: the plain PyTorch
+expression for a CPU tensor, one launch of the hand-written kernel
+``csrc/ell_spmv.cu`` for a CUDA tensor, over the blocks of ``ell_plan``
+(counted in ``stencil_kernels.LAUNCHES["ell_spmv"]``).  Setup-time sparse
+products (the Galerkin triple product R A R^T) stay on the host in scipy,
+as in the reference.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 from torch import nn
 
+from mfmg_torch.ops import stencil_kernels
 from mfmg_torch.utils.trace import span
+
+# The ELL kernel's blocks (csrc/ell_spmv.cu kThreads, kUnits): 256 threads,
+# each loading two 16-byte vectors of values and two of columns a pass;
+# the row sums aim at ELL_LANE_TERMS terms a lane; blocks take fewer rows
+# where the matrix would otherwise give fewer than ELL_BLOCKS_PER_SM blocks
+# per SM.  Two vectors a thread and 16 terms a lane took the least device
+# time of those timed on an H100 (2, 4 or 8 vectors; 2 to 32 terms) on the
+# ball's fine operator, a 65^3 operator and a 16-wide R^T (PERF.md).
+ELL_THREADS, ELL_UNITS, ELL_LANE_TERMS, ELL_BLOCKS_PER_SM = 256, 2, 16, 2
+
+
+class EllPlan(NamedTuple):
+    """The ELL kernel's launch (csrc/ell_spmv.cu, in this order): block b
+    owns rows b * rows + [0, rows) (the last ragged) and streams their
+    entries in passes of ``chunk``; ``lanes`` threads sum each row's
+    products; ``threads`` per block, ``blocks``, and the block's shared
+    memory (``smem`` bytes: a pass's products with a word of padding after
+    every 32, and the rows' totals)."""
+    rows: int
+    lanes: int
+    chunk: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ell_plan(n_rows: int, L: int, elem_bytes: int,
+             n_sm: int = stencil_kernels.H100_SMS) -> EllPlan:
+    """Plan the ELL kernel from the matrix's shape: a pass holds
+    ``ELL_THREADS * ELL_UNITS`` 16-byte vectors of values (V entries
+    each); a block takes as many whole rows as one pass holds, in a multiple
+    of V (so that every block's entries start on a vector), at least V,
+    and fewer where that leaves the card under ELL_BLOCKS_PER_SM blocks per
+    SM; the next power of two <= 32 of the lanes that give each lane
+    ELL_LANE_TERMS terms of a row's pass sums it."""
+    V = 16 // elem_bytes
+    chunk = ELL_THREADS * ELL_UNITS * V
+    rows = V * max(1, chunk // (V * max(L, 1)))
+    rows = min(rows, V * max(1, _cdiv(_cdiv(n_rows, ELL_BLOCKS_PER_SM * n_sm), V)))
+    terms = _cdiv(min(L, chunk), ELL_LANE_TERMS)
+    lanes = 1
+    while lanes < min(terms, 32):
+        lanes *= 2
+    return EllPlan(rows, lanes, chunk, ELL_THREADS, _cdiv(n_rows, rows),
+                   elem_bytes * (chunk + chunk // 32 + rows))
+
+
+def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Plain ELL apply: gather x by the columns, multiply, sum each row."""
+    return (vals * x[cols]).sum(dim=1)
+
+
+def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+             n_cols: int) -> torch.Tensor:
+    """y = A x of the ELL matrix (vals, cols) of ``n_cols`` columns: the
+    plain version where the buffers lie on the CPU; on the card one launch
+    of the kernel over the stored buffers, which takes float32 or float64
+    values, int32 columns and a 1-D x of the values' type on their device
+    (longer than ``n_cols`` where its tail is padding, as in the row-sharded
+    hierarchy's gathered vectors), and raises on anything else.
+
+    The solves apply small matrices back to back, so the host's work per
+    call is kept short: devices compared as indices, the raw current
+    stream, no device switch when the card is already the current one (on
+    an H100 machine's host each of ``torch.cuda.current_stream(d)`` and
+    ``torch.cuda.device(d)`` took ~8 us a call, twice the device time of
+    the apply of a 7,168-row level-1 operator)."""
+    dev = vals.get_device()
+    if dev < 0:
+        return ell_spmv_plain(vals, cols, x)
+    n_rows, L = vals.shape
+    dt = vals.dtype
+    if dt is not torch.float32 and dt is not torch.float64:
+        raise ValueError(f"the ELL kernel takes float32 or float64 values, got {dt}")
+    if cols.dtype is not torch.int32 or cols.shape != vals.shape:
+        raise ValueError(f"the ELL kernel takes int32 columns of the values' "
+                         f"shape {tuple(vals.shape)}, got {cols.dtype} "
+                         f"{tuple(cols.shape)}")
+    if x.dtype is not dt or x.dim() != 1 or x.shape[0] < n_cols:
+        raise ValueError(f"x must be a 1-D {dt} tensor of at least {n_cols} "
+                         f"entries, got {x.dtype} {tuple(x.shape)}")
+    if x.get_device() != dev or cols.get_device() != dev:
+        raise ValueError(f"values on {vals.device}, columns on {cols.device}, "
+                         f"x on {x.device}")
+    if not (vals.is_contiguous() and cols.is_contiguous()):
+        raise ValueError("the ELL kernel reads contiguous (n_rows, L) buffers")
+    if n_rows == 0 or L == 0 or n_cols == 0:
+        return torch.zeros(n_rows, dtype=dt, device=dev)
+    x = x.contiguous()
+    y = torch.empty(n_rows, dtype=dt, device=dev)
+    args = (int(dt is torch.float64), vals.data_ptr(), cols.data_ptr(),
+            x.data_ptr(), y.data_ptr(), n_rows, L,
+            _launch_plan(n_rows, L, vals.element_size(), dev),
+            torch._C._cuda_getCurrentRawStream(dev))
+    lib = stencil_kernels._library()
+    if dev == torch.cuda.current_device():
+        err = lib.mfmg_ell_spmv(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mfmg_ell_spmv(*args)
+    stencil_kernels._raise_on(err, "ell_spmv")
+    stencil_kernels.LAUNCHES["ell_spmv"] += 1
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(n_rows: int, L: int, elem_bytes: int, dev: int):
+    """ell_plan for the card ``dev``, as the C interface's int array."""
+    return stencil_kernels._ints(ell_plan(n_rows, L, elem_bytes,
+                                          stencil_kernels._sm_count(dev)))
 
 
 class ELLMatrix(nn.Module):
@@ -43,7 +165,7 @@ class ELLMatrix(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("ell.apply"):
-            return (self.vals * x[self.cols]).sum(dim=1)
+            return ell_spmv(self.vals, self.cols, x, self.n_cols)
 
 
 class ELLTransfer(nn.Module):

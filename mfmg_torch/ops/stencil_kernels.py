@@ -35,9 +35,10 @@ and bound with ctypes.  Each wrapper takes its plain PyTorch version for a
 tensor on the CPU, launches its kernel for a CUDA tensor, and raises on
 anything else; there is no fallback around the build or the launch.  Each
 wrapper counts its launches in ``LAUNCHES``.  The same library holds the
-fused coarse tail (``csrc/fused_tail.cu``) and the fine transfer pair K4/K5
-(``csrc/structured_transfer.cu``), whose wrappers live in
-``ops/fused_cycle.py`` and ``ops/transfer_kernels.py``.  Each source is
+fused coarse tail (``csrc/fused_tail.cu``), the fine transfer pair K4/K5
+(``csrc/structured_transfer.cu``) and the ELL apply (``csrc/ell_spmv.cu``),
+whose wrappers live in ``ops/fused_cycle.py``, ``ops/transfer_kernels.py``
+and ``ops/sparse.py``.  Each source is
 compiled by its own ``nvcc`` process, all started together, then linked.
 """
 
@@ -76,10 +77,11 @@ H100_SMEM_PER_BLOCK = 227 * 1024
 
 # launches of each CUDA wrapper (one per call that reached its kernel);
 # "fused_tail" counts both wrappers of ops/fused_cycle.py; "cheb_smooth"
-# counts K2's calls of either form, "cheb_smooth_blocked"/"_chain" each form's
+# counts K2's calls of either form, "cheb_smooth_blocked"/"_chain" each form's;
+# "ell_spmv" the ELL applies of ops/sparse.py on the card
 LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "cheb_smooth_blocked": 0,
             "cheb_smooth_chain": 0, "fused_tail": 0, "stencil_apply": 0,
-            "structured_restrict": 0, "structured_prolong": 0}
+            "structured_restrict": 0, "structured_prolong": 0, "ell_spmv": 0}
 
 # K2's blocked form (csrc/cheb_smooth.cu): the blocks wanted per SM, the
 # shortest z chunk, the most frame rows (kFrameRows, a warp each; a row is at
@@ -552,6 +554,8 @@ def _library():
         lib.mfmg_structured_restrict.restype = i
         lib.mfmg_structured_prolong.argtypes = [i, vp, vp, vp, ip, i, vp]
         lib.mfmg_structured_prolong.restype = i
+        lib.mfmg_ell_spmv.argtypes = [i, vp, vp, vp, vp, i, i, ip, vp]
+        lib.mfmg_ell_spmv.restype = i
         lib.mfmg_cuda_error_string.argtypes = [i]
         lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

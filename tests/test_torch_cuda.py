@@ -23,9 +23,16 @@ PCG counts equal, the float64 V-cycle rate within 1e-6.  The matrix-free
 and sum-factorized applies repeat their bits; the multicolor colorings are
 proper on the card; the MF-Chebyshev golden (four operators), the
 lexicographic GS golden, ILU(0) and multicolor SGS hold in float64 on the
-card, each rate equal to the CPU port's within 1e-10.
+card, each rate equal to the CPU port's within 1e-10.  The ELL kernel
+(csrc/ell_spmv.cu) is held against its plain version on random matrices
+(empty rows, an empty matrix, padded rows, rows longer than one pass, a
+232,609 x 27 matrix of random columns, views that do not start on 16
+bytes) in float32 and float64, bit for bit against tests/_torch_ell.py's
+model of its order of sums, with one launch per apply, its refusals, and a
+ball solve that launches it once per ``ell.apply`` span.
 
-Tolerances: K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
+Tolerances: the ELL kernel 1e-6 (float32) and 1e-13 (float64) max|y|
+against its plain version (the same products summed in another order); K1 and K3 1e-5 ||y||_inf (float accumulation, the kernel
 contracts multiply-adds into FMAs); K2 1e-5 relative on x and 1e-4 relative
 on the residual (the bounds of tests/test_pallas.py); K4/K5 and the fused
 tail 1e-5 relative (2-norm), the bound tests/test_fused_cycle.py holds the
@@ -48,6 +55,7 @@ import torch
 import mfmg_torch.config as tcfg
 from _torch_stencils import cube_offsets, symmetrize
 import _torch_tails as tt
+from _torch_ell import ell_kernel_model, random_csr
 from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import Hierarchy, LaplaceProblem
 from mfmg_torch.amge.hierarchy import LevelData
@@ -879,6 +887,111 @@ def test_ell_float32_on_the_card(cuda, monkeypatch):
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
+
+
+def _ell_case(case, dtype, device):
+    """(ELLMatrix on the device, x): a random_csr case, or "ball-size":
+    232,609 rows of 27 entries (the ball's fine operator's shape) with
+    random columns, or "view": that matrix's rows from the second on, whose
+    buffers start 108 bytes in (the kernel's scalar loads)."""
+    from mfmg_torch.ops.sparse import ELLMatrix, ell_from_scipy
+    rng = np.random.default_rng(23)
+    if case in ("ball-size", "view"):
+        n, L = 232_609, 27
+        vals = torch.from_numpy(rng.standard_normal((n, L))).to(device, dtype)
+        cols = torch.from_numpy(rng.integers(0, n, (n, L), dtype=np.int32)).to(device)
+        E = (ELLMatrix(vals, cols, n) if case == "ball-size" else
+             ELLMatrix(vals[1:], cols[1:], n))
+    else:
+        A, pad_to = random_csr(case)
+        E = ell_from_scipy(A, dtype=dtype, device=device, pad_to=pad_to)
+    x = torch.from_numpy(rng.standard_normal(E.shape[1])).to(device, dtype)
+    return E, x
+
+
+ELL_CASES = ["square", "rect", "empty", "pad", "long", "ball-size", "view"]
+ELL_KERNEL_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
+@pytest.mark.parametrize("case", ELL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_matches_plain(cuda, case, dtype):
+    """One launch per apply (none without entries), the plain version within
+    ELL_KERNEL_TOL x max|y|, two applies bit-equal."""
+    from mfmg_torch.ops.sparse import ell_spmv_plain
+    E, x = _ell_case(case, dtype, cuda)
+    tk.reset_launch_counts()
+    y, again = E(x), E(x)
+    ref = ell_spmv_plain(E.vals, E.cols, x)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (E.shape[0],) and y.is_cuda
+    assert torch.equal(y, again)
+    if E.vals.shape[1] == 0:
+        assert tk.LAUNCHES["ell_spmv"] == 0 and not y.any()
+        return
+    assert tk.LAUNCHES["ell_spmv"] == 2
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= ELL_KERNEL_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("case", ELL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_repeats_its_model_bits(cuda, case, dtype):
+    """The kernel's sums, order and all: tests/_torch_ell.py's model on the
+    host, through the plan the wrapper takes, gives the same bits."""
+    from mfmg_torch.ops.sparse import ell_plan
+    E, x = _ell_case(case, dtype, cuda)
+    vals, cols, xh = (t.cpu().numpy() for t in (E.vals, E.cols, x))
+    plan = ell_plan(*vals.shape, vals.itemsize, tk._sm_count(cuda))
+    y = E(x).cpu().numpy()
+    np.testing.assert_array_equal(y, ell_kernel_model(vals, cols, xh, plan))
+
+
+@pytest.mark.parametrize("what", ["x 2-D", "x on the host", "x of another type",
+                                  "x too short", "int64 columns",
+                                  "bf16 values"])
+def test_ell_kernel_refuses(cuda, what):
+    from mfmg_torch.ops.sparse import ELLMatrix
+    E, x = _ell_case("square", torch.float32, cuda)
+    if what == "x 2-D":
+        x = x[:, None]
+    elif what == "x on the host":
+        x = x.cpu()
+    elif what == "x of another type":
+        x = x.double()
+    elif what == "x too short":
+        x = x[:-1]
+    elif what == "int64 columns":
+        E = ELLMatrix(E.vals, E.cols.long(), E.n_cols)
+    else:
+        E, x = ELLMatrix(E.vals.bfloat16(), E.cols, E.n_cols), x.bfloat16()
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError):
+        E(x)
+    assert tk.LAUNCHES["ell_spmv"] == 0
+
+
+def test_ell_kernel_once_per_apply_span_on_a_ball(cuda):
+    """A ball solve (ELL at every level) launches the ELL kernel once per
+    ``ell.apply`` span and launches no other kernel of the port."""
+    from mfmg_torch.fem.mesh import hyper_ball
+    from mfmg_torch.utils import trace
+    mesh = hyper_ball(3, 3)
+    prob = LaplaceProblem.from_mesh(mesh, "linear")
+    h = Hierarchy(prob, _unstructured_config(mesh))
+    b = np.random.default_rng(13).uniform(size=prob.n_dofs).astype(np.float32)
+    b[prob.constrained] = 0.0
+    tk.reset_launch_counts()
+    trace.take()
+    trace.enable(profiler_ranges=False)
+    try:
+        _, info = h.solve_cg(b, tol=1e-5, maxiter=50)
+    finally:
+        trace.disable()
+    spans = trace.take()
+    n_apply = sum(sp.name == "ell.apply" for sp in spans)
+    assert info["iterations"] > 0 and n_apply > 0
+    assert {k: v for k, v in tk.LAUNCHES.items() if v} == {"ell_spmv": n_apply}
 
 
 def _unstructured_config(mesh, dtype="float32"):

@@ -5,6 +5,13 @@ mfmg_tpu on the CPU.
   CSR matrices (empty rows, an empty matrix, ``pad_to``), float64 to 1e-12;
   ``native.ell_pack`` against its plain version (the reference's numpy
   fill) exactly; ``ELLTransfer`` against R and R^T.
+- The ELL kernel's plan (``ell_plan``) at every pairing of 0, 1, 7 and
+  232,609 rows with widths 0 to 1,000: within the card's limits, every row
+  in one block, and (``tests/_torch_ell.py``'s model of the kernel's
+  passes and lanes) every entry of a block read once and summed once; the
+  plain apply and the kernel's model against scipy in float32 and float64
+  within the rounding bound of a sum of L products; a CPU apply launches
+  nothing.
 - The default ``Config(is_preconditioner=False)`` on ``hyper_cube(3, 2,
   "constant")`` (ELL, float64, Jacobi, two levels): its V-cycle rate equals
   the reference's to 1e-10, and the pinned 0.0876 of tests/test_hierarchy.py
@@ -43,11 +50,14 @@ from mfmg_torch.amge.hierarchy import measure_vcycle_rate as t_rate
 from mfmg_torch.amge.hierarchy import vcycle as t_vcycle
 from mfmg_torch.eigen import device_eig as tde
 from mfmg_torch.ops import sparse as tsp
+from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
 from mfmg_torch.solve.operator import operator_diagonal as t_diag
 from mfmg_torch.solve.smoothers import JacobiSmoother
 
 from _torch_carry import flatten_levels, jax_probe, main_path_config
+from _torch_ell import (ell_block_model, ell_block_rows, ell_kernel_model,
+                        random_csr as _random_csr)
 
 APPLY_TOL = 1e-12          # float64 row sums of the same products
 # the pinned golden of tests/test_hierarchy.py::test_rate_jacobi_beats_cuda_golden
@@ -72,23 +82,6 @@ def _rel(a, b):
 def _rel_max(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / np.abs(b).max())
-
-
-def _random_csr(case):
-    """(A, pad_to) for one case: a random square or rectangular CSR with
-    some empty rows (and columns), an empty matrix, or padded rows."""
-    rng = np.random.default_rng({"square": 0, "rect": 1, "empty": 2,
-                                 "pad": 3}[case])
-    if case == "empty":
-        return sp.csr_matrix((7, 5)), None
-    n, m = (60, 60) if case != "rect" else (40, 75)
-    A = sp.random(n, m, density=0.08, random_state=rng, format="csr")
-    A = sp.lil_matrix(A)
-    for r in rng.choice(n, 6, replace=False):
-        A[r, :] = 0                                 # empty rows
-    A.setdiag(rng.uniform(1.0, 2.0, min(n, m)))
-    A = sp.csr_matrix(A)
-    return A, (int(np.diff(A.indptr).max()) + 5 if case == "pad" else None)
 
 
 @pytest.mark.parametrize("case", ["square", "rect", "empty", "pad"])
@@ -125,6 +118,81 @@ def test_ell_pack_matches_its_plain_version(case):
     np.testing.assert_array_equal(cols, p_cols)
     with pytest.raises(ValueError, match="more than L"):
         native.ell_pack(A.indptr, A.indices, A.data, A.shape[0], L - 6)
+
+
+# the kernel's launch limits without the opt-in to more shared memory
+MAX_THREADS, MAX_STATIC_SMEM = 1024, 48 * 1024
+
+
+@pytest.mark.parametrize("L", [0, 1, 2, 27, 31, 33, 128, 1000])
+@pytest.mark.parametrize("n_rows", [0, 1, 7, 232_609])
+def test_ell_plan_covers_every_row_once(n_rows, L):
+    for elem in (4, 8):
+        V = 16 // elem
+        p = tsp.ell_plan(n_rows, L, elem)
+        assert p.threads == tsp.ELL_THREADS and p.threads % 32 == 0
+        assert p.threads <= MAX_THREADS
+        assert p.chunk == p.threads * tsp.ELL_UNITS * V
+        assert V <= p.rows <= p.chunk and p.rows % V == 0
+        assert 1 <= p.lanes <= 32 and p.lanes & (p.lanes - 1) == 0
+        assert p.smem == elem * (p.chunk + p.chunk // 32 + p.rows) <= MAX_STATIC_SMEM
+        starts = np.arange(p.blocks) * p.rows
+        ends = np.minimum(starts + p.rows, n_rows)
+        assert np.array_equal(starts[1:], ends[:-1]) and (ends > starts).all()
+        assert (p.blocks == 0) if n_rows == 0 else (starts[0] == 0 and
+                                                     ends[-1] == n_rows)
+        if n_rows == 0 or L == 0:
+            continue
+        # each entry of a block read once, each term summed once (products
+        # of 1: every row's total is L exactly)
+        for b in {0, p.blocks // 2, p.blocks - 1}:
+            _, nr = ell_block_rows(p, n_rows, b)
+            acc, reads = ell_block_model(np.ones(nr * L), L, p)
+            assert (reads == 1).all() and (acc == L).all(), (b, elem)
+
+
+TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
+
+
+def _rounding_bound(A, x, L, dtype):
+    """|y - A x| for any order of a row's sums in ``dtype``, gamma_L |A| |x|,
+    plus as much for the float64 reference's own sums."""
+    u = np.finfo(dtype).eps / 2
+    return 2 * L * u / (1 - L * u) * (abs(A) @ np.abs(x))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["square", "rect", "empty", "pad", "long"])
+def test_ell_plain_and_kernel_model_match_scipy(case, dtype):
+    """The plain apply and the kernel's order of sums (the model, whose
+    "long" rows run over several passes) against scipy in float64 on the
+    same stored values."""
+    A, pad_to = _random_csr(case)
+    E = tsp.ell_from_scipy(A, dtype=TORCH_DTYPE[dtype], pad_to=pad_to)
+    vals, cols = E.vals.numpy(), E.cols.numpy()
+    x = np.random.default_rng(9).standard_normal(A.shape[1]).astype(dtype)
+    A_stored = sp.csr_matrix(A.astype(dtype).astype(np.float64))
+    ref = A_stored @ x.astype(np.float64)
+    L = vals.shape[1]
+    bound = _rounding_bound(A_stored, x, L, dtype)
+    y_plain = E(torch.from_numpy(x)).numpy()
+    p = tsp.ell_plan(*vals.shape, vals.itemsize)
+    y_model = ell_kernel_model(vals, cols, x, p)
+    assert y_plain.dtype == y_model.dtype == dtype
+    if case == "long":
+        assert p.rows * L > p.chunk
+    for y in (y_plain, y_model):
+        assert (np.abs(y - ref) <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_cpu_apply_launches_nothing(dtype):
+    A, _ = _random_csr("square")
+    E = tsp.ell_from_scipy(A, dtype=dtype)
+    tk.reset_launch_counts()
+    y = E(torch.ones(A.shape[1], dtype=dtype))
+    assert y.dtype == dtype and y.shape == (A.shape[0],)
+    assert tk.LAUNCHES["ell_spmv"] == 0
 
 
 def test_ell_transfer_restricts_and_prolongs():
