@@ -23,6 +23,9 @@ dof, the (cell, slot) entries that land on it, built once at setup, and
 ``gather_sum`` adds them in that order.  An ``index_add_`` on CUDA adds with
 atomics in an order that changes from run to run; the gather gives the
 same bits on every run, so PCG counts do not move between runs.
+
+Each apply of ``MatrixFreeOperator`` runs in an "mf.apply" span
+(utils/trace.py) and counts one in ``stencil_kernels.APPLIES["mf"]``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from mfmg_torch.ops.stencil_kernels import APPLIES
+from mfmg_torch.utils.trace import span
 
 
 def incidence(index: np.ndarray, n: int) -> torch.Tensor:
@@ -102,7 +108,9 @@ class MatrixFreeOperator(nn.Module):
         return (n, n)
 
     def forward(self, u):
-        return mf_apply(self, u)
+        APPLIES["mf"] += 1
+        with span("mf.apply"):
+            return mf_apply(self, u)
 
 
 def mf_apply(op: MatrixFreeOperator, u: torch.Tensor) -> torch.Tensor:

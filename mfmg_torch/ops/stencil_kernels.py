@@ -82,6 +82,11 @@ H100_SMEM_PER_BLOCK = 227 * 1024
 LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "cheb_smooth_blocked": 0,
             "cheb_smooth_chain": 0, "fused_tail": 0, "stencil_apply": 0,
             "structured_restrict": 0, "structured_prolong": 0, "ell_spmv": 0}
+# applies of the matrix-free operators, on either device (they launch no
+# kernel of this library): "sumfac" ops/sumfac.py's, "mf"
+# ops/local_apply.py's, one per forward (each in a "sumfac.apply" or
+# "mf.apply" span)
+APPLIES = {"sumfac": 0, "mf": 0}
 
 # K2's blocked form (csrc/cheb_smooth.cu): the blocks wanted per SM, the
 # shortest z chunk, the most frame rows (kFrameRows, a warp each; a row is at
@@ -105,8 +110,9 @@ _lib = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, APPLIES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------ plain versions

@@ -16,7 +16,8 @@ over all cells.  The local dof and quadrature orderings are the reference
 element's x-fastest flatten, so index i reshapes to the tensor axes
 (..., i_z, i_y, i_x) in C order.  The cell results are summed per dof by
 gather in a fixed order (ops/local_apply.py ``gather_sum``), the same bits
-on every run.
+on every run.  Each apply runs in a "sumfac.apply" span (utils/trace.py)
+and counts one in ``stencil_kernels.APPLIES["sumfac"]``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import torch
 from torch import nn
 
 from mfmg_torch.ops.local_apply import gather_sum, incidence
+from mfmg_torch.ops.stencil_kernels import APPLIES
+from mfmg_torch.utils.trace import span
 
 
 class SumFactoredOperator(nn.Module):
@@ -52,7 +55,9 @@ class SumFactoredOperator(nn.Module):
         return (n, n)
 
     def forward(self, u):
-        return sumfac_apply(self, u)
+        APPLIES["sumfac"] += 1
+        with span("sumfac.apply"):
+            return sumfac_apply(self, u)
 
 
 def _contract_axis(w: torch.Tensor, M: torch.Tensor, spatial_axis: int,

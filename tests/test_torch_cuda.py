@@ -20,7 +20,10 @@ one-slice grid, and repeats its bits.  The unstructured meshes (a
 hyper_ball with the block walk, an adaptive cube with hanging nodes and RCB
 parts, ELL at every level) are held against the CPU port: level sizes and
 PCG counts equal, the float64 V-cycle rate within 1e-6.  The matrix-free
-and sum-factorized applies repeat their bits; the multicolor colorings are
+and sum-factorized applies repeat their bits, and the float32
+sum-factorized apply of the benchmark's Q2 cell (65^3) meets the plain
+reference's float64 operator (portbench/reference/hyper_cube_q2.py)
+within SUMFAC_F32_TOL; the multicolor colorings are
 proper on the card; the MF-Chebyshev golden (four operators), the
 lexicographic GS golden, ILU(0) and multicolor SGS hold in float64 on the
 card, each rate equal to the CPU port's within 1e-10.  The ELL kernel
@@ -1071,6 +1074,38 @@ def test_matrix_free_applies_repeat_their_bits(cuda, mesh, mode):
     y_cpu = p.matrix_free_operator(mode=mode, device="cpu")(torch.from_numpy(x))
     np.testing.assert_allclose(y1.cpu().numpy(), y_cpu.numpy(), rtol=0,
                                atol=1e-12 * float(y_cpu.abs().max()))
+
+
+# the float32 sum-factorised apply against the float64 reference: the
+# metric rounded to float32 (6e-8 relative) and each entry a sum of ~30
+# float32 products through three 1-D contractions each way, the 3x3 metric
+# and the gather over up to 8 cells: a few hundred float32 ulps of max|y|
+SUMFAC_F32_TOL = 1e-5
+
+
+def test_sumfac_apply_at_65_cubed_against_the_reference(cuda):
+    """The sum-factorised apply of the benchmark's Q2 cell (65^3 nodes,
+    274,625 dofs, "linear" material) in float32 on the card against the
+    plain reference's float64 operator (portbench/reference/
+    hyper_cube_q2.py), the same input; one "sumfac.apply" count an apply."""
+    import json
+    from pathlib import Path
+
+    from portbench.reference.fem import Problem
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "portbench" /
+                      "configs" / "cube_q2_sumfac.json").read_text())
+    p = LaplaceProblem.hyper_cube(3, 5, degree=2, material_property="linear")
+    ref = Problem(cfg, 5, p.mesh.nodes, p.constrained, cuda)
+    assert all(v == 0 for v in ref.readings.values()), ref.readings
+    op = p.matrix_free_operator(dtype=torch.float32, mode="sumfac", device=cuda)
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        p.n_dofs)).to(cuda, torch.float32)
+    tk.reset_launch_counts()
+    y = op(x)
+    assert tk.APPLIES["sumfac"] == 1
+    y_ref = ref.to_program(ref.op.apply(ref.to_ref(x.double())))
+    err = float((y.double() - y_ref).abs().max() / y_ref.abs().max())
+    assert err <= SUMFAC_F32_TOL, err
 
 
 def test_multicolor_colors_on_the_card(cuda):
