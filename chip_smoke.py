@@ -118,7 +118,8 @@ each phase prints its wall time):
     (a) operator="matrix_free" on Q1 65^3 (identity mode, host route, the
     fine matrix never assembled), its apply timed against its byte bound
     beside the ELL apply and K1 of the same matrix, two applies bit-equal;
-    (b) operator="sumfac" on the Q2 cube, the same for its apply;
+    (b) operator="sumfac" on the Q2 cube, the same for its apply, which
+    calls the sumfac kernel once an apply, against the plain body;
     (c) operator="matrix_free" on phase 10's adaptive cube (the condensed
     cell-wise apply); (d) multicolor symmetric Gauss-Seidel on the stencil
     path at 65^3 (8 lattice colors, the sublattice sweep; K1 in the
@@ -174,8 +175,9 @@ another form than its rule gives (the blocked form for the step with the
 residual at 129^3, the chain for every other step; counted per form).  The
 line
 before the last is the kernel table as JSON, one row per TPU kernel of the
-reference and one for the ELL kernel, which replaces none (launches from
-the main paths' runs, the ELL kernel's from the ball's; bound_ms from the bytes and
+reference and one each for the ELL and sumfac kernels, which replace none
+(launches from the main paths' runs, the ELL kernel's from the ball's, the
+sumfac kernel's from phase 11's Q2 cube; bound_ms from the bytes and
 operations of this run's inputs at 3.35 TB/s and 67 TFLOP/s float32, the
 H100 SXM data sheet); the last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the mfmg_torch package beside this file, it exits
@@ -246,6 +248,10 @@ UNSTRUCTURED_REF = {
 HANGING_TOL = 1e-8
 # an ELL apply against torch.sparse's CSR matvec of the same float32 matrix
 ELL_TOL = 1e-5
+# the float32 sumfac kernel against its plain body on the card, x max|y|:
+# the same products summed in another order (tests/test_torch_cuda.py
+# SUMFAC_KERNEL_TOL)
+SUMFAC_KERNEL_TOL = 1e-5
 # the ELL kernel against its plain version, x max|y|: float sums of the same
 # products in another order
 ELL_KERNEL_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
@@ -1005,6 +1011,7 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     from mfmg_torch.amge.hierarchy import measure_vcycle_rate
     from mfmg_torch.fem.adaptive import adaptive_cube
     from mfmg_torch.ops import stencil as st
+    from mfmg_torch.ops.sumfac import sumfac_apply
     from mfmg_torch.solve.smoothers import build_smoother
     out = {}
     sgs = cfg.SmootherConfig(type="symmetric gauss-seidel")
@@ -1043,7 +1050,11 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     prob = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
                                      material_property="linear")
     hier, out["sumfac Q2 65^3"] = run_new_path(
-        "sumfac Q2 65^3", prob, new_path_config(cfg, "sumfac"), "host", tk)
+        "sumfac Q2 65^3", prob, new_path_config(cfg, "sumfac"), "host", tk,
+        kernels=("sumfac",))
+    check(tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"],
+          f"sumfac: {tk.LAUNCHES['sumfac']} kernel calls for "
+          f"{tk.APPLIES['sumfac']} applies")
     op = hier.levels[0].op
     n_cells, n_q = op.K.shape[:2]
     n1, nq1 = op.V.shape[1], op.V.shape[0]
@@ -1053,9 +1064,24 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     flops = n_cells * (2 * 9 * 2 * nq1 ** 3 * n1 + 2 * 9 * n_q)
     x = torch.from_numpy(np.random.default_rng(22).standard_normal(
         prob.n_dofs)).to("cuda", torch.float32)
-    _, r_sf = apply_timing("sumfac", op, x, (
-        nbytes(op.K, op.cells, op.V, op.D) + 8 * prob.n_dofs, flops))
+    # bytes as portbench/work_mf.py counts them: K and the cells, u, y and
+    # the diagonal in float32 and a flag byte a dof
+    tk.reset_launch_counts()
+    y_sf, r_sf = apply_timing("sumfac", op, x, (
+        nbytes(op.K, op.cells) + 13 * prob.n_dofs, flops))
+    check(tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] > 0,
+          "sumfac: not one kernel call an apply")
     check(r_sf["same_bits"], "sumfac: two applies differ")
+    # the kernel against the plain body (ops/sumfac.py sumfac_apply) on the
+    # same card buffers; SUMFAC_KERNEL_TOL as tests/test_torch_cuda.py
+    y_plain = sumfac_apply(op, x)
+    r_sf["max_abs_err"] = float((y_sf - y_plain).abs().max())
+    r_sf["plain_ms"] = median_ms(lambda: sumfac_apply(op, x))
+    rel = r_sf["max_abs_err"] / float(y_plain.abs().max())
+    print(f"  sumfac kernel against the plain body: |dy|/|y| {rel:.3e}, plain "
+          f"{r_sf['plain_ms']:.4f} ms", flush=True)
+    check(rel <= SUMFAC_KERNEL_TOL, f"sumfac kernel against the plain body: "
+          f"{rel:.3e}")
     out["sumfac Q2 65^3"]["applies"] = dict(sumfac=r_sf)
     del hier, op, prob
 
@@ -2792,6 +2818,17 @@ def main():
                         max_abs_err=ev["max_abs_err"], ms=ev["ms"],
                         plain_ms=ev["plain_ms"], bound_ms=ev["bound_ms"],
                         bound_by=ev["bound_by"], library_ms=ev["library_ms"]))
+    # nor does the sumfac kernel (mfmg_tpu/ops/sumfac.py is plain XLA); its
+    # calls are phase 11's Q2 set-up and solve, its times the Q2 cube's fine
+    # apply
+    sq = summary_new["sumfac Q2 65^3"]
+    sv = sq["applies"]["sumfac"]
+    kernels.append(dict(name="sumfac_apply", route="cuda",
+                        source="mfmg_torch/csrc/sumfac_apply.cu", replaces=None,
+                        launches=sq["launches"]["sumfac"],
+                        max_abs_err=sv["max_abs_err"], ms=sv["ms"],
+                        plain_ms=sv["plain_ms"], bound_ms=sv["bound_ms"],
+                        bound_by=sv["bound_by"], library_ms=None))
     summaries = {"65^3": summary65, "129^3": summary129, "Q2 65^3": summaryq,
                  "Q2 65^3 one-sided": summaryo,
                  "Q2 65^3 distorted": summaryd,

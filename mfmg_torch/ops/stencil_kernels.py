@@ -36,9 +36,10 @@ tensor on the CPU, launches its kernel for a CUDA tensor, and raises on
 anything else; there is no fallback around the build or the launch.  Each
 wrapper counts its launches in ``LAUNCHES``.  The same library holds the
 fused coarse tail (``csrc/fused_tail.cu``), the fine transfer pair K4/K5
-(``csrc/structured_transfer.cu``) and the ELL apply (``csrc/ell_spmv.cu``),
-whose wrappers live in ``ops/fused_cycle.py``, ``ops/transfer_kernels.py``
-and ``ops/sparse.py``.  Each source is
+(``csrc/structured_transfer.cu``), the ELL apply (``csrc/ell_spmv.cu``) and
+the sum-factorised apply (``csrc/sumfac_apply.cu``), whose wrappers live in
+``ops/fused_cycle.py``, ``ops/transfer_kernels.py``, ``ops/sparse.py`` and
+``ops/sumfac.py``.  Each source is
 compiled by its own ``nvcc`` process, all started together, then linked.
 """
 
@@ -78,14 +79,16 @@ H100_SMEM_PER_BLOCK = 227 * 1024
 # launches of each CUDA wrapper (one per call that reached its kernel);
 # "fused_tail" counts both wrappers of ops/fused_cycle.py; "cheb_smooth"
 # counts K2's calls of either form, "cheb_smooth_blocked"/"_chain" each form's;
-# "ell_spmv" the ELL applies of ops/sparse.py on the card
+# "ell_spmv" the ELL applies of ops/sparse.py on the card; "sumfac" the
+# calls of ops/sumfac.py's kernel (its cell and node passes, one call)
 LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "cheb_smooth_blocked": 0,
             "cheb_smooth_chain": 0, "fused_tail": 0, "stencil_apply": 0,
-            "structured_restrict": 0, "structured_prolong": 0, "ell_spmv": 0}
-# applies of the matrix-free operators, on either device (they launch no
-# kernel of this library): "sumfac" ops/sumfac.py's, "mf"
-# ops/local_apply.py's, one per forward (each in a "sumfac.apply" or
-# "mf.apply" span)
+            "structured_restrict": 0, "structured_prolong": 0, "ell_spmv": 0,
+            "sumfac": 0}
+# applies of the matrix-free operators, on either device: "sumfac"
+# ops/sumfac.py's (on the card, Q1-Q3 in 3-D, each also a LAUNCHES["sumfac"]),
+# "mf" ops/local_apply.py's (no kernel of this library), one per forward
+# (each in a "sumfac.apply" or "mf.apply" span)
 APPLIES = {"sumfac": 0, "mf": 0}
 
 # K2's blocked form (csrc/cheb_smooth.cu): the blocks wanted per SM, the
@@ -562,6 +565,8 @@ def _library():
         lib.mfmg_structured_prolong.restype = i
         lib.mfmg_ell_spmv.argtypes = [i, vp, vp, vp, vp, i, i, ip, vp]
         lib.mfmg_ell_spmv.restype = i
+        lib.mfmg_sumfac_apply.argtypes = [i, i, i] + [vp] * 11 + [i, i, vp]
+        lib.mfmg_sumfac_apply.restype = i
         lib.mfmg_cuda_error_string.argtypes = [i]
         lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -11,24 +11,51 @@ gradient table, this factors the tensor-product structure of Q_k:
   integration          y  += (D_1d^T on axis a, V_1d^T elsewhere) s_a
 
 with the per-cell data shrunk to the (n_q, dim, dim) metric K
-(fem/geometry.py compute_metric).  Every contraction is one batched matmul
-over all cells.  The local dof and quadrature orderings are the reference
-element's x-fastest flatten, so index i reshapes to the tensor axes
-(..., i_z, i_y, i_x) in C order.  The cell results are summed per dof by
-gather in a fixed order (ops/local_apply.py ``gather_sum``), the same bits
-on every run.  Each apply runs in a "sumfac.apply" span (utils/trace.py)
-and counts one in ``stencil_kernels.APPLIES["sumfac"]``.
+(fem/geometry.py compute_metric).  In ``sumfac_apply``, the plain version,
+every contraction is one batched matmul over all cells.  The local dof and
+quadrature orderings are the reference element's x-fastest flatten, so
+index i reshapes to the tensor axes (..., i_z, i_y, i_x) in C order.  The
+cell results are summed per dof by gather in a fixed order
+(ops/local_apply.py ``gather_sum``), the same bits on every run.
+
+On the card, a 3-D operator of Q1-Q3 (``KERNEL_SHAPES``) applies through
+the hand-written kernel ``csrc/sumfac_apply.cu`` (``sumfac_apply_cuda``):
+one wrapper call, a cell pass and a node pass, counted in
+``stencil_kernels.LAUNCHES["sumfac"]``; its node pass reads the incidence
+as int32 offsets and positions (``incidence_csr``).  Every other shape,
+and every CPU tensor, takes ``sumfac_apply``.  Each apply runs in a
+"sumfac.apply" span (utils/trace.py) and counts one in
+``stencil_kernels.APPLIES["sumfac"]``.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
 
+from mfmg_torch.ops import stencil_kernels
 from mfmg_torch.ops.local_apply import gather_sum, incidence
-from mfmg_torch.ops.stencil_kernels import APPLIES
+from mfmg_torch.ops.stencil_kernels import APPLIES, LAUNCHES
 from mfmg_torch.utils.trace import span
+
+# (n1, nq1) of the 3-D operators csrc/sumfac_apply.cu is built for: Q1-Q3
+# at k + 1 Gauss points a side
+KERNEL_SHAPES = ((2, 2), (3, 3), (4, 4))
+
+
+def incidence_csr(inc: torch.Tensor, n_entries: int):
+    """The padded incidence (ops/local_apply.py ``incidence``, padding
+    ``n_entries``) as int32 (offsets (n + 1,), positions): row t's
+    positions are positions[offsets[t]:offsets[t + 1]], in the same order."""
+    if n_entries >= 2**31:
+        raise ValueError(f"{n_entries} cell entries do not fit int32 positions")
+    real = inc < n_entries
+    offsets = torch.zeros(inc.shape[0] + 1, dtype=torch.int64)
+    torch.cumsum(real.sum(dim=1), 0, out=offsets[1:])
+    return offsets.to(torch.int32), inc[real].to(torch.int32)
 
 
 class SumFactoredOperator(nn.Module):
@@ -37,7 +64,10 @@ class SumFactoredOperator(nn.Module):
     identity-row scale at constrained dofs); op_diag (n_dofs,) the operator
     diagonal, precomputed on the host; K (n_cells, n_q, dim, dim) the metric
     (JxW * coeff * Jinv Jinv^T); V, D (n_q_1d, k+1) the 1-D shape value and
-    derivative tables."""
+    derivative tables.  inc is the padded incidence of ``gather_sum``;
+    inc_ptr, inc_pos the same as int32 offsets and positions, which the
+    kernel's node pass reads; kernel_shape whether the card applies it by
+    the kernel."""
 
     def __init__(self, cells, constrained, diag, op_diag, K, V, D):
         super().__init__()
@@ -46,8 +76,13 @@ class SumFactoredOperator(nn.Module):
                         ("diag", diag), ("op_diag", op_diag), ("K", K),
                         ("V", V), ("D", D)):
             self.register_buffer(name, t)
-        self.register_buffer("inc", incidence(cells.cpu().numpy(),
-                                              diag.shape[0]).to(cells.device))
+        inc = incidence(cells.cpu().numpy(), diag.shape[0])
+        ptr, pos = incidence_csr(inc, cells.numel())
+        for name, t in (("inc", inc), ("inc_ptr", ptr), ("inc_pos", pos)):
+            self.register_buffer(name, t.to(cells.device))
+        # 3-D with (n1, nq1) in KERNEL_SHAPES: the card applies it by the kernel
+        self.kernel_shape = (K.shape[-1] == 3
+                             and (V.shape[1], V.shape[0]) in KERNEL_SHAPES)
 
     @property
     def shape(self):
@@ -55,8 +90,14 @@ class SumFactoredOperator(nn.Module):
         return (n, n)
 
     def forward(self, u):
+        """y = A u: on a CUDA tensor, where ``kernel_shape`` holds (3-D,
+        Q1-Q3), ``sumfac_apply_cuda``; on the CPU, and on the card for a
+        2-D operator or degree 4 and up, the batched matmuls of
+        ``sumfac_apply``."""
         APPLIES["sumfac"] += 1
         with span("sumfac.apply"):
+            if u.get_device() >= 0 and self.kernel_shape:
+                return sumfac_apply_cuda(self, u)
             return sumfac_apply(self, u)
 
 
@@ -96,6 +137,72 @@ def sumfac_apply(op: SumFactoredOperator, u: torch.Tensor) -> torch.Tensor:
         y_loc = y_loc + w
     y = gather_sum(y_loc.reshape(-1), op.inc)
     return torch.where(op.constrained, op.diag * u, y)
+
+
+# the buffers the kernel reads, in the order of its C interface, with their
+# types ("T": u's type)
+_KERNEL_BUFFERS = (("constrained", torch.bool), ("diag", "T"), ("K", "T"),
+                   ("cells", torch.int64), ("V", "T"), ("D", "T"),
+                   ("inc_ptr", torch.int32), ("inc_pos", torch.int32))
+# per operator, its buffers as last checked for the kernel: (device, type,
+# weak references to the buffers, the kernel's fixed arguments)
+_CHECKED = weakref.WeakKeyDictionary()
+
+
+def _check_buffers(op: SumFactoredOperator, dev: int, dt: torch.dtype):
+    bufs = op._buffers
+    for name, want in _KERNEL_BUFFERS:
+        want = dt if want == "T" else want
+        t = bufs[name]
+        if t.dtype is not want or t.get_device() != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor on the "
+                             f"device of u (cuda:{dev}), got {t.dtype} on "
+                             f"{t.device}{'' if t.is_contiguous() else ', strided'}")
+    V = bufs["V"]
+    ptrs = tuple(bufs[k].data_ptr() for k, _ in _KERNEL_BUFFERS)
+    refs = tuple((k, weakref.ref(bufs[k])) for k, _ in _KERNEL_BUFFERS)
+    return dev, dt, refs, (int(dt is torch.float64), V.shape[1], V.shape[0]), ptrs
+
+
+def sumfac_apply_cuda(op: SumFactoredOperator, u: torch.Tensor) -> torch.Tensor:
+    """y = A u by csrc/sumfac_apply.cu: one call, a cell pass and a node
+    pass over the stored buffers.  Takes float32 or float64 u, diag, K, V
+    and D of one type, int64 cells, bool flags and int32 incidence, all
+    contiguous on u's device, and a 1-D u of n_dofs entries; raises
+    ValueError on anything else.
+
+    The solve applies the operator ~100 times, so the host's work per call
+    is kept short, as in ``sparse.ell_spmv``: devices compared as indices,
+    the raw current stream, no device switch when the card is the current
+    one; and the operator's buffers are checked once and their pointers
+    kept while they stay the same tensors (``_CHECKED``)."""
+    dev = u.get_device()
+    dt = u.dtype
+    n = op.diag.shape[0]
+    if dt is not torch.float32 and dt is not torch.float64:
+        raise ValueError(f"the sumfac kernel takes float32 or float64, got {dt}")
+    if u.dim() != 1 or u.shape[0] != n:
+        raise ValueError(f"u must be 1-D of {n} entries, got {tuple(u.shape)}")
+    c = _CHECKED.get(op)
+    bufs = op._buffers
+    if (c is None or c[0] != dev or c[1] is not dt
+            or any(r() is not bufs[k] for k, r in c[2])):
+        c = _CHECKED[op] = _check_buffers(op, dev, dt)
+    n_cells, n_loc = bufs["cells"].shape
+    u = u.contiguous()
+    y = torch.empty(n, dtype=dt, device=u.device)
+    y_loc = torch.empty(n_cells * n_loc, dtype=dt, device=u.device)
+    args = (*c[3], u.data_ptr(), *c[4], y_loc.data_ptr(), y.data_ptr(), n,
+            n_cells, torch._C._cuda_getCurrentRawStream(dev))
+    lib = stencil_kernels._library()
+    if dev == torch.cuda.current_device():
+        err = lib.mfmg_sumfac_apply(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mfmg_sumfac_apply(*args)
+    stencil_kernels._raise_on(err, "sumfac_apply")
+    LAUNCHES["sumfac"] += 1
+    return y
 
 
 def build_sumfac_operator(mesh, coeff_at_q: np.ndarray, diag_raw: np.ndarray,

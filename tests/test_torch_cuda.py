@@ -23,7 +23,10 @@ PCG counts equal, the float64 V-cycle rate within 1e-6.  The matrix-free
 and sum-factorized applies repeat their bits, and the float32
 sum-factorized apply of the benchmark's Q2 cell (65^3) meets the plain
 reference's float64 operator (portbench/reference/hyper_cube_q2.py)
-within SUMFAC_F32_TOL; the multicolor colorings are
+within SUMFAC_F32_TOL; the sumfac kernel (csrc/sumfac_apply.cu) meets the
+plain body at Q1-Q3 in float32 and float64 (SUMFAC_KERNEL_TOL), once an
+apply (96 a solve of the Q2 cell, none through a Q1 stencil solve), with
+its refusals, and 2-D or degree-4 operators launch nothing; the multicolor colorings are
 proper on the card; the MF-Chebyshev golden (four operators), the
 lexicographic GS golden, ILU(0) and multicolor SGS hold in float64 on the
 card, each rate equal to the CPU port's within 1e-10.  The ELL kernel
@@ -1106,6 +1109,112 @@ def test_sumfac_apply_at_65_cubed_against_the_reference(cuda):
     y_ref = ref.to_program(ref.op.apply(ref.to_ref(x.double())))
     err = float((y.double() - y_ref).abs().max() / y_ref.abs().max())
     assert err <= SUMFAC_F32_TOL, err
+
+
+# the sumfac kernel against the plain body on the card, x max|y|: the same
+# products summed in another order (the kernel shares the 1-D passes of the
+# three gradients, sums two of them before the last backward pass, and
+# adds each dof's cell entries in order; the plain body leaves the order to
+# cuBLAS and torch.sum); float32 as SUMFAC_F32_TOL, float64 as the card
+# against the CPU in test_matrix_free_applies_repeat_their_bits
+SUMFAC_KERNEL_TOL = {torch.float32: SUMFAC_F32_TOL, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sumfac_kernel_matches_plain(cuda, degree, dtype):
+    """csrc/sumfac_apply.cu at Q1-Q3 on a small cube ("linear" material,
+    distorted at Q1/Q2 as the reference distorts, so K changes from point to
+    point), against sumfac_apply on the same card buffers: one launch an
+    apply, diag * u bit for bit at the constrained rows, the rest within
+    SUMFAC_KERNEL_TOL, two applies bit-equal."""
+    from mfmg_torch.ops.sumfac import sumfac_apply
+    p = LaplaceProblem.hyper_cube(3, 3 if degree < 3 else 2, degree=degree,
+                                  material_property="linear",
+                                  distort_random=degree < 3)
+    op = p.matrix_free_operator(dtype=dtype, mode="sumfac", device=cuda)
+    assert op.kernel_shape and float(op.K.std(dim=0).max()) > 0
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        p.n_dofs)).to(cuda, dtype)
+    tk.reset_launch_counts()
+    y, again = op(x), op(x)
+    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 2
+    ref = sumfac_apply(op, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    con = op.constrained
+    assert con.any() and torch.equal(y[con], ref[con])
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= SUMFAC_KERNEL_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dim,degree", [(2, 2), (3, 4)])
+def test_sumfac_plain_body_on_other_shapes(cuda, dim, degree):
+    """A 2-D or a degree-4 operator on the card takes the batched matmuls:
+    no launch, one apply, the CPU's result within float64 roundoff."""
+    p = LaplaceProblem.hyper_cube(dim, 2 if dim == 2 else 1, degree=degree,
+                                  material_property="linear")
+    op = p.matrix_free_operator(mode="sumfac", device=cuda)
+    assert not op.kernel_shape
+    x = np.random.default_rng(20).standard_normal(p.n_dofs)
+    tk.reset_launch_counts()
+    y = op(torch.from_numpy(x).to(cuda)).cpu()
+    assert tk.LAUNCHES["sumfac"] == 0 and tk.APPLIES["sumfac"] == 1
+    y_cpu = p.matrix_free_operator(mode="sumfac", device="cpu")(torch.from_numpy(x))
+    assert float((y - y_cpu).abs().max()) <= 1e-12 * float(y_cpu.abs().max())
+
+
+@pytest.mark.parametrize("what", ["u of another type", "int32 cells",
+                                  "K on the host", "strided K", "u 2-D"])
+def test_sumfac_kernel_refuses(cuda, what):
+    p = LaplaceProblem.hyper_cube(3, 2, degree=2, material_property="linear")
+    op = p.matrix_free_operator(dtype=torch.float32, mode="sumfac", device=cuda)
+    x = torch.zeros(p.n_dofs, device=cuda)
+    if what == "u of another type":
+        x = x.double()
+    elif what == "int32 cells":
+        op.cells = op.cells.int()
+    elif what == "K on the host":
+        op.K = op.K.cpu()
+    elif what == "strided K":
+        op.K = op.K.transpose(-1, -2)
+    else:
+        x = x[:, None]
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError):
+        op(x)
+    assert tk.LAUNCHES["sumfac"] == 0
+
+
+def test_sumfac_kernel_once_per_apply_through_a_q2_solve(cuda):
+    """The benchmark's Q2 cell (portbench/configs/cube_q2_sumfac.json, 65^3
+    nodes): one solve of 15 PCG iterations makes 96 applies of the fine
+    operator, (15 + 1) x (1 outer + 5 in a V-cycle), each one call of the
+    kernel."""
+    import json
+    from pathlib import Path
+
+    from portbench.system import build_problem, program_config
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "portbench" /
+                      "configs" / "cube_q2_sumfac.json").read_text())
+    p = build_problem(cfg, cfg["laplace"]["n_refinements"])
+    h = Hierarchy(p, program_config(cfg))
+    b = np.random.default_rng(0).uniform(size=p.n_dofs).astype(np.float32)
+    b[p.constrained] = 0.0
+    tk.reset_launch_counts()
+    _, info = h.solve_cg(b, tol=cfg["solver"]["tolerance"], maxiter=50)
+    assert info["iterations"] == 15
+    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 96
+
+
+def test_sumfac_kernel_launches_nothing_through_a_q1_stencil_solve(cuda):
+    p = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
+    h = Hierarchy(p, _main_config())
+    b = np.random.default_rng(0).uniform(size=p.n_dofs).astype(np.float32)
+    tk.reset_launch_counts()
+    _, info = h.solve_cg(b, tol=1e-5, maxiter=50)
+    assert info["iterations"] > 0 and tk.LAUNCHES["stencil_apply_sym"] > 0
+    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 0
 
 
 def test_multicolor_colors_on_the_card(cuda):

@@ -108,6 +108,30 @@ def test_sumfac_equals_assembled_and_reference(dim, degree):
                                rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("case", ["Q1 3-D", "Q2 3-D", "Q3 2-D", "skipped"])
+def test_incidence_csr_equals_incidence(case):
+    """The int32 offsets and positions that the sumfac kernel's node pass
+    reads list each row of ``incidence`` in its order, padding left out;
+    the operator holds them beside the padded table."""
+    from mfmg_torch.ops.sumfac import incidence_csr
+    if case == "skipped":
+        index = np.random.default_rng(5).integers(-1, 40, 300)
+        n = 45
+    else:
+        dim, degree = {"Q1 3-D": (3, 1), "Q2 3-D": (3, 2), "Q3 2-D": (2, 3)}[case]
+        tp = TLaplace.hyper_cube(dim, 2, degree=degree)
+        op = tp.matrix_free_operator(mode="sumfac", device="cpu")
+        index, n = tp.mesh.cells.reshape(-1), tp.n_dofs
+    inc = incidence(index, n)
+    ptr, pos = incidence_csr(inc, index.size)
+    assert ptr.dtype == pos.dtype == torch.int32 and ptr.shape == (n + 1,)
+    rows = [pos[ptr[t]:ptr[t + 1]].tolist() for t in range(n)]
+    assert rows == [[p for p in r if p < index.size] for r in inc.tolist()]
+    assert rows == [np.nonzero(index == t)[0].tolist() for t in range(n)]
+    if case != "skipped":
+        assert torch.equal(op.inc_ptr, ptr) and torch.equal(op.inc_pos, pos)
+
+
 @pytest.mark.parametrize("dim,n_ref", [(2, 3), (3, 1)])
 def test_matrix_free_on_hanging_mesh(dim, n_ref):
     """C^T A C cell-wise against the assembled condensed matrix and
