@@ -647,21 +647,21 @@ def ell_modules(hier):
             for name, m in lv.named_modules() if isinstance(m, ELLMatrix)}
 
 
-def per_vcycle_launches(hier, bd, tk):
+def per_vcycle_launches(hier, bd, cl):
     """Kernel launches and ELL applies (forward hooks, by module) of one
     V-cycle, counts set to 0 just before it."""
     applies = {}
     hooks = [m.register_forward_hook(
         lambda mod, inp, out, k=k: applies.__setitem__(k, applies.get(k, 0) + 1))
         for k, m in ell_modules(hier).items()]
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     try:
         hier.vmult(bd)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    return {k: v for k, v in tk.LAUNCHES.items() if v}, applies
+    return {k: v for k, v in cl.LAUNCHES.items() if v}, applies
 
 
 def ell_vs_csr(name, ell, rng, variants):
@@ -672,7 +672,7 @@ def ell_vs_csr(name, ell, rng, variants):
     library_ms), profiler device ms of the kernel and the matvec, and the
     kernel's bound (the values and columns as stored, x and y once)."""
     from mfmg_torch.ops.sparse import ell_spmv_plain
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     dev, dt = ell.vals.device, ell.vals.dtype
     x = torch.from_numpy(rng.standard_normal(ell.shape[1])).to(dev, dt)
     keep = ell.vals != 0
@@ -680,9 +680,9 @@ def ell_vs_csr(name, ell, rng, variants):
     A = torch.sparse_coo_tensor(
         torch.stack([rows[keep], ell.cols[keep].long()]), ell.vals[keep],
         ell.shape).coalesce().to_sparse_csr()
-    n0 = tk.LAUNCHES["ell_spmv"]
+    n0 = cl.LAUNCHES["ell_spmv"]
     y, again = ell(x), ell(x)
-    check(tk.LAUNCHES["ell_spmv"] == n0 + 2, f"ELL {name}: not one launch an apply")
+    check(cl.LAUNCHES["ell_spmv"] == n0 + 2, f"ELL {name}: not one launch an apply")
     yp, yl = ell_spmv_plain(ell.vals, ell.cols, x), torch.mv(A, x)
     torch.cuda.synchronize()
     err = float((y - yp).abs().max())
@@ -730,7 +730,7 @@ def unstructured_rhs(prob):
     return b
 
 
-def run_unstructured(label, build_mesh, cfg, tk, variants=None):
+def run_unstructured(label, build_mesh, cfg, cl, variants=None):
     """One unstructured path of phase 10 through Hierarchy and solve_cg, the
     counts set to 0 just before and read just after: the mesh and problem
     (the caller's), setup (host route; stages, peak host RSS and device
@@ -750,7 +750,7 @@ def run_unstructured(label, build_mesh, cfg, tk, variants=None):
     print(f"{label}: mesh {mesh_s:.2f} s ({mesh.n_cells} cells, {mesh.n_nodes} "
           f"dofs, {n_hang} hanging), problem {problem_s:.2f} s", flush=True)
     config = unstructured_config(cfg, mesh)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -765,7 +765,7 @@ def run_unstructured(label, build_mesh, cfg, tk, variants=None):
     xs, info = hier.solve_cg(b, tol=PCG_TOL, maxiter=PCG_MAX)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cl.LAUNCHES.items() if v}
     sizes = [lv.op.shape[0] for lv in hier.levels]
     batch = hier._level0_eigendata[0]
     agg_sizes = [int(batch.sizes.min()), int(batch.sizes.max())]
@@ -804,7 +804,7 @@ def run_unstructured(label, build_mesh, cfg, tk, variants=None):
     check(set(launches) == {"ell_spmv"}, f"{label}: launched {launches} on "
           f"the ELL path, not the ELL kernel alone")
     bd = torch.from_numpy(b).to("cuda")
-    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, cl)
     check(cycle_launches == {"ell_spmv": sum(cycle_ell.values())}
           and cycle_ell.get("L0.op", 0) > 0,
           f"{label}: one V-cycle launched {cycle_launches}, applied {cycle_ell}")
@@ -855,20 +855,20 @@ def ball_rate_check(cfg):
     return dict(n_dofs=prob.n_dofs, rate_gpu=rates["cuda"], rate_cpu=rates["cpu"])
 
 
-def unstructured_phase(cfg, tk, variants):
+def unstructured_phase(cfg, cl, variants):
     """Phase 10: (a) hyper_ball(3, N_REF_BALL) with the 4x4x4 block walk
     (its fine operator's apply timed into ``variants``) and the float64
     rate check at N_REF_BALL_RATE; (b) adaptive_cube(3, N_REF_ADAPTIVE, x,
     y, z < 0.5) with RCB parts."""
     from mfmg_torch.fem.adaptive import adaptive_cube
     from mfmg_torch.fem.mesh import hyper_ball
-    ball = run_unstructured("ball", lambda: hyper_ball(3, N_REF_BALL), cfg, tk,
+    ball = run_unstructured("ball", lambda: hyper_ball(3, N_REF_BALL), cfg, cl,
                             variants)
     ball["rate_check"] = ball_rate_check(cfg)
     adaptive = run_unstructured(
         "adaptive", lambda: adaptive_cube(3, N_REF_ADAPTIVE,
                                           lambda c: np.all(c < 0.5, axis=1)),
-        cfg, tk)
+        cfg, cl)
     return ball, adaptive
 
 
@@ -886,7 +886,7 @@ def new_path_config(cfg, operator="stencil", smoother=None, mesh=None):
     return c
 
 
-def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
+def run_new_path(label, prob, config, route, cl, kernels=(), ref=None):
     """One path of phase 11 through Hierarchy and solve_cg, the counts set
     to 0 just before and read just after: levels, setup stages, the PCG
     count and the true relres in float64 against the reference's
@@ -898,7 +898,7 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     on a hanging mesh)."""
     from mfmg_torch import Hierarchy
     ref = ref or NEW_PATHS_REF[label]
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -914,7 +914,7 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     xs, info = hier.solve_cg(b, tol=PCG_TOL, maxiter=PCG_MAX)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cl.LAUNCHES.items() if v}
     sizes = [lv.op.shape[0] for lv in hier.levels]
     types = [f"{type(lv.op).__name__}/{type(lv.smoother).__name__}"
              for lv in hier.levels]
@@ -954,7 +954,7 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     check(set(launches) - {"ell_spmv"} == set(kernels), f"{label}: launched "
           f"{launches}, wanted each of {kernels} and no other")
     bd = torch.from_numpy(b).to("cuda")
-    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+    cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, cl)
     ms = [median_ms(lambda: hier.vmult(bd), n=10, batch=2) for _ in range(2)]
     dev_ms, dev_top, _ = device_ms_per_cycle(hier, bd, n=5)
     idle = 1.0 - dev_ms / float(np.mean(ms))
@@ -979,6 +979,23 @@ def run_new_path(label, prob, config, route, tk, kernels=(), ref=None):
     return hier, summary
 
 
+def spans_and_launches(fn, cl):
+    """fn() with tracing on and the launch counts reset: the spans it
+    opened and the kernels it launched, each counted by name."""
+    from mfmg_torch.utils import trace
+    cl.reset_launch_counts()
+    trace.take()
+    trace.enable(profiler_ranges=False)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    spans = trace.counts()
+    trace.take()
+    return spans, {k: v for k, v in cl.LAUNCHES.items() if v}
+
+
 def apply_timing(name, op, x, work):
     """An operator's apply on the card: two applies' bits, the median time
     in CUDA events and the profiler's device time per apply, against the
@@ -996,7 +1013,7 @@ def apply_timing(name, op, x, work):
     return y1, r
 
 
-def new_paths_phase(cfg, tk, save_for_spmd):
+def new_paths_phase(cfg, cl, save_for_spmd):
     """Phase 11: the reference's other operators and smoothers on the card.
     (a) operator="matrix_free" on Q1 65^3 (identity mode, host route) with
     its apply against its bound, the ELL apply and K1 of the same problem;
@@ -1019,7 +1036,7 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     # (a) matrix-free Q1 65^3
     prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
     hier, out["matrix_free 65^3"] = run_new_path(
-        "matrix_free 65^3", prob, new_path_config(cfg, "matrix_free"), "host", tk)
+        "matrix_free 65^3", prob, new_path_config(cfg, "matrix_free"), "host", cl)
     check(not out["matrix_free 65^3"]["fine_matrix_assembled_in_setup"],
           "matrix_free 65^3: setup assembled the fine matrix")
     save_for_spmd("65^3 matrix_free", hier)
@@ -1050,11 +1067,15 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     prob = LaplaceProblem.hyper_cube(3, N_REF_Q2, degree=2,
                                      material_property="linear")
     hier, out["sumfac Q2 65^3"] = run_new_path(
-        "sumfac Q2 65^3", prob, new_path_config(cfg, "sumfac"), "host", tk,
+        "sumfac Q2 65^3", prob, new_path_config(cfg, "sumfac"), "host", cl,
         kernels=("sumfac",))
-    check(tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"],
-          f"sumfac: {tk.LAUNCHES['sumfac']} kernel calls for "
-          f"{tk.APPLIES['sumfac']} applies")
+    b = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=prob.n_dofs).astype(np.float32)).to("cuda")
+    spans, launches = spans_and_launches(
+        lambda: hier.solve_cg(b, tol=PCG_TOL, maxiter=PCG_MAX), cl)
+    check(launches.get("sumfac", 0) == spans.get("sumfac.apply", 0) > 0,
+          f"sumfac: {launches.get('sumfac', 0)} kernel calls for "
+          f"{spans.get('sumfac.apply', 0)} applies in a solve")
     op = hier.levels[0].op
     n_cells, n_q = op.K.shape[:2]
     n1, nq1 = op.V.shape[1], op.V.shape[0]
@@ -1066,10 +1087,10 @@ def new_paths_phase(cfg, tk, save_for_spmd):
         prob.n_dofs)).to("cuda", torch.float32)
     # bytes as portbench/work_mf.py counts them: K and the cells, u, y and
     # the diagonal in float32 and a flag byte a dof
-    tk.reset_launch_counts()
     y_sf, r_sf = apply_timing("sumfac", op, x, (
         nbytes(op.K, op.cells) + 13 * prob.n_dofs, flops))
-    check(tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] > 0,
+    spans, launches = spans_and_launches(lambda: op(x), cl)
+    check(launches == {"sumfac": 1} and spans == {"sumfac.apply": 1},
           "sumfac: not one kernel call an apply")
     check(r_sf["same_bits"], "sumfac: two applies differ")
     # the kernel against the plain body (ops/sumfac.py sumfac_apply) on the
@@ -1090,7 +1111,7 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     prob = LaplaceProblem.from_mesh(mesh, "linear")
     hier, out["matrix_free adaptive"] = run_new_path(
         "matrix_free adaptive", prob,
-        new_path_config(cfg, "matrix_free", mesh=mesh), "host", tk)
+        new_path_config(cfg, "matrix_free", mesh=mesh), "host", cl)
     x = torch.from_numpy(np.random.default_rng(23).standard_normal(
         prob.n_dofs)).to("cuda", torch.float32)
     op = hier.levels[0].op
@@ -1106,7 +1127,7 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     prob = LaplaceProblem.hyper_cube(3, N_REF, material_property="linear")
     hier, out["sgs stencil 65^3"] = run_new_path(
         "sgs stencil 65^3", prob, new_path_config(cfg, smoother=sgs), "host",
-        tk, kernels=("stencil_apply_sym", "structured_restrict",
+        cl, kernels=("stencil_apply_sym", "structured_restrict",
                      "structured_prolong"))
     s = out["sgs stencil 65^3"]
     n_cyc = s["pcg_iterations"] + 1
@@ -1119,7 +1140,7 @@ def new_paths_phase(cfg, tk, save_for_spmd):
     del hier
     hier, out["sgs ell 65^3"] = run_new_path(
         "sgs ell 65^3", prob, new_path_config(cfg, "ell", smoother=sgs),
-        "host", tk)
+        "host", cl)
     del hier, prob
 
     # (e) lexicographic GS and ILU(0), float64, on the card
@@ -1192,13 +1213,13 @@ def slice_config(cfg, eigensolver=None, coarse=None):
     return c
 
 
-def vcycle_bits_and_launches(hier, bd, tk):
+def vcycle_bits_and_launches(hier, bd, cl):
     """One V-cycle's output and its kernel launches (counts set to 0 just
     before)."""
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     y = hier.vmult(bd)
     torch.cuda.synchronize()
-    return y, {k: v for k, v in tk.LAUNCHES.items() if v}
+    return y, {k: v for k, v in cl.LAUNCHES.items() if v}
 
 
 def run_driver(args, timeout=600):
@@ -1228,7 +1249,7 @@ def run_driver(args, timeout=600):
     return got, wall, out
 
 
-def slice_phase(cfg, tk):
+def slice_phase(cfg, cl):
     """Phase 12: the eigensolvers, the coarse solvers and the command line
     on the card, each the main configuration at 65^3 with one change,
     through Hierarchy and solve_cg (run_new_path, the counts set to 0 just
@@ -1263,7 +1284,7 @@ def slice_phase(cfg, tk):
                       ("coarse amg", dict(coarse="amg")),
                       ("coarse ml", dict(coarse="ml"))):
         tail = "eigensolver" in kw
-        hier, s = run_new_path(label, prob, slice_config(cfg, **kw), "host", tk,
+        hier, s = run_new_path(label, prob, slice_config(cfg, **kw), "host", cl,
                                kernels=tail_kernels if tail else generic_kernels,
                                ref=SLICE_REF[label])
         per = s["launches_per_vcycle"]
@@ -1293,8 +1314,8 @@ def slice_phase(cfg, tk):
         loaded = Hierarchy.load(path, prob)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        y0, l0 = vcycle_bits_and_launches(hier_a, bd, tk)
-        y1, l1 = vcycle_bits_and_launches(loaded, bd, tk)
+        y0, l0 = vcycle_bits_and_launches(hier_a, bd, cl)
+        y1, l1 = vcycle_bits_and_launches(loaded, bd, cl)
         same = bool(torch.equal(y0, y1))
         out["save/load"] = dict(file_bytes=os.path.getsize(path), save_s=save_s,
                                 load_s=load_s, bit_equal=same, launches_saved=l0,
@@ -1330,7 +1351,7 @@ def slice_phase(cfg, tk):
               f"driver: true relres {solve['true_relres']:.3e} > twice the "
               f"reference's {ref['true_relres']:.3e}")
         dh = Hierarchy.load(hpath, prob)
-        _, per = vcycle_bits_and_launches(dh, bd, tk)
+        _, per = vcycle_bits_and_launches(dh, bd, cl)
         ms = [median_ms(lambda: dh.vmult(bd), n=10, batch=2) for _ in range(2)]
         dev_ms, dev_top, _ = device_ms_per_cycle(dh, bd, n=5)
         idle = 1.0 - dev_ms / float(np.mean(ms))
@@ -1395,7 +1416,7 @@ def spmd_cycle_job(mesh, job):
     before and read just after, its gathered output (rank 0), then the ms
     per V-cycle (CUDA events; SPMD_REPEATS medians of SPMD_BATCH cycles)."""
     from mfmg_torch import Hierarchy
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.parallel.spmd import build_spmd_vcycle
     t0 = time.perf_counter()
     sv = build_spmd_vcycle(Hierarchy.load(job["path"], device="cpu"), mesh,
@@ -1404,11 +1425,11 @@ def spmd_cycle_job(mesh, job):
     build_s = time.perf_counter() - t0
     bg, xg = sv.to_grid(job["b"]), sv.to_grid(job["x"])
     torch.cuda.synchronize()
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     mesh.reset_stats()
     y = sv.fn(bg, xg)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cl.LAUNCHES.items() if v}
     stats = dict(mesh.stats)
     out = sv.from_grid(y).cpu().numpy()
     return dict(out=out if mesh.rank == 0 else None, launches=launches,
@@ -1425,7 +1446,7 @@ def spmd_rows_job(mesh, job):
     after, its gathered output (rank 0), then the ms per V-cycle."""
     from mfmg_torch import Hierarchy
     from mfmg_torch.amge.hierarchy import vcycle
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.parallel.sharding import (gather_vector, shard_hierarchy,
                                               shard_vector, unpad_vector)
     t0 = time.perf_counter()
@@ -1438,11 +1459,11 @@ def spmd_rows_job(mesh, job):
     def cycle():
         return vcycle(levels, b, x, n_smoothing_steps=h.config.smoother.n_smoothing_steps,
                       is_preconditioner=False, cycle_type=h.config.cycle_type)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     mesh.reset_stats()
     y = cycle()
     torch.cuda.synchronize()
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cl.LAUNCHES.items() if v}
     stats = dict(mesh.stats)
     check(y.is_cuda, "the row-sharded V-cycle ran off the card")
     out = unpad_vector(gather_vector(mesh, y), len(job["b"])).cpu().numpy()
@@ -1686,6 +1707,7 @@ def main():
     from mfmg_torch import Hierarchy, LaplaceProblem, native
     from mfmg_torch.amge.hierarchy import LevelData
     from mfmg_torch.eigen import device_eig
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.ops import fused_cycle as fc
     from mfmg_torch.ops import stencil as st
     from mfmg_torch.ops import stencil_kernels as tk
@@ -1909,7 +1931,7 @@ def main():
                     op.grid_shape, fsm.degree, want_res)
             form = tk.k2_form(tuple(op.pos_offsets), fsm.degree, want_res,
                               tuple(op.grid_shape))
-            both = tk._blocked_takes(tuple(op.pos_offsets), fsm.degree)
+            both = tk.blocked_takes(tuple(op.pos_offsets), fsm.degree)
             forms = (form, "chain" if form == "blocked" else "blocked") if both \
                 else (form,)
             ref = tk.cheb_smooth_plain(*args)
@@ -1918,7 +1940,7 @@ def main():
             v = dict(form=form, max_abs_err=0.0)
             msg = f"K2 {tag} res={want_res}:"
             for f in forms:
-                got = tk.cheb_smooth(*args) if f == form else tk._cheb_smooth(f, *args)
+                got = tk.cheb_smooth(*args) if f == form else tk.cheb_smooth_as(f, *args)
                 torch.cuda.synchronize()
                 ex = rel2(got[0], ref[0])
                 err = float((got[0] - ref[0]).abs().max())
@@ -1939,7 +1961,7 @@ def main():
             if both:
                 t = {"blocked": [], "chain": []}
                 for f in ("blocked", "chain", "chain", "blocked"):
-                    t[f].append(median_ms(lambda: tk._cheb_smooth(f, *args)))
+                    t[f].append(median_ms(lambda: tk.cheb_smooth_as(f, *args)))
                 for f in t:
                     v.update({f"{f}_ms": float(np.mean(t[f])), f"{f}_ms_turns": t[f]})
                 v["ms"] = v[f"{form}_ms"]
@@ -1983,7 +2005,7 @@ def main():
 
         def _run(self, op, b, x, want_res):
             f = self.fsm
-            return tk._cheb_smooth(self.form, op.planes, x, b, f.inv_diag, f.coef,
+            return tk.cheb_smooth_as(self.form, op.planes, x, b, f.inv_diag, f.coef,
                                    op.pos_offsets, op.grid_shape, f.degree,
                                    want_res)
 
@@ -2052,7 +2074,7 @@ def main():
         have taken ("device" or "host"); config: the Config (the main
         configuration at max_levels if None); extras: also the PCG counts
         with other smoothers and tails, and K2's forms in turns."""
-        tk.reset_launch_counts()
+        cl.reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2071,7 +2093,7 @@ def main():
         xs, info = hier.solve_cg(bh, tol=PCG_TOL, maxiter=PCG_MAX)
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
-        launches = dict(tk.LAUNCHES)
+        launches = dict(cl.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         sizes = [lv.op.shape[0] for lv in hier.levels]
         types = [f"{type(lv.op).__name__}/{type(lv.transfer).__name__}"
@@ -2143,7 +2165,7 @@ def main():
               f"ELL kernel launched {launches['ell_spmv']} times without ELL")
         # same-call A/B: the tail and the generic recursion, in turns
         bd = torch.from_numpy(bh).to(dev)
-        cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, tk)
+        cycle_launches, cycle_ell = per_vcycle_launches(hier, bd, cl)
         check(cycle_launches.get("ell_spmv", 0) == sum(cycle_ell.values()),
               f"{label}: one V-cycle launched the ELL kernel "
               f"{cycle_launches.get('ell_spmv', 0)} times for ELL applies {cycle_ell}")
@@ -2175,7 +2197,7 @@ def main():
             pcg["tail_plain_smoother"] = hier.solve_cg(bh, tol=PCG_TOL,
                                                        maxiter=PCG_MAX)[1]
             hier.levels[0].smoother = fsm
-            if tk._blocked_takes(tuple(op0.pos_offsets), fsm.degree):
+            if tk.blocked_takes(tuple(op0.pos_offsets), fsm.degree):
                 # the V-cycle (with the tail where there is one) with K2 as
                 # its rule routes it and with either form for every call, in
                 # turns, wall and device time
@@ -2236,9 +2258,9 @@ def main():
         t0 = time.perf_counter()
         with ThreadPoolExecutor(1) as pool:
             host_build = pool.submit(native.build_host_library)
-            path, log = tk.build_library()
+            path, log = cl.build_library()
             host_path = host_build.result()
-        tk._library()
+        cl.library()
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}; host "
               f"library {host_path}, {native.host_threads()} threads per call "
               f"(affinity {len(os.sched_getaffinity(0))} cores, os.cpu_count() "
@@ -2733,15 +2755,15 @@ def main():
 
     # ---- 10. unstructured meshes: the ball and the adaptive cube --------
     with Phase("10 unstructured meshes: hyper_ball, adaptive_cube"):
-        summary_ball, summary_adaptive = unstructured_phase(cfg, tk, variants)
+        summary_ball, summary_adaptive = unstructured_phase(cfg, cl, variants)
 
     # ---- 11. the other operators and smoothers -----------------------------
     with Phase("11 matrix-free and sum-factorized operators, Gauss-Seidel, ILU"):
-        summary_new = new_paths_phase(cfg, tk, save_for_spmd)
+        summary_new = new_paths_phase(cfg, cl, save_for_spmd)
 
     # ---- 12. the eigensolvers, the coarse solvers and the driver ----------
     with Phase("12 eigensolvers, coarse solvers and the driver"):
-        summary_slice = slice_phase(cfg, tk)
+        summary_slice = slice_phase(cfg, cl)
 
     # ---- 13. the sharded V-cycle and the distributed setup -------------------
     with Phase("13 sharded V-cycle, distributed setup, --spmd"):

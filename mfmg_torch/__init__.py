@@ -5,8 +5,8 @@ A second package beside ``mfmg_tpu`` (the JAX reference).  It imports
 reference; the apply path is PyTorch, and the reference's Pallas kernels on
 the main path (the fine-grid stencil apply and Chebyshev step, the fused
 coarse tail) are hand-written CUDA for Hopper (``sm_90a``) in ``csrc/``,
-built with ``nvcc`` at first use and bound with ctypes
-(``ops/stencil_kernels.py``, ``ops/fused_cycle.py``).
+built with ``nvcc`` at first use, bound with ctypes and launched by
+``ops/cuda_library.py``.
 
     from mfmg_torch import Config, LaplaceProblem, Hierarchy
     problem = LaplaceProblem.hyper_cube(dim=3, n_refinements=6,

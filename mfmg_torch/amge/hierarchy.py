@@ -80,14 +80,6 @@ class LevelData(nn.Module):
                                           # one kernel launch (level 0 only)
 
 
-def _vcycle(levels, b, x, level, n_smoothing_steps, is_preconditioner,
-            cycle_type="v"):
-    """Recursive multigrid cycle (hierarchy.hpp:246-309)."""
-    if level == 0 and is_preconditioner:
-        x = torch.zeros_like(b)
-    return _cycle(levels, b, x, level, n_smoothing_steps, cycle_type)
-
-
 _LEVEL_SPANS = {}
 
 
@@ -155,9 +147,12 @@ def _cycle(levels, b, x, level, n_smoothing_steps, cycle_type):
 
 def vcycle(levels, b, x, n_smoothing_steps=1, is_preconditioner=True,
            cycle_type="v"):
+    """One multigrid cycle on A x = b from x (hierarchy.hpp:246-309); a
+    preconditioner's starts from zero, whatever x."""
     with span("vcycle"):
-        return _vcycle(levels, b, x, 0, n_smoothing_steps, is_preconditioner,
-                       cycle_type)
+        if is_preconditioner:
+            x = torch.zeros_like(b)
+        return _cycle(levels, b, x, 0, n_smoothing_steps, cycle_type)
 
 
 EIGENSOLVERS = ("lapack", "lanczos", "anasazi", "arpack")
@@ -683,25 +678,23 @@ class Hierarchy:
     def vmult(self, b):
         """Preconditioner application x = M^{-1} b (hierarchy.hpp:238-244)."""
         with request("vmult"):
-            b = self._vector(b)
-            return vcycle(self.levels, b, torch.zeros_like(b),
-                          n_smoothing_steps=self.config.smoother.n_smoothing_steps,
-                          is_preconditioner=True,
-                          cycle_type=self.config.cycle_type)
+            return self._precondition(self._vector(b))
 
     def solve_cg(self, b, tol=1e-12, maxiter=1000):
         """Hierarchy-preconditioned CG (analog of laplace.hpp:206-219).
         Returns (x tensor, {"iterations": int, "relres": float})."""
-        nss = self.config.smoother.n_smoothing_steps
-
-        def precond(r):
-            return vcycle(self.levels, r, torch.zeros_like(r),
-                          n_smoothing_steps=nss, is_preconditioner=True,
-                          cycle_type=self.config.cycle_type)
-
         with request("solve"):
             return cg_solve(self._exact_fine_op(), self._vector(b),
-                            preconditioner=precond, tol=tol, maxiter=maxiter)
+                            preconditioner=self._precondition, tol=tol,
+                            maxiter=maxiter)
+
+    def _precondition(self, b):
+        """One cycle from a zero start: the body of ``vmult`` and of the
+        solve's preconditioner, which opens no request of its own."""
+        return vcycle(self.levels, b, None,
+                      n_smoothing_steps=self.config.smoother.n_smoothing_steps,
+                      is_preconditioner=True,
+                      cycle_type=self.config.cycle_type)
 
     def _exact_fine_op(self):
         """Fine operator at the full hierarchy dtype for the outer Krylov

@@ -182,8 +182,9 @@ class Config:
     dtype: str = "float64"
     # Distributed level-0 setup (mfmg_tpu's jax.distributed slab setup, the
     # analog of the reference's MPI-decomposed setup,
-    # amge.templates.hpp:596-643).  Not ported yet: mfmg_torch's Hierarchy
-    # raises NotImplementedError when it is set (ROADMAP Queue 1, Slice G).
+    # amge.templates.hpp:596-643): over an initialized torch.distributed
+    # group of more than one rank, each rank builds its slab of levels 0
+    # and 1 (parallel/dist_setup.py); alone it has no effect.
     distributed_setup: bool = False
     # Storage dtype for the stencil coefficient planes INSIDE the hierarchy
     # (the V-cycle preconditioner).  "bfloat16" halves the dominant HBM

@@ -22,7 +22,7 @@ existed for Mosaic's legal-op set and are not ported.
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU,
 launches the kernel for a CUDA tensor, and raises on anything else; each
-launch counts in ``stencil_kernels.LAUNCHES["fused_tail"]``.  The launch
+launch counts in ``cuda_library.LAUNCHES["fused_tail"]``.  The launch
 follows ``tail_plan`` (which block owns which level-1 sites, lanes per
 output, the shared-memory layout).  The plain versions compute the
 reference's ``_subcycle_math`` literally with the port's block-stencil and
@@ -34,6 +34,7 @@ where the reference's reduced tail rounds them (``_windowed_correction``).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mfmg_torch.ops import stencil_kernels
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops.block_stencil import (BlockStencilOperator,
                                           block_stencil_apply_coeffs)
 from mfmg_torch.ops.structured_transfer import (GeneralWindowTransfer,
@@ -368,7 +369,7 @@ def _r16(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def tail_plan(grid, n_comp: int, n_off: int, n2: int, dense: bool,
               weight_bytes: int, table: int = 0,
-              n_sm: int = stencil_kernels.H100_SMS) -> TailPlan:
+              n_sm: int = cl.H100_SMS) -> TailPlan:
     """Plan the tail's launch: the level-1 sites spread evenly over at most
     one block per SM (every SM takes part in the phases over the fine
     grid); lanes per output as many as the block's threads allow, at most a
@@ -424,15 +425,10 @@ def scratch_floats(plan: TailPlan, n1: int, n2: int, n_comp: int,
     return n
 
 
-def plan_of(ft: FusedTail, n_sm: int = stencil_kernels.H100_SMS) -> TailPlan:
+def plan_of(ft: FusedTail, n_sm: int = cl.H100_SMS) -> TailPlan:
     table = 0 if ft.fine_window is None else int(np.prod(ft.fine_window))
     return tail_plan(ft.grid, ft.n_comp, len(ft.offsets), ft.n2, ft.Rd is not None,
                      ft.coeffs.element_size(), table, n_sm)
-
-
-@functools.lru_cache(maxsize=None)
-def _plan_ints(plan: TailPlan):
-    return stencil_kernels._ints(plan)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -482,6 +478,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the C entry points (csrc/fused_tail.cu): three flags, twelve buffers, five
+# int tables; the stamped instance takes the stamps buffer after them
+_TAIL_ARGS = ((ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 12
+              + (ctypes.POINTER(ctypes.c_int),) * 5)
+_FUSED_TAIL = cl.Entry("mfmg_fused_tail", *_TAIL_ARGS)
+_FUSED_TAIL_STAMPED = cl.Entry("mfmg_fused_tail_stamped", *_TAIL_ARGS,
+                               ctypes.c_void_p)
+
+
 def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None,
             stamps=None):
     """One launch of csrc/fused_tail.cu; with ``stamps`` (a zeroed int64
@@ -514,24 +519,20 @@ def _launch(ft: FusedTail, full: bool, out, b1=None, x=None, res=None,
                              f"over agglomerates {ft.grid} do not tile the "
                              f"fine grid {ft.fine_grid}")
         fine = list(ft.fine_grid) + list(ft.fine_window)
-    plan = plan_of(ft, stencil_kernels._sm_count(out.device))
+    dev = out.get_device()
+    plan = plan_of(ft, cl.sm_count(dev))
     scratch = torch.empty(scratch_floats(plan, ft.n1, ft.n2, ft.n_comp,
                                          len(ft.offsets)),
                           dtype=torch.float32, device=out.device)
-    ints = stencil_kernels._ints
-    args = [int(ft.coeffs.dtype == torch.bfloat16), int(full), int(dense),
+    args = (int(ft.coeffs.dtype == torch.bfloat16), int(full), int(dense),
             _ptr(ft.coeffs), _ptr(ft.invd), _ptr(ft.cheb_coef), _ptr(ft.Rd),
             _ptr(ft.W2), _ptr(ft.inv2), _ptr(ft.W) if full else None, _ptr(b1),
             _ptr(x), _ptr(res), out.data_ptr(), scratch.data_ptr(),
-            ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
-            stencil_kernels._offset_table(ft.offsets), ints(l2), ints(fine),
-            _plan_ints(plan)]
-    lib = stencil_kernels._library()
-    with torch.cuda.device(out.device):
-        if stamps is None:
-            err = lib.mfmg_fused_tail(*args, stencil_kernels._stream(out))
-        else:
-            err = lib.mfmg_fused_tail_stamped(*args, stamps.data_ptr(),
-                                              stencil_kernels._stream(out))
-    stencil_kernels._raise_on(err, "fused_tail")
-    stencil_kernels.LAUNCHES["fused_tail"] += 1
+            cl.ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
+            cl.offset_table(ft.offsets), cl.ints(l2), cl.ints(fine),
+            cl.int_table(plan))
+    if stamps is None:
+        cl.launch(_FUSED_TAIL, "fused_tail", dev, *args)
+    else:
+        cl.launch(_FUSED_TAIL_STAMPED, "fused_tail", dev, *args,
+                  stamps.data_ptr())

@@ -25,7 +25,7 @@ atomics in an order that changes from run to run; the gather gives the
 same bits on every run, so PCG counts do not move between runs.
 
 Each apply of ``MatrixFreeOperator`` runs in an "mf.apply" span
-(utils/trace.py) and counts one in ``stencil_kernels.APPLIES["mf"]``.
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from mfmg_torch.ops.stencil_kernels import APPLIES
 from mfmg_torch.utils.trace import span
 
 
@@ -108,7 +107,6 @@ class MatrixFreeOperator(nn.Module):
         return (n, n)
 
     def forward(self, u):
-        APPLIES["mf"] += 1
         with span("mf.apply"):
             return mf_apply(self, u)
 

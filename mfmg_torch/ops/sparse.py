@@ -9,13 +9,14 @@ reference's ``ell_spmv``, mfmg_tpu/ops/sparse.py:48-51, an XLA gather that
 is no Pallas kernel).  ``ell_spmv`` applies it: the plain PyTorch
 expression for a CPU tensor, one launch of the hand-written kernel
 ``csrc/ell_spmv.cu`` for a CUDA tensor, over the blocks of ``ell_plan``
-(counted in ``stencil_kernels.LAUNCHES["ell_spmv"]``).  Setup-time sparse
+(counted in ``cuda_library.LAUNCHES["ell_spmv"]``).  Setup-time sparse
 products (the Galerkin triple product R A R^T) stay on the host in scipy,
 as in the reference.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -24,7 +25,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from mfmg_torch.ops import stencil_kernels
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.utils.trace import span
 
 # The ELL kernel's blocks (csrc/ell_spmv.cu kThreads, kUnits): 256 threads,
@@ -57,7 +58,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def ell_plan(n_rows: int, L: int, elem_bytes: int,
-             n_sm: int = stencil_kernels.H100_SMS) -> EllPlan:
+             n_sm: int = cl.H100_SMS) -> EllPlan:
     """Plan the ELL kernel from the matrix's shape: a pass holds
     ``ELL_THREADS * ELL_UNITS`` 16-byte vectors of values (V entries
     each); a block takes as many whole rows as one pass holds, in a multiple
@@ -83,6 +84,12 @@ def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor,
     return (vals * x[cols]).sum(dim=1)
 
 
+# the C entry point (csrc/ell_spmv.cu): float64 flag, values, columns, x, y,
+# rows, width, the plan's table
+_ELL_SPMV = cl.Entry("mfmg_ell_spmv", ctypes.c_int, *(ctypes.c_void_p,) * 4,
+                     ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int))
+
+
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
              n_cols: int) -> torch.Tensor:
     """y = A x of the ELL matrix (vals, cols) of ``n_cols`` columns: the
@@ -93,11 +100,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     hierarchy's gathered vectors), and raises on anything else.
 
     The solves apply small matrices back to back, so the host's work per
-    call is kept short: devices compared as indices, the raw current
-    stream, no device switch when the card is already the current one (on
-    an H100 machine's host each of ``torch.cuda.current_stream(d)`` and
-    ``torch.cuda.device(d)`` took ~8 us a call, twice the device time of
-    the apply of a 7,168-row level-1 operator)."""
+    call is kept short: devices compared as indices and the plan's table
+    made once per shape."""
     dev = vals.get_device()
     if dev < 0:
         return ell_spmv_plain(vals, cols, x)
@@ -121,26 +125,16 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
         return torch.zeros(n_rows, dtype=dt, device=dev)
     x = x.contiguous()
     y = torch.empty(n_rows, dtype=dt, device=dev)
-    args = (int(dt is torch.float64), vals.data_ptr(), cols.data_ptr(),
-            x.data_ptr(), y.data_ptr(), n_rows, L,
-            _launch_plan(n_rows, L, vals.element_size(), dev),
-            torch._C._cuda_getCurrentRawStream(dev))
-    lib = stencil_kernels._library()
-    if dev == torch.cuda.current_device():
-        err = lib.mfmg_ell_spmv(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.mfmg_ell_spmv(*args)
-    stencil_kernels._raise_on(err, "ell_spmv")
-    stencil_kernels.LAUNCHES["ell_spmv"] += 1
+    cl.launch(_ELL_SPMV, "ell_spmv", dev, int(dt is torch.float64),
+              vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+              n_rows, L, _launch_plan(n_rows, L, vals.element_size(), dev))
     return y
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_plan(n_rows: int, L: int, elem_bytes: int, dev: int):
     """ell_plan for the card ``dev``, as the C interface's int array."""
-    return stencil_kernels._ints(ell_plan(n_rows, L, elem_bytes,
-                                          stencil_kernels._sm_count(dev)))
+    return cl.ints(ell_plan(n_rows, L, elem_bytes, cl.sm_count(dev)))
 
 
 class ELLMatrix(nn.Module):

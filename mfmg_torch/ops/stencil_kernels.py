@@ -1,5 +1,5 @@
-"""Fine-grid stencil kernels K1, K2 and K3: CUDA wrappers, plain versions,
-and the build of the port's kernel library.
+"""Fine-grid stencil kernels K1, K2 and K3: CUDA wrappers, plain versions
+and plans.
 
 Counterpart of mfmg_tpu/ops/pallas_stencil.py:
 
@@ -28,42 +28,27 @@ one-sided (K3) offsets of radius <= 3: every stencil up to Q3.  The
 wrappers check those limits on either device, so the CPU refuses what the
 card would.
 
-The kernels are hand-written CUDA for Hopper (``csrc/*.cu``), compiled with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
-plain C interface at first use (into ``mfmg_torch/_build/<source hash>/``)
-and bound with ctypes.  Each wrapper takes its plain PyTorch version for a
-tensor on the CPU, launches its kernel for a CUDA tensor, and raises on
-anything else; there is no fallback around the build or the launch.  Each
-wrapper counts its launches in ``LAUNCHES``.  The same library holds the
-fused coarse tail (``csrc/fused_tail.cu``), the fine transfer pair K4/K5
-(``csrc/structured_transfer.cu``), the ELL apply (``csrc/ell_spmv.cu``) and
-the sum-factorised apply (``csrc/sumfac_apply.cu``), whose wrappers live in
-``ops/fused_cycle.py``, ``ops/transfer_kernels.py``, ``ops/sparse.py`` and
-``ops/sumfac.py``.  Each source is
-compiled by its own ``nvcc`` process, all started together, then linked.
+The kernels are hand-written CUDA for Hopper (``csrc/stencil_apply.cu``,
+``csrc/cheb_smooth.cu``) in the port's kernel library
+(``ops/cuda_library.py``), which builds, loads and launches them.  Each
+wrapper takes its plain PyTorch version for a tensor on the CPU, launches
+its kernel for a CUDA tensor, and raises on anything else; there is no
+fallback around the build or the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import itertools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from mfmg_torch.ops import cuda_library as cl
+
 # MFMG_MAX_POS/OFF/RADIUS in csrc/stencil_common.cuh: a Q3 stencil's 171
 # positive (symmetric) or 343 (one-sided) offsets of radius 3
 MAX_POS, MAX_OFF, MAX_RADIUS = 171, 343, 3
@@ -76,30 +61,13 @@ K13_MAX_TILE = 1024
 K13_TILE_POINTS = 1024
 H100_SMEM_PER_BLOCK = 227 * 1024
 
-# launches of each CUDA wrapper (one per call that reached its kernel);
-# "fused_tail" counts both wrappers of ops/fused_cycle.py; "cheb_smooth"
-# counts K2's calls of either form, "cheb_smooth_blocked"/"_chain" each form's;
-# "ell_spmv" the ELL applies of ops/sparse.py on the card; "sumfac" the
-# calls of ops/sumfac.py's kernel (its cell and node passes, one call)
-LAUNCHES = {"stencil_apply_sym": 0, "cheb_smooth": 0, "cheb_smooth_blocked": 0,
-            "cheb_smooth_chain": 0, "fused_tail": 0, "stencil_apply": 0,
-            "structured_restrict": 0, "structured_prolong": 0, "ell_spmv": 0,
-            "sumfac": 0}
-# applies of the matrix-free operators, on either device: "sumfac"
-# ops/sumfac.py's (on the card, Q1-Q3 in 3-D, each also a LAUNCHES["sumfac"]),
-# "mf" ops/local_apply.py's (no kernel of this library), one per forward
-# (each in a "sumfac.apply" or "mf.apply" span)
-APPLIES = {"sumfac": 0, "mf": 0}
-
 # K2's blocked form (csrc/cheb_smooth.cu): the blocks wanted per SM, the
 # shortest z chunk, the most frame rows (kFrameRows, a warp each; a row is at
-# most 32 points), and the H100's SM count (the plan's default where no card
-# is asked).  The three values were the fastest of those timed on an H100
+# most 32 points).  The three values were the fastest of those timed on an H100
 # at 65^3 and 129^3 (PERF.md).
 K2_BLOCKS_PER_SM = 2
 K2_MIN_CHUNK = 4
 K2_FRAME_ROWS = 16
-H100_SMS = 132
 # K2's dispatch (k2_form), from both forms timed in one call on an H100 at
 # 65^3 and 129^3 (PERF.md): the blocked form takes less device time only
 # for the step with the residual on the 129^3 grid, where the chain streams
@@ -109,13 +77,17 @@ H100_SMS = 132
 # between the two grids measured.
 K2_BLOCKED_MIN_POINTS = 1 << 20
 
-_lib = None
-
-
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, APPLIES):
-        for k in counts:
-            counts[k] = 0
+# the C entry points (csrc/stencil_apply.cu, csrc/cheb_smooth.cu)
+_vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_STENCIL_APPLY_SYM = cl.Entry("mfmg_stencil_apply_sym", _vp, _i, _vp, _vp, _vp,
+                              _i, _i, _i, _i, _ip, _i, _i)
+_STENCIL_APPLY = cl.Entry("mfmg_stencil_apply", _vp, _i, _vp, _vp, _i, _i, _i,
+                          _i, _ip, _i, _i)
+_CHEB_SMOOTH = cl.Entry("mfmg_cheb_smooth", _vp, _i, _vp, _vp, _vp, _vp, _i,
+                        _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _ip)
+_CHEB_SMOOTH_BLOCKED = cl.Entry("mfmg_cheb_smooth_blocked", _vp, _i, _vp, _vp,
+                                _vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _ip,
+                                _i, _i, _i)
 
 
 # ------------------------------------------------------------ plain versions
@@ -186,15 +158,11 @@ def stencil_apply_sym(planes: torch.Tensor, x: torch.Tensor, pos_offsets,
         return stencil_apply_sym_plain(planes, x, pos_offsets, grid_shape)
     y = torch.empty_like(x)
     gz, gy, gx = grid_shape
-    plan = _k13_plan(tuple(pos_offsets), True, tuple(grid_shape))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.mfmg_stencil_apply_sym(
-            planes.data_ptr(), int(planes.dtype == torch.bfloat16),
-            x.data_ptr(), None, y.data_ptr(), gz, gy, gx, len(pos_offsets),
-            _offset_table(pos_offsets), plan.rows, plan.cols, _stream(x))
-    _raise_on(err, "stencil_apply_sym")
-    LAUNCHES["stencil_apply_sym"] += 1
+    plan = k13_plan(tuple(pos_offsets), True, tuple(grid_shape))
+    cl.launch(_STENCIL_APPLY_SYM, "stencil_apply_sym", x.get_device(),
+              planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+              x.data_ptr(), None, y.data_ptr(), gz, gy, gx, len(pos_offsets),
+              cl.offset_table(pos_offsets), plan.rows, plan.cols)
     return y
 
 
@@ -210,15 +178,11 @@ def stencil_apply(planes: torch.Tensor, x: torch.Tensor, offsets,
         return stencil_apply_plain(planes, x, offsets, grid_shape)
     y = torch.empty_like(x)
     gz, gy, gx = grid_shape
-    plan = _k13_plan(tuple(offsets), False, tuple(grid_shape))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.mfmg_stencil_apply(
-            planes.data_ptr(), int(planes.dtype == torch.bfloat16),
-            x.data_ptr(), y.data_ptr(), gz, gy, gx, len(offsets),
-            _offset_table(offsets), plan.rows, plan.cols, _stream(x))
-    _raise_on(err, "stencil_apply")
-    LAUNCHES["stencil_apply"] += 1
+    plan = k13_plan(tuple(offsets), False, tuple(grid_shape))
+    cl.launch(_STENCIL_APPLY, "stencil_apply", x.get_device(),
+              planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+              x.data_ptr(), y.data_ptr(), gz, gy, gx, len(offsets),
+              cl.offset_table(offsets), plan.rows, plan.cols)
     return y
 
 
@@ -229,12 +193,12 @@ def cheb_smooth(planes: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     (2 * degree,) float32 recurrence array [alphas..., betas...].  The form
     is the one ``k2_form``'s rule gives."""
     form = k2_form(tuple(pos_offsets), degree, want_res, tuple(grid_shape))
-    return _cheb_smooth(form, planes, x, b, inv_diag, coef, pos_offsets,
-                        grid_shape, degree, want_res)
+    return cheb_smooth_as(form, planes, x, b, inv_diag, coef, pos_offsets,
+                          grid_shape, degree, want_res)
 
 
-def _cheb_smooth(form: str, planes, x, b, inv_diag, coef, pos_offsets,
-                 grid_shape, degree: int, want_res: bool = False):
+def cheb_smooth_as(form: str, planes, x, b, inv_diag, coef, pos_offsets,
+                   grid_shape, degree: int, want_res: bool = False):
     """K2 in the given form, "blocked" or "chain": ``cheb_smooth``'s body,
     and the entry of the A/B harnesses that time one form beside the other
     (chip_smoke.py, scripts/kernel_device_times.py, the card tests).  The
@@ -243,7 +207,7 @@ def _cheb_smooth(form: str, planes, x, b, inv_diag, coef, pos_offsets,
     if degree < 1:
         raise ValueError(f"Chebyshev degree must be >= 1, got {degree}")
     if form not in ("blocked", "chain") or (
-            form == "blocked" and not _blocked_takes(tuple(pos_offsets), degree)):
+            form == "blocked" and not blocked_takes(tuple(pos_offsets), degree)):
         raise ValueError(f"K2 form {form!r} for these offsets at degree {degree}")
     for name, t in (("b", b), ("inv_diag", inv_diag)):
         _check_like(name, t, x)
@@ -258,34 +222,27 @@ def _cheb_smooth(form: str, planes, x, b, inv_diag, coef, pos_offsets,
     xs = torch.empty_like(x)
     res = torch.empty_like(x) if want_res else None
     gz, gy, gx = grid_shape
-    lib = _library()
-    with torch.cuda.device(x.device):
-        if form == "blocked":
-            plan = cheb_blocked_plan(tuple(grid_shape), degree, want_res,
-                                     _sm_count(x.device))
-            err = lib.mfmg_cheb_smooth_blocked(
-                planes.data_ptr(), int(planes.dtype == torch.bfloat16),
-                x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(),
-                coef.data_ptr(), degree, xs.data_ptr(),
-                None if res is None else res.data_ptr(), gz, gy, gx,
-                len(pos_offsets), _offset_table(pos_offsets), plan.ty,
-                plan.tx, plan.cz, _stream(x))
-        else:
-            # r, p, dx0 (and dx1 above degree 2) in one scratch allocation
-            n = x.numel()
-            scratch = torch.empty((4 if degree > 2 else 3) * n,
-                                  dtype=torch.float32, device=x.device)
-            r, p, dx0 = (scratch.data_ptr() + 4 * n * i for i in range(3))
-            dx1 = dx0 + 4 * n if degree > 2 else dx0
-            err = lib.mfmg_cheb_smooth(
-                planes.data_ptr(), int(planes.dtype == torch.bfloat16),
-                x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(),
-                coef.data_ptr(), degree, r, p, dx0, dx1, xs.data_ptr(),
-                None if res is None else res.data_ptr(), gz, gy, gx,
-                len(pos_offsets), _offset_table(pos_offsets), _stream(x))
-    _raise_on(err, f"cheb_smooth ({form})")
-    LAUNCHES["cheb_smooth"] += 1
-    LAUNCHES[f"cheb_smooth_{form}"] += 1
+    dev = x.get_device()
+    head = (planes.data_ptr(), int(planes.dtype == torch.bfloat16),
+            x.data_ptr(), b.data_ptr(), inv_diag.data_ptr(), coef.data_ptr(),
+            degree)
+    tail = (xs.data_ptr(), None if res is None else res.data_ptr(), gz, gy,
+            gx, len(pos_offsets), cl.offset_table(pos_offsets))
+    if form == "blocked":
+        plan = cheb_blocked_plan(tuple(grid_shape), degree, want_res,
+                                 cl.sm_count(dev))
+        cl.launch(_CHEB_SMOOTH_BLOCKED, "cheb_smooth", dev, *head, *tail,
+                  plan.ty, plan.tx, plan.cz)
+    else:
+        # r, p, dx0 (and dx1 above degree 2) in one scratch allocation
+        n = x.numel()
+        scratch = torch.empty((4 if degree > 2 else 3) * n,
+                              dtype=torch.float32, device=x.device)
+        r, p, dx0 = (scratch.data_ptr() + 4 * n * i for i in range(3))
+        dx1 = dx0 + 4 * n if degree > 2 else dx0
+        cl.launch(_CHEB_SMOOTH, "cheb_smooth", dev, *head, r, p, dx0, dx1,
+                  *tail)
+    cl.LAUNCHES[f"cheb_smooth_{form}"] += 1
     return (xs, res) if want_res else (xs,)
 
 
@@ -301,11 +258,11 @@ def k2_form(pos_offsets, degree: int, want_res: bool, grid_shape) -> str:
     of more than K2_BLOCKED_MIN_POINTS points, over the Q1 positive offsets
     (Q1_POS, in that order) at degree <= 3; else "chain"."""
     big = int(np.prod(grid_shape)) > K2_BLOCKED_MIN_POINTS
-    return ("blocked" if want_res and big and _blocked_takes(pos_offsets, degree)
+    return ("blocked" if want_res and big and blocked_takes(pos_offsets, degree)
             else "chain")
 
 
-def _blocked_takes(pos_offsets, degree: int) -> bool:
+def blocked_takes(pos_offsets, degree: int) -> bool:
     """The offsets and degrees the blocked kernel is compiled for."""
     return tuple(pos_offsets) == Q1_POS and 1 <= degree <= 3
 
@@ -327,7 +284,7 @@ def _cdiv(a, b):
 
 @functools.lru_cache(maxsize=None)
 def cheb_blocked_plan(grid_shape, degree: int, want_res: bool,
-                      n_sm: int = H100_SMS) -> K2Plan:
+                      n_sm: int = cl.H100_SMS) -> K2Plan:
     """The tile schedule of K2's blocked form (csrc/cheb_smooth.cu).
 
     A frame (the tile and ``halo`` <= 4 points per side) is at most 32
@@ -387,14 +344,9 @@ def stencil_tile_plan(grid_shape, radius: int, n_vplanes: int) -> TilePlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _k13_plan(offsets, sym: bool, grid_shape) -> TilePlan:
+def k13_plan(offsets, sym: bool, grid_shape) -> TilePlan:
     n_v = 2 * len(offsets) + 1 if sym else len(offsets)
     return stencil_tile_plan(grid_shape, _radius(offsets), n_v)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_stencil(planes, x, pos_offsets, grid_shape):
@@ -440,14 +392,8 @@ def _check_like(name, t, x):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _ints(vals):
-    vals = [int(v) for v in vals]
-    return (ctypes.c_int * max(len(vals), 1))(*vals)
-
-
-# The offset checks and tables are made once per offset tuple: the fine
-# applies launch every few tens of microseconds, and rebuilding a 375-entry
-# table on every call costs the host as much.
+# The offset checks are made once per offset tuple: the fine applies launch
+# every few tens of microseconds.
 @functools.lru_cache(maxsize=None)
 def _kernel_takes(offsets, max_n) -> bool:
     return len(offsets) <= max_n and _radius(offsets) <= MAX_RADIUS
@@ -455,119 +401,3 @@ def _kernel_takes(offsets, max_n) -> bool:
 
 def _radius(offsets) -> int:
     return max((abs(c) for off in offsets for c in off), default=0)
-
-
-@functools.lru_cache(maxsize=None)
-def _offset_table(offsets):
-    return _ints(c for off in offsets for c in off)
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        msg = _library().mfmg_cuda_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
-
-
-# --------------------------------------------------------------------- build
-
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
-                       "mfmg_torch are built from csrc/ at first use")
-
-
-def _run_all(cmds):
-    """Run the commands in parallel; (return codes, logs) in order."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
-    return [p.returncode for p in procs], logs
-
-
-def build_library() -> tuple[Path, str]:
-    """Compile csrc/*.cu into the shared library keyed on a hash of the
-    sources and flags, unless it exists; returns (path, compiler log).  One
-    nvcc per source, all started together, then one link.  Concurrent
-    builders write to private temporaries and rename atomically."""
-    cu, cuh = sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / h.hexdigest()[:16] / "libmfmg_kernels.so"
-    log_path = out.with_name("build.log")
-    if out.exists():
-        return out, log_path.read_text() if log_path.exists() else ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc, pid = _nvcc(), os.getpid()
-    objs = [out.with_name(f".{pid}.{p.stem}.o") for p in cu]
-    tmp = out.with_name(f".{pid}.tmp.so")
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
-            for p, o in zip(cu, objs)]
-    rcs, logs = _run_all(cmds)
-    if all(rc == 0 for rc in rcs):
-        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
-        rc, link_log = _run_all(cmds[-1:])
-        rcs, logs = rcs + rc, logs + link_log
-    for o in objs:
-        o.unlink(missing_ok=True)
-    log = "".join(logs)
-    for cmd, rc, lg in zip(cmds, rcs, logs):
-        if rc != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{lg}")
-    log_path.write_text(log)
-    os.replace(tmp, out)
-    return out, log
-
-
-def _library():
-    """Build (if needed) and load the kernel library; bind its C interface."""
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.mfmg_stencil_apply_sym.argtypes = [vp, i, vp, vp, vp, i, i, i, i,
-                                               ctypes.POINTER(i), i, i, vp]
-        lib.mfmg_stencil_apply_sym.restype = i
-        lib.mfmg_cheb_smooth.argtypes = [vp, i, vp, vp, vp, vp, i, vp, vp, vp,
-                                         vp, vp, vp, i, i, i, i,
-                                         ctypes.POINTER(i), vp]
-        lib.mfmg_cheb_smooth.restype = i
-        lib.mfmg_cheb_smooth_blocked.argtypes = [vp, i, vp, vp, vp, vp, i, vp,
-                                                 vp, i, i, i, i,
-                                                 ctypes.POINTER(i), i, i, i, vp]
-        lib.mfmg_cheb_smooth_blocked.restype = i
-        ip = ctypes.POINTER(i)
-        lib.mfmg_fused_tail.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, vp,
-                                        vp, vp, vp, vp, vp, ip, ip, ip, ip, ip, vp]
-        lib.mfmg_fused_tail.restype = i
-        lib.mfmg_fused_tail_stamped.argtypes = lib.mfmg_fused_tail.argtypes[:-1] + [vp, vp]
-        lib.mfmg_fused_tail_stamped.restype = i
-        lib.mfmg_stencil_apply.argtypes = [vp, i, vp, vp, i, i, i, i, ip, i, i,
-                                           vp]
-        lib.mfmg_stencil_apply.restype = i
-        lib.mfmg_structured_restrict.argtypes = [i, vp, vp, vp, ip, ip, vp]
-        lib.mfmg_structured_restrict.restype = i
-        lib.mfmg_structured_prolong.argtypes = [i, vp, vp, vp, ip, i, vp]
-        lib.mfmg_structured_prolong.restype = i
-        lib.mfmg_ell_spmv.argtypes = [i, vp, vp, vp, vp, i, i, ip, vp]
-        lib.mfmg_ell_spmv.restype = i
-        lib.mfmg_sumfac_apply.argtypes = [i, i, i] + [vp] * 11 + [i, i, vp]
-        lib.mfmg_sumfac_apply.restype = i
-        lib.mfmg_cuda_error_string.argtypes = [i]
-        lib.mfmg_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

@@ -21,24 +21,23 @@ cell results are summed per dof by gather in a fixed order
 On the card, a 3-D operator of Q1-Q3 (``KERNEL_SHAPES``) applies through
 the hand-written kernel ``csrc/sumfac_apply.cu`` (``sumfac_apply_cuda``):
 one wrapper call, a cell pass and a node pass, counted in
-``stencil_kernels.LAUNCHES["sumfac"]``; its node pass reads the incidence
+``cuda_library.LAUNCHES["sumfac"]``; its node pass reads the incidence
 as int32 offsets and positions (``incidence_csr``).  Every other shape,
 and every CPU tensor, takes ``sumfac_apply``.  Each apply runs in a
-"sumfac.apply" span (utils/trace.py) and counts one in
-``stencil_kernels.APPLIES["sumfac"]``.
+"sumfac.apply" span (utils/trace.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 
 import numpy as np
 import torch
 from torch import nn
 
-from mfmg_torch.ops import stencil_kernels
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops.local_apply import gather_sum, incidence
-from mfmg_torch.ops.stencil_kernels import APPLIES, LAUNCHES
 from mfmg_torch.utils.trace import span
 
 # (n1, nq1) of the 3-D operators csrc/sumfac_apply.cu is built for: Q1-Q3
@@ -94,7 +93,6 @@ class SumFactoredOperator(nn.Module):
         Q1-Q3), ``sumfac_apply_cuda``; on the CPU, and on the card for a
         2-D operator or degree 4 and up, the batched matmuls of
         ``sumfac_apply``."""
-        APPLIES["sumfac"] += 1
         with span("sumfac.apply"):
             if u.get_device() >= 0 and self.kernel_shape:
                 return sumfac_apply_cuda(self, u)
@@ -144,6 +142,10 @@ def sumfac_apply(op: SumFactoredOperator, u: torch.Tensor) -> torch.Tensor:
 _KERNEL_BUFFERS = (("constrained", torch.bool), ("diag", "T"), ("K", "T"),
                    ("cells", torch.int64), ("V", "T"), ("D", "T"),
                    ("inc_ptr", torch.int32), ("inc_pos", torch.int32))
+# the C entry point (csrc/sumfac_apply.cu): float64 flag, n1, nq1, u, the
+# buffers above, y_loc, y, n_dofs, n_cells
+_SUMFAC_APPLY = cl.Entry("mfmg_sumfac_apply", *(ctypes.c_int,) * 3,
+                         *(ctypes.c_void_p,) * 11, ctypes.c_int, ctypes.c_int)
 # per operator, its buffers as last checked for the kernel: (device, type,
 # weak references to the buffers, the kernel's fixed arguments)
 _CHECKED = weakref.WeakKeyDictionary()
@@ -172,10 +174,8 @@ def sumfac_apply_cuda(op: SumFactoredOperator, u: torch.Tensor) -> torch.Tensor:
     ValueError on anything else.
 
     The solve applies the operator ~100 times, so the host's work per call
-    is kept short, as in ``sparse.ell_spmv``: devices compared as indices,
-    the raw current stream, no device switch when the card is the current
-    one; and the operator's buffers are checked once and their pointers
-    kept while they stay the same tensors (``_CHECKED``)."""
+    is kept short: the operator's buffers are checked once and their
+    pointers kept while they stay the same tensors (``_CHECKED``)."""
     dev = u.get_device()
     dt = u.dtype
     n = op.diag.shape[0]
@@ -192,16 +192,8 @@ def sumfac_apply_cuda(op: SumFactoredOperator, u: torch.Tensor) -> torch.Tensor:
     u = u.contiguous()
     y = torch.empty(n, dtype=dt, device=u.device)
     y_loc = torch.empty(n_cells * n_loc, dtype=dt, device=u.device)
-    args = (*c[3], u.data_ptr(), *c[4], y_loc.data_ptr(), y.data_ptr(), n,
-            n_cells, torch._C._cuda_getCurrentRawStream(dev))
-    lib = stencil_kernels._library()
-    if dev == torch.cuda.current_device():
-        err = lib.mfmg_sumfac_apply(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.mfmg_sumfac_apply(*args)
-    stencil_kernels._raise_on(err, "sumfac_apply")
-    LAUNCHES["sumfac"] += 1
+    cl.launch(_SUMFAC_APPLY, "sumfac", dev, *c[3], u.data_ptr(), *c[4],
+              y_loc.data_ptr(), y.data_ptr(), n, n_cells)
     return y
 
 

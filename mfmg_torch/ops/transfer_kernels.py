@@ -21,18 +21,19 @@ their tiling geometry are not ported.
 
 Each wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor, and raises on anything else; each launch counts in
-``stencil_kernels.LAUNCHES``.
+``cuda_library.LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mfmg_torch.ops import stencil_kernels
+from mfmg_torch.ops import cuda_library as cl
 
 _LT, _LB = "ijk", "uvw"
 
@@ -91,7 +92,7 @@ def _r16(n: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def restrict_plan(window_shape, agg_shape, c: int, vec: bool, weight_bytes: int = 4,
-                  n_sm: int = stencil_kernels.H100_SMS, nzc=None) -> RestrictPlan:
+                  n_sm: int = cl.H100_SMS, nzc=None) -> RestrictPlan:
     """Plan K4's blocks: a row of agglomerates per block where the slabs'
     rows give the card at least one block per SM (129^3: 32 x 32 rows), else
     rows cut into runs of a multiple of the item width until they do (the Q2
@@ -274,31 +275,32 @@ def _check(W, v, window_shape, agg_shape, grid_shape, coarse: bool) -> int:
     return n_c
 
 
-@functools.lru_cache(maxsize=None)
-def _geom_table(geom):
-    return stencil_kernels._ints(geom)
+# the C entry points (csrc/structured_transfer.cu): bf16 flag, W, source,
+# destination, the geometry table, then K4's plan or K5's SM count
+_vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_ENTRIES = {"structured_restrict": cl.Entry("mfmg_structured_restrict", _i, _vp,
+                                            _vp, _vp, _ip, _ip),
+            "structured_prolong": cl.Entry("mfmg_structured_prolong", _i, _vp,
+                                           _vp, _vp, _ip, _i)}
 
 
 def _launch(name, W, src, dst, window_shape, agg_shape, grid_shape, plan=None):
     """K4 (with its plan: restrict_plan's unless given) or K5 (with the
     card's SM count, which sizes its blocks)."""
     geom = (*grid_shape, *agg_shape, *window_shape, W.shape[0])
-    lib = stencil_kernels._library()
-    n_sm = stencil_kernels._sm_count(dst.device)
+    dev = dst.get_device()
+    n_sm = cl.sm_count(dev)
     if name == "structured_prolong":
-        extra = (n_sm,)
+        extra = n_sm
     else:
         c, gx = W.shape[0], agg_shape[-1]
         if plan is None:
             plan = restrict_plan(tuple(window_shape), tuple(agg_shape), c,
                                  restrict_vec(W, c, gx), W.element_size(), n_sm)
-        extra = (_plan_ints(plan),)
-    with torch.cuda.device(dst.device):
-        err = getattr(lib, f"mfmg_{name}")(
-            int(W.dtype == torch.bfloat16), W.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), _geom_table(geom), *extra, stencil_kernels._stream(dst))
-    stencil_kernels._raise_on(err, name)
-    stencil_kernels.LAUNCHES[name] += 1
+        extra = cl.int_table(plan)
+    cl.launch(_ENTRIES[name], name, dev, int(W.dtype == torch.bfloat16),
+              W.data_ptr(), src.data_ptr(), dst.data_ptr(), cl.int_table(geom),
+              extra)
 
 
 def _restrict_with_plan(plan: RestrictPlan, W, x, window_shape, agg_shape,
@@ -313,8 +315,3 @@ def _restrict_with_plan(plan: RestrictPlan, W, x, window_shape, agg_shape,
     _launch("structured_restrict", W, x, out, window_shape, agg_shape,
             grid_shape, plan)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _plan_ints(plan: RestrictPlan):
-    return stencil_kernels._ints(plan)

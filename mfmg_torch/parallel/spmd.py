@@ -46,7 +46,7 @@ device (plain versions on the CPU):
 K4/K5 take 3-D grids only, so a 2-D grid's transfer takes their plain
 versions on either device (the reference's 2-D runs); on the 3-D main path
 every transfer launches the kernels.  ``Mesh.stats`` counts the halo
-exchanges and the halo and gather bytes; ``stencil_kernels.LAUNCHES`` the
+exchanges and the halo and gather bytes; ``cuda_library.LAUNCHES`` the
 kernels.
 """
 

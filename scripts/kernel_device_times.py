@@ -98,16 +98,18 @@ def load_parent_k13(csrc):
 
 def parent_call(lib, sym, planes, x, offsets, grid):
     """One launch of the parent's K1 (sym) or K3 into a new y."""
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     y = torch.empty_like(x)
     bf16 = int(planes.dtype == torch.bfloat16)
     head = (planes.data_ptr(), bf16, x.data_ptr())
+    table = cl.offset_table(tuple(offsets))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if sym:
         err = lib.mfmg_stencil_apply_sym(*head, None, y.data_ptr(), *grid, len(offsets),
-                                         tk._offset_table(tuple(offsets)), tk._stream(x))
+                                         table, stream)
     else:
         err = lib.mfmg_stencil_apply(*head, y.data_ptr(), *grid, len(offsets),
-                                     tk._offset_table(tuple(offsets)), tk._stream(x))
+                                     table, stream)
     if err:
         raise RuntimeError(f"the parent's stencil kernel failed ({err})")
     return y
@@ -128,13 +130,13 @@ def k13_section(dev, parent, tile_points=None):
         def run():
             tk.K13_TILE_POINTS = points
             tk.stencil_tile_plan.cache_clear()
-            tk._k13_plan.cache_clear()
+            tk.k13_plan.cache_clear()
             try:
                 return fn()
             finally:
                 tk.K13_TILE_POINTS = base
                 tk.stencil_tile_plan.cache_clear()
-                tk._k13_plan.cache_clear()
+                tk.k13_plan.cache_clear()
         return run
 
     def case(label, sym, planes, offsets, grid, A=None):
@@ -156,7 +158,7 @@ def k13_section(dev, parent, tile_points=None):
             fns["cuSPARSE"] = lambda: torch.mv(A, x)
         work = (cs.k1_work if sym else cs.k3_work)(planes, x.numel())
         b_ms, b_by = cs.bound(*work)
-        plan = tk._k13_plan(tuple(offsets), sym, tuple(grid))
+        plan = tk.k13_plan(tuple(offsets), sym, tuple(grid))
         print(f"{'K1' if sym else 'K3'} {label} {planes.dtype} ({len(offsets)} "
               f"{'pairs' if sym else 'offsets'}): bound {b_ms:.5f} ms ({b_by}), "
               f"plan {tuple(plan)}, rel err vs plain {err}; (device ms, event ms) "
@@ -233,11 +235,12 @@ def load_parent_k4(csrc):
 
 def parent_restrict(lib, W, x, ws, agg, grid):
     """One launch of the parent's K4 into a new coarse vector."""
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     out = torch.empty(W.shape[0] * int(np.prod(agg)), device=x.device)
-    geom = tk._ints((*grid, *agg, *ws, W.shape[0]))
+    geom = cl.ints((*grid, *agg, *ws, W.shape[0]))
     err = lib.mfmg_structured_restrict(int(W.dtype == torch.bfloat16), W.data_ptr(),
-                                       x.data_ptr(), out.data_ptr(), geom, tk._stream(x))
+                                       x.data_ptr(), out.data_ptr(), geom,
+                                       torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"the parent's K4 failed ({err})")
     return out
@@ -282,11 +285,11 @@ def k4_section(dev, parent):
     import chip_smoke as cs
     import mfmg_torch.config as cfg
     from mfmg_torch import Hierarchy, LaplaceProblem
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.ops import transfer_kernels as ttk
     from mfmg_torch.ops.structured_transfer import StructuredTransfer
 
-    n_sm = tk._sm_count(dev)
+    n_sm = cl.sm_count(dev)
     for name, w, agg in (("129^3", 5, (32, 32, 32)), ("distorted Q2", 9, (8, 8, 8))):
         ws = (w,) * 3
         grid = tuple(a * (w - 1) + 1 for a in agg)
@@ -358,13 +361,14 @@ def main():
     ap.add_argument("--tile-points", type=int)
     args = ap.parse_args()
     import chip_smoke as cs
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.ops import stencil_kernels as tk
     from mfmg_torch.ops import transfer_kernels as ttk
     from mfmg_torch.ops.structured_transfer import StructuredTransfer
 
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
-    tk._library()
+    cl.library()
     if args.k4_only:
         k4_section(dev, load_parent_k4(args.parent_csrc) if args.parent_csrc else None)
         return
@@ -385,7 +389,7 @@ def main():
         coef = torch.tensor([0.9, 0.7, 0.0, 0.2], device=dev)
         for want_res in (True, False):
             args = (planes, x, b, invd, coef, tk.Q1_POS, grid, 2, want_res)
-            t = in_turns({f: (lambda f=f: tk._cheb_smooth(f, *args))
+            t = in_turns({f: (lambda f=f: tk.cheb_smooth_as(f, *args))
                           for f in ("blocked", "chain")})
             print(f"K2 {grid[0]}^3 residual={want_res}: (device ms, event ms) {t}",
                   flush=True)

@@ -106,7 +106,7 @@ def runner(ft, full, inp):
 def parent_args(ft, full, out, scratch, b1=None, x=None, res=None):
     """The C arguments of the parent's mfmg_fused_tail, which takes no plan
     (its scratch: 7 n1 + 2 n2 floats)."""
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -121,9 +121,9 @@ def parent_args(ft, full, out, scratch, b1=None, x=None, res=None):
             ptr(ft.coeffs), ptr(ft.invd), ptr(ft.cheb_coef), ptr(ft.Rd), ptr(ft.W2),
             ptr(ft.inv2), ptr(ft.W) if full else None, ptr(b1), ptr(x), ptr(res),
             out.data_ptr(), scratch.data_ptr(),
-            tk._ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
-            tk._offset_table(ft.offsets), tk._ints(l2), tk._ints(fine),
-            tk._stream(out)]
+            cl.ints([*ft.grid, ft.n_comp, len(ft.offsets), ft.degree, ft.nss]),
+            cl.offset_table(ft.offsets), cl.ints(l2), cl.ints(fine),
+            torch.cuda.current_stream(out.device).cuda_stream]
 
 
 def parent_runner(lib, ft, full, inp):
@@ -196,7 +196,7 @@ def load_parent(csrc: Path, stamped=False):
     """The parent's kernel library, built from csrc (into csrc/../_build);
     stamped: its fused_tail.cu alone with stamps (stamped_source), built
     from csrc/../csrc_stamped."""
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     if stamped:
         dst = csrc.parent / "csrc_stamped"
         dst.mkdir(exist_ok=True)
@@ -205,12 +205,12 @@ def load_parent(csrc: Path, stamped=False):
         (dst / "fused_tail.cu").write_text(
             stamped_source((csrc / "fused_tail.cu").read_text()))
         csrc = dst
-    saved = tk.CSRC, tk.BUILD_DIR
-    tk.CSRC, tk.BUILD_DIR = csrc, csrc.parent / ("_build_stamped" if stamped else "_build")
+    saved = cl.CSRC, cl.BUILD_DIR
+    cl.CSRC, cl.BUILD_DIR = csrc, csrc.parent / ("_build_stamped" if stamped else "_build")
     try:
-        path, _ = tk.build_library()
+        path, _ = cl.build_library()
     finally:
-        tk.CSRC, tk.BUILD_DIR = saved
+        cl.CSRC, cl.BUILD_DIR = saved
     lib = ctypes.CDLL(str(path))
     vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.mfmg_fused_tail.argtypes = [i, i, i] + [vp] * 12 + [ip] * 4 + [vp]
@@ -280,14 +280,14 @@ def main():
         sys.exit("needs an NVIDIA GPU")
     import chip_smoke as cs
     from _torch_tails import random_tail
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.ops import fused_cycle as fc
-    from mfmg_torch.ops import stencil_kernels as tk
     from mfmg_torch.ops import transfer_kernels as ttk
 
     card = cs.card_line()
     print(card, flush=True)
-    _, log = tk.build_library()
-    tk._library()
+    _, log = cl.build_library()
+    cl.library()
     lines = log.splitlines()
     for i, line in enumerate(lines):
         # ptxas -v: "Compiling entry function '<mangled>'" then its usage
@@ -307,7 +307,7 @@ def main():
         fns = {"kernel": runner(ft, full, inp)}
         if parent is not None:
             fns["parent"] = parent_runner(parent, ft, full, inp)
-        entry = dict(plan=fc.plan_of(ft, tk._sm_count(ref.device))._asdict())
+        entry = dict(plan=fc.plan_of(ft, cl.sm_count(ref.device))._asdict())
         for name, fn in fns.items():
             got = fn()
             torch.cuda.synchronize()

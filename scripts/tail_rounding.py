@@ -48,12 +48,12 @@ def main():
     import mfmg_torch.config as cfg
     import tail_phases as tp
     from mfmg_torch import Hierarchy, LaplaceProblem
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.ops import fused_cycle as fc
-    from mfmg_torch.ops import stencil_kernels as tk
 
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
-    tk._library()
+    cl.library()
     parent = tp.load_parent(args.parent_csrc.resolve())
     t0 = time.time()
     prob = LaplaceProblem.hyper_cube(3, 7, material_property="linear")

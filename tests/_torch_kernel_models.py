@@ -1,10 +1,16 @@
-"""The decompositions of K2's blocked form, of K4, of K5, of K1/K3's tiles
-and of the fused coarse tail, modelled on the CPU.
+"""Models of the decompositions of K2's blocked form, of K4, of K5, of K1/K3's
+tiles and of the fused coarse tail, on the CPU, with their case tables.
 
 The CUDA kernels (mfmg_torch/csrc/cheb_smooth.cu, structured_transfer.cu,
 stencil_apply.cu, fused_tail.cu) run only on the card; these plain models
 follow their index arithmetic block by block, so that the tiling and
-ownership logic is checked where there is no GPU:
+ownership logic is checked where there is no GPU.  The tests that hold
+them against the plain versions are spread over several files, so that a
+run that gives each file to one worker spreads them too:
+tests/test_torch_k2_plans.py, test_torch_k2_model_res.py,
+test_torch_k2_model_nores.py (K2), test_torch_transfer_models.py (K4, K5),
+test_torch_k13_tiles.py (K1/K3) and test_torch_tail_models.py (the tail).
+
 
 * K4 (R x) after ``restrict_plan``: blocks own runs of agglomerates and
   march over z-slabs; slab k+1's x planes (into a ring of planes) and W
@@ -66,21 +72,16 @@ same products in another order, and the bf16 rounding points agree).
 import itertools
 
 import numpy as np
-import pytest
 import torch
 
-from _torch_stencils import cube_offsets
-from _torch_tails import UNSTAGED_TAILS, random_tail
-from mfmg_torch import LaplaceProblem
-from mfmg_torch.ops import fused_cycle as fc
-from mfmg_torch.ops import stencil as tst
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops import transfer_kernels as ttk
 
 K2_TOL, K4_TOL, K5_TOL, TAIL_TOL = 1e-12, 1e-12, 1e-6, 1e-5
 
 
-def _rel(a, b):
+def rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
@@ -120,23 +121,6 @@ def prolong_owner_model(W, xc, window_shape, agg_shape, grid_shape):
                 assert torch.isnan(y[iz, iy]).all(), "a fine row has two owners"
                 y[iz, iy] = row
     return y.reshape(-1)
-
-
-@pytest.mark.parametrize("window,agg", [(5, (3, 4, 5)), (9, (2, 3, 2))],
-                         ids=["5^3-windows", "Q2-9^3-windows"])
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_k5_owner_model_matches_plain(window, agg, bf16):
-    ws = (window,) * 3
-    grid = tuple(a * (window - 1) + 1 for a in agg)
-    rng = np.random.default_rng(0)
-    W = torch.from_numpy(rng.standard_normal((2,) + ws + agg).astype(np.float32))
-    if bf16:
-        W = W.to(torch.bfloat16)
-    xc = torch.from_numpy(rng.standard_normal(2 * int(np.prod(agg)))
-                          .astype(np.float32))
-    got = prolong_owner_model(W, xc, ws, agg, grid)
-    assert not torch.isnan(got).any(), "a fine point has no owner"
-    assert _rel(got, ttk.structured_prolong_plain(W, xc, ws, agg, grid)) <= K5_TOL
 
 
 # ------------------------------------------------------------------ K4
@@ -250,69 +234,19 @@ def restrict_block_model(W, x, window_shape, agg_shape, grid_shape, plan):
 # that rows are added); marching with ragged runs in y and z; rows of 12
 # agglomerates (3 copies of W per row); c = 1..5 (5: scalar)
 K4_MODEL_CASES = {
-    "129^3-5^3-32^3": ((5, 5, 5), (32, 32, 32), 2, True, tk.H100_SMS, 4),
-    "129^3-5^3-32^3-bf16": ((5, 5, 5), (32, 32, 32), 2, True, tk.H100_SMS, 2),
-    "Q2-9^3-8^3": ((9, 9, 9), (8, 8, 8), 2, True, tk.H100_SMS, 4),
-    "ragged-gx-5": ((5, 5, 5), (3, 4, 5), 2, False, tk.H100_SMS, 4),
+    "129^3-5^3-32^3": ((5, 5, 5), (32, 32, 32), 2, True, cl.H100_SMS, 4),
+    "129^3-5^3-32^3-bf16": ((5, 5, 5), (32, 32, 32), 2, True, cl.H100_SMS, 2),
+    "Q2-9^3-8^3": ((9, 9, 9), (8, 8, 8), 2, True, cl.H100_SMS, 4),
+    "ragged-gx-5": ((5, 5, 5), (3, 4, 5), 2, False, cl.H100_SMS, 4),
     "uneven-gy": ((3, 3, 3), (3, 7, 8), 2, True, 1, 4),
     "march-ragged": ((5, 5, 5), (7, 4, 8), 2, True, 2, 4),
     "three-chunks": ((3, 3, 3), (2, 3, 12), 2, True, 1, 4),
     "c1": ((5, 5, 5), (2, 3, 8), 1, True, 8, 4),
     "c3": ((3, 4, 5), (2, 5, 4), 3, True, 8, 4),
-    "c4": ((9, 9, 9), (2, 2, 4), 4, True, tk.H100_SMS, 4),
+    "c4": ((9, 9, 9), (2, 2, 4), 4, True, cl.H100_SMS, 4),
     "c5-scalar": ((3, 3, 3), (4, 3, 6), 5, False, 8, 4),
     "c4-scalar-ragged": ((5, 3, 4), (3, 5, 7), 4, False, 8, 4),
 }
-
-
-@pytest.mark.parametrize("case", list(K4_MODEL_CASES))
-def test_k4_block_model_matches_plain(case):
-    ws, agg, c, vec, n_sm, wb = K4_MODEL_CASES[case]
-    grid = tuple(a * (w - 1) + 1 for a, w in zip(agg, ws))
-    plan = ttk.restrict_plan(ws, agg, c, vec, wb, n_sm)
-    if case == "uneven-gy":
-        assert plan.nay == 6
-    assert plan.nzc == (4 if case == "129^3-5^3-32^3" else 3 if case == "march-ragged"
-                        else 1)
-    if case == "march-ragged":
-        assert agg[0] % plan.nzc
-    if case == "march-ragged":
-        assert agg[1] % plan.nay
-    rng = np.random.default_rng(0)
-    W = torch.from_numpy(rng.standard_normal((c,) + ws + agg)).to(
-        torch.bfloat16 if wb == 2 else torch.float32)
-    x = torch.from_numpy(rng.standard_normal(int(np.prod(grid))))
-    got = restrict_block_model(W, x, ws, agg, grid, plan)
-    assert not torch.isnan(got).any(), "an output read a value no one wrote"
-    ref = ttk.structured_restrict_plain(W.double(), x, ws, agg, grid)
-    assert _rel(got, ref) <= K4_TOL
-
-
-def test_k4_plan_at_the_main_shapes():
-    """Both main shapes fill the card: at 129^3 (32^3 agglomerates of 5^3
-    windows) a row of 32 per block, 224 threads (200 items: 8 groups of 4
-    sites x 25 window rows), 2 lanes per output's final sum, marching over 4
-    slabs with float32 W (256 blocks of 92 KB, two per SM, all resident; one
-    slab each would take 3.9 waves) and one slab with bf16 (1,024 blocks of
-    51 KB, four per SM, 1.9 waves); on the distorted Q2
-    cube (8^3 of 9^3) half rows of 4, one slab, 128 blocks of 96 threads (81
-    items), as many as its runs of 4 give, 8 lanes per output; the ring's
-    row stride odd; everything within an H100 block's shared memory."""
-    f32 = ttk.restrict_plan((5,) * 3, (32,) * 3, 2, True, 4)
-    bf = ttk.restrict_plan((5,) * 3, (32,) * 3, 2, True, 2)
-    q = ttk.restrict_plan((9,) * 3, (8,) * 3, 2, True, 4)
-    fields = ("nay", "nax", "nzc", "vec", "threads", "red_lanes", "blocks")
-    assert tuple(getattr(f32, k) for k in fields) == (1, 32, 4, 1, 224, 2, 256)
-    assert tuple(getattr(bf, k) for k in fields) == (1, 32, 1, 1, 224, 2, 1024)
-    assert tuple(getattr(q, k) for k in fields) == (1, 4, 1, 1, 96, 8, 128)
-    assert f32.blocks <= 2 * tk.H100_SMS
-    assert 2 * (f32.smem_bytes + 1024) <= ttk.H100_SMEM_PER_SM
-    assert 4 * (bf.smem_bytes + 1024) <= ttk.H100_SMEM_PER_SM
-    assert bf.blocks <= ttk.RESTRICT_MAX_WAVES * 4 * tk.H100_SMS
-    for plan in (f32, bf, q):
-        assert plan.rowstride % 2 == 1 and plan.smem_bytes <= ttk.RESTRICT_MAX_SMEM
-    with pytest.raises(ValueError, match="gx % 4"):
-        ttk.restrict_plan((5,) * 3, (3, 4, 5), 2, True)
 
 
 # ------------------------------------------------------------------ K2
@@ -421,7 +355,7 @@ def cheb_blocked_model(planes, x, b, invd, coef, pos, grid_shape, degree,
     return (xs_out, res_out.reshape(-1)) if want_res else (xs_out,)
 
 
-def _random_sym_case(grid_shape, seed):
+def random_sym_case(grid_shape, seed):
     """Random positive planes of a Q1 27-point stencil, diagonally dominant
     center, and x, b, 1/diag, in float64."""
     rng = np.random.default_rng(seed)
@@ -435,12 +369,11 @@ def _random_sym_case(grid_shape, seed):
     return t[0], t[1], t[2], invd, pos
 
 
-@pytest.mark.parametrize("grid", [(19, 23, 37), (13, 41, 67)],
-                         ids=["19x23x37", "13x41x67"])
-@pytest.mark.parametrize("degree", [1, 2, 3])
-@pytest.mark.parametrize("want_res", [False, True], ids=["no-res", "res"])
-def test_k2_blocked_model_matches_plain(grid, degree, want_res):
-    planes, x, b, invd, pos = _random_sym_case(grid, degree)
+def check_k2_blocked_model(grid, degree, want_res):
+    """K2's blocked model against cheb_smooth_plain on random Q1 planes: the
+    plan's halo and frame within the kernel's, more than one tile on every
+    axis, no NaN reaching the output."""
+    planes, x, b, invd, pos = random_sym_case(grid, degree)
     coef = torch.tensor([0.9, 0.7, 0.5][:degree] + [0.0, 0.2, 0.1][:degree],
                         dtype=torch.float64)
     plan = tk.cheb_blocked_plan(grid, degree, want_res)
@@ -454,86 +387,12 @@ def test_k2_blocked_model_matches_plain(grid, degree, want_res):
                                want_res)
     for g, r in zip(got, ref):
         assert not torch.isnan(g).any(), "a point no block computed"
-        assert _rel(g, r) <= K2_TOL
-
-
-def test_k2_plan_tiles_split_evenly():
-    """The plan's tiles cover each axis with only the last one ragged, a
-    frame is at most 32 points wide and K2_FRAME_ROWS high, and the blocks
-    fill the SMs about K2_BLOCKS_PER_SM times at 129^3.  There, for the
-    degree-2 step with the residual (3 levels), the block reads each plane
-    slice over level 1's region (the tile and 2 points per side, cz + 4
-    slices): 1.81x the interior, above the 1.5x aimed at because a frame
-    is at most 16 rows (a warp per row, 512 threads); its applies over the
-    shrinking regions are 1.39x the chain's."""
-    for grid in ((129, 129, 129), (65, 65, 65), (19, 23, 37)):
-        for degree, res in itertools.product((1, 2, 3), (False, True)):
-            p = tk.cheb_blocked_plan(grid, degree, res)
-            for n, t, nb in zip(grid, (p.cz, p.ty, p.tx), p.grid[::-1]):
-                assert nb == -(-n // t) and n - (nb - 1) * t >= 1
-                assert t - (n - (nb - 1) * t) < nb
-            assert p.tx + 2 * p.halo <= 32
-            assert p.ty + 2 * p.halo <= tk.K2_FRAME_ROWS
-    p = tk.cheb_blocked_plan((129,) * 3, 2, True)
-    interior = p.ty * p.tx * p.cz
-
-    def region(m):                       # level L - m: margin m, in points
-        return (p.ty + 2 * m) * (p.tx + 2 * m) * (p.cz + 2 * m)
-
-    assert region(p.halo - 1) <= 1.85 * interior
-    assert sum(region(m) for m in range(p.halo)) <= 1.4 * p.halo * interior
-    n_blocks = int(np.prod(p.grid))
-    assert tk.H100_SMS <= n_blocks <= (tk.K2_BLOCKS_PER_SM + 1) * tk.H100_SMS
-
-
-def test_k2_form_rule():
-    """A step with the residual on Q1 planes (the 13 positive offsets of
-    radius 1, in their order) at degrees 1-3 goes to the blocked form on a
-    grid of more than K2_BLOCKED_MIN_POINTS points (129^3, not 65^3); the
-    step without the residual, smaller grids, the Q2 cube's 62 pairs of
-    radius 2 and degree 4 go to the chain."""
-    prob = LaplaceProblem.hyper_cube(3, 2, material_property="linear")
-    op = tst.stencil_from_cell_matrices(prob.mesh, prob.A_loc, prob.constrained,
-                                        prob.diag_raw, dtype=torch.float32)
-    assert op.sym_pos is not None and len(op.pos_offsets) == 13
-    assert tuple(op.pos_offsets) == tk.Q1_POS
-    small, g65, g129 = op.grid_shape, (65,) * 3, (129,) * 3
-    for degree, res, grid in itertools.product((1, 2, 3), (False, True),
-                                               (small, g65, g129)):
-        want = "blocked" if grid == g129 and res else "chain"
-        assert tk.k2_form(op.pos_offsets, degree, res, grid) == want
-    assert 65 ** 3 <= tk.K2_BLOCKED_MIN_POINTS < 129 ** 3
-    q2 = tuple(o for o in itertools.product(range(-2, 3), repeat=3)
-               if o > (0, 0, 0))
-    for res in (False, True):
-        assert tk.k2_form(op.pos_offsets, 4, res, g129) == "chain"
-        assert len(q2) == 62 and tk.k2_form(q2, 2, res, g129) == "chain"
-        # the kernel's offsets are compile-time: another order or subset of
-        # the radius-1 offsets goes to the chain
-        assert tk.k2_form(op.pos_offsets[::-1], 2, res, g129) == "chain"
-        assert tk.k2_form(op.pos_offsets[:7], 2, res, g129) == "chain"
-    with pytest.raises(ValueError, match="form 'blocked'"):
-        x = torch.zeros(int(np.prod(small)))
-        tk._cheb_smooth("blocked", torch.zeros((14,) + small), x, x, x,
-                        torch.zeros(4), tk.Q1_POS[::-1], small, 2)
-
-
-def test_k2_wrapper_counts_nothing_on_the_cpu():
-    """On CPU tensors K2 runs its plain version whatever the form."""
-    grid = (5, 6, 7)
-    planes, x, b, invd, pos = _random_sym_case(grid, 0)
-    planes, x, b, invd = (t.to(torch.float32) for t in (planes, x, b, invd))
-    coef = torch.tensor([0.9, 0.7, 0.0, 0.2], dtype=torch.float32)
-    tk.reset_launch_counts()
-    got = tk.cheb_smooth(planes, x, b, invd, coef, pos, grid, 2, True)
-    ref = tk.cheb_smooth_plain(planes, x, b, invd, coef, pos, grid, 2, True)
-    assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    assert all(v == 0 for v in tk.LAUNCHES.values())
+        assert rel(g, r) <= K2_TOL
 
 
 # ------------------------------------------------------------------ K1/K3
 
-def _cdiv(a, b):
+def cdiv(a, b):
     return -(-a // b)
 
 
@@ -569,7 +428,7 @@ def k13_tile_model(planes, x, offsets, grid, sym, plan):
     xv = x.numpy()
     r = max((abs(c) for off in offsets for c in off), default=0)
     rows_max, cols_max = plan.rows, plan.cols
-    n_xt, n_yt = _cdiv(gx, cols_max), _cdiv(gy, rows_max)
+    n_xt, n_yt = cdiv(gx, cols_max), cdiv(gy, rows_max)
     assert plan.blocks == n_xt * n_yt * gz
     assert rows_max == 1 or cols_max >= gx, "a tile is not one run"
     assert rows_max * cols_max <= tk.K13_MAX_TILE
@@ -618,59 +477,6 @@ K13_MODEL_CASES = {
     "K1-r1-row-segments": ((3, 4, 23), 1, True, False, (1, 7)),
     "K1-r1-one-slice": ((1, 5, 6), 1, True, False, None),
 }
-
-
-@pytest.mark.parametrize("case", list(K13_MODEL_CASES))
-@pytest.mark.parametrize("tile", [1024, 256], ids=["1024-point-tiles", "256-point-tiles"])
-def test_k13_tile_model_matches_plain(case, tile, monkeypatch):
-    """K1/K3's tiles, the points dealt to threads, x halos with zero fill,
-    and the backward term's shifted reads, against the plain versions in
-    float64 on ragged grids, radius 1-3, dense and sparse offsets, the
-    plan's whole-row tiles and row segments, one z slice (K1's reads
-    clamped at the planes' start); no NaN reaches the output (every point
-    written, no value read that was not loaded)."""
-    grid, radius, sym, sparse, override = K13_MODEL_CASES[case]
-    offsets = cube_offsets(radius, sym, sparse)
-    n = int(np.prod(grid))
-    n_v = 2 * len(offsets) + 1 if sym else len(offsets)
-    monkeypatch.setattr(tk, "K13_TILE_POINTS", tile)
-    plan = tk.stencil_tile_plan.__wrapped__(grid, radius, n_v)
-    if override is not None:
-        rows, cols = override
-        plan = plan._replace(rows=rows, cols=cols, blocks=_cdiv(grid[2], cols)
-                             * _cdiv(grid[1], rows) * grid[0])
-    rng = np.random.default_rng(len(offsets))
-    n_planes = 1 + len(offsets) if sym else len(offsets)
-    planes = torch.from_numpy(rng.uniform(-1, 1, (n_planes,) + grid))
-    x = torch.from_numpy(rng.uniform(-1, 1, n))
-    got = k13_tile_model(planes, x, offsets, grid, sym, plan)
-    ref = (tk.stencil_apply_sym_plain if sym else tk.stencil_apply_plain)(
-        planes, x, offsets, grid)
-    assert not torch.isnan(got).any(), "a point no block wrote, or a NaN read"
-    assert float((got - ref).abs().max()) <= K2_TOL * float(ref.abs().max())
-
-
-def test_k13_plan_at_the_main_shapes():
-    """K1/K3's plan: whole-row tiles of at most K13_TILE_POINTS points, split
-    evenly over y (only the last one ragged), more blocks than SMs at the
-    main shapes, shared memory that lets 3 blocks share an SM (228 KB); a
-    row longer than a tile is cut into even segments, and Q3's 343 terms
-    fit."""
-    cases = [((65,) * 3, 2, 125), ((65,) * 3, 1, 27), ((129,) * 3, 1, 27),
-             ((65,) * 3, 3, 343), ((49,) * 3, 3, 343), ((13,) * 3, 3, 343)]
-    for grid, r, n_v in cases:
-        p = tk.stencil_tile_plan(grid, r, n_v)
-        gz, gy, gx = grid
-        assert p.cols == gx and p.rows * gx <= tk.K13_TILE_POINTS
-        n_yt = _cdiv(gy, p.rows)
-        last = gy - (n_yt - 1) * p.rows
-        assert 1 <= last and p.rows - last < n_yt
-        assert p.blocks == n_yt * gz
-        assert p.blocks >= 2 * tk.H100_SMS or gx < 65
-        assert 3 * p.smem <= 228 * 1024
-        assert p.smem == tk.tile_smem_bytes(n_v, r, p.rows, p.cols)
-    p = tk.stencil_tile_plan((3, 4, 1500), 3, 343)
-    assert p.rows == 1 and p.cols == 750 and p.smem <= tk.H100_SMEM_PER_BLOCK
 
 
 # ------------------------------------------------------------ the fused tail
@@ -882,176 +688,11 @@ def tail_model(ft, plan, full, b1=None, x=None, res=None):
     return x - ft.fine_transfer(dt).prolong(xc)
 
 
-_TAIL_CASES = {
+TAIL_CASES = {
     # level-1 grid, fine windows, SMs of the plan: a warp per site and per
     # (e, a) (3 sites per block; 1 over 9^3 fine windows, as on the Q2
     # cube), and 8 lanes per site with the last block ragged
     "3x4x5-5^3": ((3, 4, 5), (5, 5, 5), 20),
     "5x7x9-3^3": ((5, 7, 9), (3, 3, 3), 8),
-    "2x3x2-9^3": ((2, 3, 2), (9, 9, 9), tk.H100_SMS),
+    "2x3x2-9^3": ((2, 3, 2), (9, 9, 9), cl.H100_SMS),
 }
-
-
-@pytest.mark.parametrize("case", list(_TAIL_CASES))
-@pytest.mark.parametrize("dense", [True, False], ids=["dense", "windowed"])
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("degree,nss", [(1, 1), (2, 1), (3, 1), (2, 2)],
-                         ids=["d1", "d2", "d3", "d2-nss2"])
-def test_tail_model_matches_plain(case, dense, bf16, degree, nss):
-    grid, fw, n_sm = _TAIL_CASES[case]
-    ft = random_tail(grid, 2, dense=dense, fine_window=fw, degree=degree,
-                     nss=nss, bf16=bf16, window=(4, 4, 4), stride=(2, 2, 2),
-                     t0=(-1, -1, -1), dtype=torch.float64, seed=degree)
-    plan = fc.plan_of(ft, n_sm)
-    if case == "5x7x9-3^3":
-        assert (plan.blocks, plan.sites, plan.group) == (8, 40, 8)
-    rng = np.random.default_rng(7)
-    b1 = torch.from_numpy(rng.standard_normal(ft.n1))
-    x = torch.from_numpy(rng.uniform(size=ft.n_fine))
-    res = torch.from_numpy(rng.standard_normal(ft.n_fine))
-    for full in (False, True):
-        got = (tail_model(ft, plan, True, x=x, res=res) if full
-               else tail_model(ft, plan, False, b1=b1))
-        ref = (fc.fused_correction_apply_plain(ft, x, res) if full
-               else fc.fused_subcycle_apply_plain(ft, b1))
-        assert not torch.isnan(got).any(), "a value no block computed"
-        assert _rel(got, ref) <= TAIL_TOL
-
-
-def test_tail_plan_at_the_main_shapes():
-    """At the 65^3, 129^3 and Q2-cube shapes (c = 2, 27 offsets), bf16 and
-    f32 weights: at most one block per SM, every site owned once (the last
-    block ragged at 129^3), the groups of lanes filling the block, and the
-    dynamic shared memory within the H100's 227 KB per block with the
-    coefficients (and the dense Rd columns) staged there."""
-    # (level-1 grid, n2, dense, the fine window's entries: 5^3, none in the
-    # sub-cycle mode at 129^3, 9^3)
-    shapes = {"65^3": ((16,) * 3, 256, True, 125),
-              "129^3": ((32,) * 3, 2048, False, 0), "Q2": ((8,) * 3, 32, True, 729)}
-    for name, (grid, n2, dense, table) in shapes.items():
-        n_sites = int(np.prod(grid))
-        for wb in (2, 4):
-            p = fc.tail_plan(grid, 2, 27, n2, dense, wb, table)
-            assert 1 <= p.blocks <= tk.H100_SMS
-            assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
-            assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK
-            assert p.stage_coeffs and p.stage_rd == int(dense)
-            for g, items in ((p.group, p.sites), (p.fine_group, 2 * p.sites),
-                             (p.row_parts, n2), (p.col_parts, 2 * p.sites)):
-                assert g in (1, 2, 4, 8, 16, 32)
-                assert g == 32 or 2 * g * items > fc.TAIL_THREADS
-                assert g == 1 or g * items <= fc.TAIL_THREADS
-            assert p.off_x2 >= 3 * p.sites * 2 * 4
-            assert p.off_tab >= p.off_x2 + 4 * n2
-            assert p.off_vb >= p.off_tab + 4 * table
-            assert p.off_coef >= p.off_vb + 4 * (fc.TAIL_THREADS // p.group) * 27 * 2
-            assert p.cstride >= 2 * 2 * p.sites * wb + 15
-            assert p.off_rd >= p.off_coef + 27 * p.cstride
-    # 65^3: 128 blocks of 32 sites, 16 lanes per site, 8 per (e, a) of the
-    # fine restriction (125 window entries: 16 per lane); the Q2 cube: 128
-    # blocks of 4 sites, a warp per site and per (e, a) (729 entries: 23 per
-    # lane); 129^3: 132 blocks, the last of 149 sites
-    p65 = fc.tail_plan((16,) * 3, 2, 27, 256, True, 2)
-    assert (p65.blocks, p65.sites, p65.group, p65.fine_group) == (128, 32, 16, 8)
-    pq = fc.tail_plan((8,) * 3, 2, 27, 32, True, 2)
-    assert (pq.blocks, pq.sites, pq.group, pq.fine_group) == (128, 4, 32, 32)
-    p129 = fc.tail_plan((32,) * 3, 2, 27, 2048, False, 2)
-    assert (p129.blocks, p129.sites) == (132, 249)
-    assert 32 ** 3 - 131 * 249 == 149
-    # the main shapes keep the all-shared plan of the kernel's design, field
-    # for field (the plans before global placement existed, recorded)
-    before = {
-        ((16,) * 3, 256, True, 2, 125): (128, 32, 16, 8, 2, 8, 1, 1, 272, 144, 9216,
-                                         16560, 768, 1792, 2304, 53424),
-        ((16,) * 3, 256, True, 4, 125): (128, 32, 16, 8, 2, 8, 1, 1, 528, 272, 9216,
-                                         23472, 768, 1792, 2304, 93104),
-        ((32,) * 3, 2048, False, 2, 0): (132, 249, 2, 1, 1, 1, 1, 0, 2016, 1024,
-                                         69472, 123904, 5984, 14176, 14176, 123904),
-        ((32,) * 3, 2048, False, 4, 0): (132, 249, 2, 1, 1, 1, 1, 0, 4000, 2016,
-                                         69472, 177472, 5984, 14176, 14176, 177472),
-        ((8,) * 3, 32, True, 2, 729): (128, 4, 32, 32, 16, 32, 1, 1, 48, 32, 6608,
-                                       7904, 96, 224, 3152, 8928),
-        ((8,) * 3, 32, True, 4, 729): (128, 4, 32, 32, 16, 32, 1, 1, 80, 48, 6608,
-                                       8768, 96, 224, 3152, 10304),
-    }
-    for (grid, n2, dense, wb, table), fields in before.items():
-        assert tuple(fc.tail_plan(grid, 2, 27, n2, dense, wb, table)) == fields + (1, 1, 1)
-    # beyond the card's shared memory the weights stay in global memory;
-    # where not even the block's own vectors, x2 and gather buffer fit, the
-    # plan places them in global scratch (test_tail_plan_places_in_global_memory)
-    big = fc.tail_plan((64,) * 3, 2, 27, 16384, False, 4)
-    assert not big.stage_coeffs and big.smem_bytes <= fc.H100_SMEM_PER_BLOCK
-    over = fc.tail_plan((64,) * 3, 8, 27, 16384, False, 4)
-    assert (over.stage_vecs, over.stage_x2, over.stage_vb) == (1, 0, 1)
-    assert over.smem_bytes <= fc.H100_SMEM_PER_BLOCK
-
-
-@pytest.mark.parametrize("case", list(UNSTAGED_TAILS))
-def test_tail_plan_leaves_what_does_not_fit(case):
-    """Tails whose weights do not all fit an H100 block's shared memory
-    (the card test test_fused_tail_unstaged_matches_plain runs them): the
-    plan stages what fits, in order coefficients then Rd, owns every site
-    once and stays within 227 KB."""
-    kw, staged = UNSTAGED_TAILS[case]
-    ft = random_tail(fine_window=(3, 3, 3), **kw)
-    p = fc.plan_of(ft)
-    assert (p.stage_coeffs, p.stage_rd) == staged
-    assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK
-    n_sites = int(np.prod(ft.grid))
-    assert p.blocks <= tk.H100_SMS
-    assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
-    coef_bytes = len(ft.offsets) * p.cstride
-    rd_bytes = ft.n2 * p.rstride
-    # what is not staged would not have fit beside what is
-    if not p.stage_coeffs:
-        assert p.off_coef + coef_bytes > fc.H100_SMEM_PER_BLOCK
-    if ft.Rd is not None and not p.stage_rd:
-        assert p.off_rd + rd_bytes > fc.H100_SMEM_PER_BLOCK
-    assert p.smem_bytes == (p.off_rd + p.stage_rd * rd_bytes
-                            if ft.Rd is not None else p.off_rd)
-
-
-# (level-1 grid, c, n2): what the plan leaves in global memory, in order:
-# x2 (64^3 level-1 sites at c = 8, a 257^3 fine grid: the vectors 190,656
-# bytes and x2 65,536 do not fit beside each other), then the gather buffer
-# (66 x 66 x 70 sites: vectors 221,760 bytes), then the vectors (80^3)
-PLACEMENTS = {
-    "64^3-c8": ((64, 64, 64), 8, 16384, (1, 0, 1)),
-    "66x66x70-c8": ((66, 66, 70), 8, 16384, (1, 0, 0)),
-    "80^3-c8": ((80, 80, 80), 8, 16384, (0, 0, 0)),
-}
-
-
-@pytest.mark.parametrize("case", list(PLACEMENTS))
-@pytest.mark.parametrize("wb", [2, 4], ids=["bf16", "f32"])
-def test_tail_plan_places_in_global_memory(case, wb):
-    """Tails whose block vectors, x2 or gather buffer overflow an H100
-    block's shared memory get a plan (build_fused_tail no longer gives them
-    to the generic recursion): what does not fit lies in global scratch,
-    what stays in shared memory is laid out as before within 227 KB, every
-    site owned once, and the scratch holds the blocks' vectors and gather
-    buffers from 16-byte boundaries."""
-    grid, c, n2, placed = PLACEMENTS[case]
-    p = fc.tail_plan(grid, c, 27, n2, False, wb)
-    assert (p.stage_vecs, p.stage_x2, p.stage_vb) == placed
-    assert p.smem_bytes <= fc.H100_SMEM_PER_BLOCK and not p.stage_coeffs
-    n_sites = int(np.prod(grid))
-    assert (p.blocks - 1) * p.sites < n_sites <= p.blocks * p.sites
-    vec = -(-3 * p.sites * c * 4 // 16) * 16
-    vb = -(-4 * (fc.TAIL_THREADS // p.group) * 27 * c // 16) * 16
-    assert p.off_x2 == p.stage_vecs * vec
-    assert p.off_tab == p.off_x2 + p.stage_x2 * 4 * n2
-    assert p.off_coef == p.off_vb + p.stage_vb * vb
-    # the placement before this one would not have fit
-    if p.stage_vecs and not p.stage_x2 and p.stage_vb:
-        assert vec + 4 * n2 + vb > fc.H100_SMEM_PER_BLOCK
-    if not p.stage_vb:
-        assert vec + -(-4 * 16 * 27 * c // 16) * 16 > fc.H100_SMEM_PER_BLOCK
-    n1 = n_sites * c
-    base = -(-(5 * n1 + (p.blocks + 2) * n2) // 4) * 4
-    want = base
-    if not p.stage_vecs:
-        want = -(-(want + p.blocks * 3 * p.sites * c) // 4) * 4
-    if not p.stage_vb:
-        want += p.blocks * (fc.TAIL_THREADS // p.group) * 27 * c
-    assert fc.scratch_floats(p, n1, n2, c, 27) == want

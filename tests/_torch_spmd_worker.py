@@ -147,11 +147,11 @@ def card_world(mesh, path, b, x0):
     """The sharded V-cycle of a saved hierarchy on mesh.device: the
     gathered output and the kernel launches of one cycle."""
     from mfmg_torch import Hierarchy
-    from mfmg_torch.ops import stencil_kernels as tk
+    from mfmg_torch.ops import cuda_library as cl
     from mfmg_torch.parallel.spmd import build_spmd_vcycle
     sv = build_spmd_vcycle(Hierarchy.load(path, device="cpu"), mesh)
     bg, xg = sv.to_grid(b), sv.to_grid(x0)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     y = sv.fn(bg, xg)
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    launches = {k: v for k, v in cl.LAUNCHES.items() if v}
     return dict(out=sv.from_grid(y).cpu().numpy(), launches=launches)

@@ -65,6 +65,7 @@ from _torch_ell import ell_kernel_model, random_csr
 from _torch_tails import UNSTAGED_TAILS, random_tail
 from mfmg_torch import Hierarchy, LaplaceProblem
 from mfmg_torch.amge.hierarchy import LevelData
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import fused_cycle as tfc
 from mfmg_torch.ops import stencil as tst
 from mfmg_torch.ops import stencil_kernels as tk
@@ -100,10 +101,10 @@ def test_k1_matches_plain(cuda, n_ref, dtype):
     p, op, _ = _op(n_ref, dtype, cuda)
     x = torch.from_numpy(np.random.default_rng(0).uniform(
         -1, 1, p.n_dofs).astype(np.float32)).to(cuda)
-    before = tk.LAUNCHES["stencil_apply_sym"]
+    before = cl.LAUNCHES["stencil_apply_sym"]
     y = tk.stencil_apply_sym(op.planes, x, op.pos_offsets, op.grid_shape)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["stencil_apply_sym"] == before + 1
+    assert cl.LAUNCHES["stencil_apply_sym"] == before + 1
     ref = tk.stencil_apply_sym_plain(op.planes, x, op.pos_offsets, op.grid_shape)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
@@ -147,7 +148,7 @@ def _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, device, form=None):
             for _ in range(2))
     for want_res in (False, True):
         args = (planes, x, b, inv_diag, coef, pos, grid, degree, want_res)
-        got = tk.cheb_smooth(*args) if form is None else tk._cheb_smooth(form, *args)
+        got = tk.cheb_smooth(*args) if form is None else tk.cheb_smooth_as(form, *args)
         ref = tk.cheb_smooth_plain(*args)
         torch.cuda.synchronize()
         assert torch.isfinite(got[0]).all()
@@ -162,10 +163,10 @@ def _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, device, form=None):
 def test_k2_matches_plain(cuda, case, degree, dtype):
     """K2's blocked form on Q1 planes, one launch per call."""
     planes, pos, grid, inv_diag, coef, n = _k2_case(case, dtype, degree, cuda)
-    before = dict(tk.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     _hold_k2(planes, pos, grid, inv_diag, coef, n, degree, cuda, form="blocked")
-    assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"] + 2
-    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"]
+    assert cl.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"] + 2
+    assert cl.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"]
 
 
 @pytest.mark.parametrize("case", ["Q2-cube-33^3", "Q1-33^3"])
@@ -190,10 +191,10 @@ def test_k2_chain_matches_plain(cuda, case, dtype):
         inv_diag, coef, n = fused.inv_diag, fused.coef, p.n_dofs
     assert all(tk.k2_form(tuple(pos), 2, r, tuple(grid)) == "chain"
                for r in (False, True))
-    before = dict(tk.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     _hold_k2(planes, pos, grid, inv_diag, coef, n, 2, cuda)
-    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
-    assert tk.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"]
+    assert cl.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
+    assert cl.LAUNCHES["cheb_smooth_blocked"] == before["cheb_smooth_blocked"]
 
 
 def _q3_symmetric(dtype, device):
@@ -221,15 +222,15 @@ def test_symmetric_q3_on_the_card(cuda, dtype):
     p, op, fused = _q3_symmetric(dtype, cuda)
     x = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, p.n_dofs).astype(np.float32)).to(cuda)
-    before = dict(tk.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     y = op(x)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["stencil_apply_sym"] == before["stencil_apply_sym"] + 1
+    assert cl.LAUNCHES["stencil_apply_sym"] == before["stencil_apply_sym"] + 1
     ref = tk.stencil_apply_sym_plain(op.planes, x, op.pos_offsets, op.grid_shape)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     _hold_k2(op.planes, op.pos_offsets, op.grid_shape, fused.inv_diag, fused.coef,
              p.n_dofs, 2, cuda)
-    assert tk.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
+    assert cl.LAUNCHES["cheb_smooth_chain"] == before["cheb_smooth_chain"] + 2
 
 
 K13_CASES = {
@@ -264,11 +265,11 @@ def test_k13_tiles_match_plain(cuda, case, dtype):
     fn, plain, key = ((tk.stencil_apply_sym, tk.stencil_apply_sym_plain,
                        "stencil_apply_sym") if sym else
                       (tk.stencil_apply, tk.stencil_apply_plain, "stencil_apply"))
-    before = tk.LAUNCHES[key]
+    before = cl.LAUNCHES[key]
     y, again = fn(planes, x, offsets, grid), fn(planes, x, offsets, grid)
     ref = plain(planes, x, offsets, grid)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES[key] == before + 2
+    assert cl.LAUNCHES[key] == before + 2
     assert torch.equal(y, again)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
@@ -293,9 +294,9 @@ def test_cuda_hierarchy_matches_cpu(cuda):
     b = np.random.default_rng(2).uniform(size=prob.n_dofs).astype(np.float32)
     y_generic = hc.vmult(b)
     hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
-    assert all(tk.LAUNCHES[k] > 0
+    assert all(cl.LAUNCHES[k] > 0
                for k in ("stencil_apply_sym", "cheb_smooth", "fused_tail"))
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
@@ -318,10 +319,10 @@ def test_k3_matches_plain(cuda, degree, n_ref, dtype):
         host.coeffs, host.offsets, host.grid_shape, None), cuda)
     x = torch.from_numpy(np.random.default_rng(5).uniform(
         -1, 1, p.n_dofs).astype(np.float32)).to(cuda)
-    before = tk.LAUNCHES["stencil_apply"]
+    before = cl.LAUNCHES["stencil_apply"]
     y = op(x)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["stencil_apply"] == before + 1
+    assert cl.LAUNCHES["stencil_apply"] == before + 1
     ref = tk.stencil_apply_plain(op.coeffs, x, op.offsets, op.grid_shape)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
@@ -345,11 +346,11 @@ def test_k4_k5_match_plain(cuda, shape, bf16):
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.standard_normal(tr.shape[1]).astype(np.float32)).to(cuda)
     xc = torch.from_numpy(rng.standard_normal(tr.shape[0]).astype(np.float32)).to(cuda)
-    before = dict(tk.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     rx, py = ttk.structured_restrict(W, x, *g), ttk.structured_prolong(W, xc, *g)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["structured_restrict"] == before["structured_restrict"] + 1
-    assert tk.LAUNCHES["structured_prolong"] == before["structured_prolong"] + 1
+    assert cl.LAUNCHES["structured_restrict"] == before["structured_restrict"] + 1
+    assert cl.LAUNCHES["structured_prolong"] == before["structured_prolong"] + 1
     assert _rel(rx, ttk.structured_restrict_plain(W, x, *g)) <= 1e-5
     assert _rel(py, ttk.structured_prolong_plain(W, xc, *g)) <= 1e-5
     lhs, rhs = float(torch.dot(rx, xc)), float(torch.dot(x, py))
@@ -401,10 +402,10 @@ def test_k4_matches_plain_at_its_plans(cuda, case, bf16):
         assert {"uneven-gy": plan.nay == 6, "march-ragged": plan.nzc == 3,
                 "three-chunks": plan.nax == 12}[case]
         run = lambda: ttk._restrict_with_plan(plan, W, x, *g)    # noqa: E731
-    before = tk.LAUNCHES["structured_restrict"]
+    before = cl.LAUNCHES["structured_restrict"]
     first, second = run(), run()
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["structured_restrict"] == before + 2
+    assert cl.LAUNCHES["structured_restrict"] == before + 2
     assert torch.equal(first, second)
     assert _rel(first, ttk.structured_restrict_plain(W, x, *g)) <= 1e-5
 
@@ -420,14 +421,14 @@ def test_overflowing_tail_runs_the_kernel(cuda):
     ft = levels[0].fused
     del ft0
     assert ft is not None and ft.n2 == 16384
-    p = tfc.plan_of(ft, tk._sm_count(cuda))
+    p = tfc.plan_of(ft, cl.sm_count(cuda))
     assert (p.stage_vecs, p.stage_x2, p.stage_vb) == (1, 0, 1)
     b1 = torch.from_numpy(np.random.default_rng(9).standard_normal(ft.n1)
                           .astype(np.float32)).to(cuda)
-    before = tk.LAUNCHES["fused_tail"]
+    before = cl.LAUNCHES["fused_tail"]
     got, again = tfc.fused_subcycle_apply(ft, b1), tfc.fused_subcycle_apply(ft, b1)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["fused_tail"] == before + 2
+    assert cl.LAUNCHES["fused_tail"] == before + 2
     assert torch.equal(got, again)
     assert _rel(got, tfc.fused_subcycle_apply_plain(ft, b1)) <= TAIL_TOL
 
@@ -463,31 +464,31 @@ def test_q2_hierarchy_runs_its_kernels(cuda):
     hc = Hierarchy(hg.problem, _main_config(), device="cpu")
     hc.levels[0].fused = tfc.build_fused_tail(hc.levels, 1, reduced_storage=True)
     b = np.random.default_rng(7).uniform(size=hg.problem.n_dofs).astype(np.float32)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     n = ig["iterations"] + 1
-    assert tk.LAUNCHES["fused_tail"] == n
+    assert cl.LAUNCHES["fused_tail"] == n
     if hg.levels[0].op.sym_pos is None:
         # 5 per V-cycle (two per degree-2 smooth, the residual) and one per
         # CG apply (the initial residual and one per iteration)
-        assert tk.LAUNCHES["stencil_apply"] == 6 * n
-        assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
+        assert cl.LAUNCHES["stencil_apply"] == 6 * n
+        assert cl.LAUNCHES["stencil_apply_sym"] == cl.LAUNCHES["cheb_smooth"] == 0
     else:
-        assert tk.LAUNCHES["cheb_smooth"] == 2 * n
-        assert tk.LAUNCHES["stencil_apply_sym"] == n
-        assert tk.LAUNCHES["stencil_apply"] == 0
+        assert cl.LAUNCHES["cheb_smooth"] == 2 * n
+        assert cl.LAUNCHES["stencil_apply_sym"] == n
+        assert cl.LAUNCHES["stencil_apply"] == 0
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
     hg.levels[0].fused = None
     try:
-        tk.reset_launch_counts()
+        cl.reset_launch_counts()
         hg.vmult(b)
         torch.cuda.synchronize()
     finally:
         hg.levels[0].fused = ft
-    assert tk.LAUNCHES["structured_restrict"] == 1
-    assert tk.LAUNCHES["structured_prolong"] == 1
+    assert cl.LAUNCHES["structured_restrict"] == 1
+    assert cl.LAUNCHES["structured_prolong"] == 1
 
 
 def _one_sided(prob, dtype):
@@ -517,12 +518,12 @@ def test_one_sided_q2_cube_runs_k3_and_the_tail(cuda):
     assert isinstance(h.levels[0].smoother, ChebyshevSmoother)
     ft = h.levels[0].fused
     assert ft is not None and ft.fine_window == (9, 9, 9)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = h.solve_cg(b, tol=1e-5, maxiter=50)
     n = ig["iterations"] + 1
-    assert tk.LAUNCHES["stencil_apply"] == 6 * n
-    assert tk.LAUNCHES["fused_tail"] == n
-    assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
+    assert cl.LAUNCHES["stencil_apply"] == 6 * n
+    assert cl.LAUNCHES["fused_tail"] == n
+    assert cl.LAUNCHES["stencil_apply_sym"] == cl.LAUNCHES["cheb_smooth"] == 0
     assert ig["iterations"] == ic["iterations"]
     assert _rel(h.vmult(b).cpu(), yc) <= 1e-5
 
@@ -539,13 +540,13 @@ def test_distorted_q2_runs_k3_k4_k5(cuda):
     hg, hc = Hierarchy(prob, cfg), Hierarchy(prob, cfg, device="cpu")
     assert hg.levels[0].op.sym_pos is None and hg.levels[0].fused is None
     b = np.random.default_rng(8).uniform(size=prob.n_dofs).astype(np.float32)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     n = ig["iterations"] + 1
-    assert tk.LAUNCHES["stencil_apply"] == 6 * n
-    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
-    assert tk.LAUNCHES["stencil_apply_sym"] == tk.LAUNCHES["cheb_smooth"] == 0
-    assert tk.LAUNCHES["fused_tail"] == 0
+    assert cl.LAUNCHES["stencil_apply"] == 6 * n
+    assert cl.LAUNCHES["structured_restrict"] == cl.LAUNCHES["structured_prolong"] == n
+    assert cl.LAUNCHES["stencil_apply_sym"] == cl.LAUNCHES["cheb_smooth"] == 0
+    assert cl.LAUNCHES["fused_tail"] == 0
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
@@ -574,10 +575,10 @@ def test_hierarchy_to_moves_every_level(cuda):
     assert isinstance(h.levels[0].smoother, FusedChebyshevSmoother)
     ft = h.levels[0].fused
     assert ft is not None and ft.coeffs.dtype == torch.bfloat16
-    before = dict(tk.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     yg = h.vmult(b).cpu()
-    assert tk.LAUNCHES["fused_tail"] == before["fused_tail"] + 1
-    assert tk.LAUNCHES["cheb_smooth"] > before["cheb_smooth"]
+    assert cl.LAUNCHES["fused_tail"] == before["fused_tail"] + 1
+    assert cl.LAUNCHES["cheb_smooth"] > before["cheb_smooth"]
     assert _rel(yg, yc) <= 1e-5
     assert _rel(yg, y_generic) <= BF16_STORAGE_GAP
 
@@ -651,7 +652,7 @@ def _tail_case(case, cuda):
     if case in _RANDOM_TAILS:
         ft = random_tail(device=cuda, **_RANDOM_TAILS[case])
         if case.startswith("unstaged-"):
-            p = tfc.plan_of(ft, tk._sm_count(cuda))
+            p = tfc.plan_of(ft, cl.sm_count(cuda))
             staged = UNSTAGED_TAILS[case.removeprefix("unstaged-")][1]
             assert (p.stage_coeffs, p.stage_rd) == staged
         return ft
@@ -677,11 +678,11 @@ def test_fused_tail_matches_plain(cuda, case):
     two smoothing steps, and tails that leave weights in global memory."""
     ft = _tail_case(case, cuda)
     b1, x, res = _tail_inputs(ft, 4, cuda)
-    before = tk.LAUNCHES["fused_tail"]
+    before = cl.LAUNCHES["fused_tail"]
     got = tfc.fused_subcycle_apply(ft, b1)
     out = tfc.fused_correction_apply(ft, x, res)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["fused_tail"] == before + 2
+    assert cl.LAUNCHES["fused_tail"] == before + 2
     assert _rel(got, tfc.fused_subcycle_apply_plain(ft, b1)) <= TAIL_TOL
     assert _rel(out, tfc.fused_correction_apply_plain(ft, x, res)) <= TAIL_TOL
 
@@ -709,10 +710,10 @@ def test_cuda_hierarchy_runs_the_tail(cuda):
     assert ft is not None and ft.fine_grid is not None
     assert ft.coeffs.dtype == torch.bfloat16 and ft.invd.dtype == torch.float32
     b = np.random.default_rng(4).uniform(size=h.problem.n_dofs).astype(np.float32)
-    before = tk.LAUNCHES["fused_tail"]
+    before = cl.LAUNCHES["fused_tail"]
     h.vmult(b)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["fused_tail"] == before + 1
+    assert cl.LAUNCHES["fused_tail"] == before + 1
 
 
 def test_fused_tail_wrappers_raise_on_mismatch(cuda):
@@ -832,12 +833,12 @@ def test_distorted_q2_three_levels_on_the_card(cuda):
     assert isinstance(hg.levels[1].transfer, ELLTransfer)
     assert isinstance(hg.levels[2].op, ELLMatrix)
     b = np.random.default_rng(10).uniform(size=prob.n_dofs).astype(np.float32)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     n = ig["iterations"] + 1
-    assert tk.LAUNCHES["stencil_apply"] == 6 * n
-    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
-    assert tk.LAUNCHES["fused_tail"] == 0
+    assert cl.LAUNCHES["stencil_apply"] == 6 * n
+    assert cl.LAUNCHES["structured_restrict"] == cl.LAUNCHES["structured_prolong"] == n
+    assert cl.LAUNCHES["fused_tail"] == 0
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
@@ -854,13 +855,13 @@ def test_four_level_q1_on_the_card(cuda):
     assert hg.per_cell_levels == [2]
     assert isinstance(hg.levels[0].smoother, FusedChebyshevSmoother)
     b = np.random.default_rng(11).uniform(size=prob.n_dofs).astype(np.float32)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     _, ig = hg.solve_cg(b, tol=1e-5, maxiter=50)
     n = ig["iterations"] + 1
-    assert tk.LAUNCHES["stencil_apply_sym"] == n
-    assert tk.LAUNCHES["cheb_smooth"] == 2 * n
-    assert tk.LAUNCHES["structured_restrict"] == tk.LAUNCHES["structured_prolong"] == n
-    assert tk.LAUNCHES["fused_tail"] == 0
+    assert cl.LAUNCHES["stencil_apply_sym"] == n
+    assert cl.LAUNCHES["cheb_smooth"] == 2 * n
+    assert cl.LAUNCHES["structured_restrict"] == cl.LAUNCHES["structured_prolong"] == n
+    assert cl.LAUNCHES["fused_tail"] == 0
     _, ic = hc.solve_cg(b, tol=1e-5, maxiter=50)
     assert ig["iterations"] == ic["iterations"]
     assert _rel(hg.vmult(b).cpu(), hc.vmult(b)) <= 1e-5
@@ -926,16 +927,16 @@ def test_ell_kernel_matches_plain(cuda, case, dtype):
     ELL_KERNEL_TOL x max|y|, two applies bit-equal."""
     from mfmg_torch.ops.sparse import ell_spmv_plain
     E, x = _ell_case(case, dtype, cuda)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     y, again = E(x), E(x)
     ref = ell_spmv_plain(E.vals, E.cols, x)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == (E.shape[0],) and y.is_cuda
     assert torch.equal(y, again)
     if E.vals.shape[1] == 0:
-        assert tk.LAUNCHES["ell_spmv"] == 0 and not y.any()
+        assert cl.LAUNCHES["ell_spmv"] == 0 and not y.any()
         return
-    assert tk.LAUNCHES["ell_spmv"] == 2
+    assert cl.LAUNCHES["ell_spmv"] == 2
     scale = float(ref.abs().max())
     assert float((y - ref).abs().max()) <= ELL_KERNEL_TOL[dtype] * scale
 
@@ -948,7 +949,7 @@ def test_ell_kernel_repeats_its_model_bits(cuda, case, dtype):
     from mfmg_torch.ops.sparse import ell_plan
     E, x = _ell_case(case, dtype, cuda)
     vals, cols, xh = (t.cpu().numpy() for t in (E.vals, E.cols, x))
-    plan = ell_plan(*vals.shape, vals.itemsize, tk._sm_count(cuda))
+    plan = ell_plan(*vals.shape, vals.itemsize, cl.sm_count(cuda))
     y = E(x).cpu().numpy()
     np.testing.assert_array_equal(y, ell_kernel_model(vals, cols, xh, plan))
 
@@ -971,10 +972,10 @@ def test_ell_kernel_refuses(cuda, what):
         E = ELLMatrix(E.vals, E.cols.long(), E.n_cols)
     else:
         E, x = ELLMatrix(E.vals.bfloat16(), E.cols, E.n_cols), x.bfloat16()
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     with pytest.raises(ValueError):
         E(x)
-    assert tk.LAUNCHES["ell_spmv"] == 0
+    assert cl.LAUNCHES["ell_spmv"] == 0
 
 
 def test_ell_kernel_once_per_apply_span_on_a_ball(cuda):
@@ -987,7 +988,7 @@ def test_ell_kernel_once_per_apply_span_on_a_ball(cuda):
     h = Hierarchy(prob, _unstructured_config(mesh))
     b = np.random.default_rng(13).uniform(size=prob.n_dofs).astype(np.float32)
     b[prob.constrained] = 0.0
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     trace.take()
     trace.enable(profiler_ranges=False)
     try:
@@ -997,7 +998,7 @@ def test_ell_kernel_once_per_apply_span_on_a_ball(cuda):
     spans = trace.take()
     n_apply = sum(sp.name == "ell.apply" for sp in spans)
     assert info["iterations"] > 0 and n_apply > 0
-    assert {k: v for k, v in tk.LAUNCHES.items() if v} == {"ell_spmv": n_apply}
+    assert {k: v for k, v in cl.LAUNCHES.items() if v} == {"ell_spmv": n_apply}
 
 
 def _unstructured_config(mesh, dtype="float32"):
@@ -1086,6 +1087,22 @@ def test_matrix_free_applies_repeat_their_bits(cuda, mesh, mode):
 SUMFAC_F32_TOL = 1e-5
 
 
+def _traced(fn):
+    """fn() with tracing on and the launch counts reset: its result and
+    the spans it opened, counted by name."""
+    from mfmg_torch.utils import trace
+    cl.reset_launch_counts()
+    trace.take()
+    trace.enable(profiler_ranges=False)
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    counts = trace.counts()
+    trace.take()
+    return out, counts
+
+
 def test_sumfac_apply_at_65_cubed_against_the_reference(cuda):
     """The sum-factorised apply of the benchmark's Q2 cell (65^3 nodes,
     274,625 dofs, "linear" material) in float32 on the card against the
@@ -1103,9 +1120,8 @@ def test_sumfac_apply_at_65_cubed_against_the_reference(cuda):
     op = p.matrix_free_operator(dtype=torch.float32, mode="sumfac", device=cuda)
     x = torch.from_numpy(np.random.default_rng(18).standard_normal(
         p.n_dofs)).to(cuda, torch.float32)
-    tk.reset_launch_counts()
-    y = op(x)
-    assert tk.APPLIES["sumfac"] == 1
+    y, spans = _traced(lambda: op(x))
+    assert spans == {"sumfac.apply": 1}
     y_ref = ref.to_program(ref.op.apply(ref.to_ref(x.double())))
     err = float((y.double() - y_ref).abs().max() / y_ref.abs().max())
     assert err <= SUMFAC_F32_TOL, err
@@ -1136,9 +1152,8 @@ def test_sumfac_kernel_matches_plain(cuda, degree, dtype):
     assert op.kernel_shape and float(op.K.std(dim=0).max()) > 0
     x = torch.from_numpy(np.random.default_rng(19).standard_normal(
         p.n_dofs)).to(cuda, dtype)
-    tk.reset_launch_counts()
-    y, again = op(x), op(x)
-    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 2
+    (y, again), spans = _traced(lambda: (op(x), op(x)))
+    assert cl.LAUNCHES["sumfac"] == spans["sumfac.apply"] == 2
     ref = sumfac_apply(op, x)
     torch.cuda.synchronize()
     assert torch.equal(y, again)
@@ -1157,9 +1172,8 @@ def test_sumfac_plain_body_on_other_shapes(cuda, dim, degree):
     op = p.matrix_free_operator(mode="sumfac", device=cuda)
     assert not op.kernel_shape
     x = np.random.default_rng(20).standard_normal(p.n_dofs)
-    tk.reset_launch_counts()
-    y = op(torch.from_numpy(x).to(cuda)).cpu()
-    assert tk.LAUNCHES["sumfac"] == 0 and tk.APPLIES["sumfac"] == 1
+    y, spans = _traced(lambda: op(torch.from_numpy(x).to(cuda)).cpu())
+    assert cl.LAUNCHES["sumfac"] == 0 and spans["sumfac.apply"] == 1
     y_cpu = p.matrix_free_operator(mode="sumfac", device="cpu")(torch.from_numpy(x))
     assert float((y - y_cpu).abs().max()) <= 1e-12 * float(y_cpu.abs().max())
 
@@ -1180,10 +1194,10 @@ def test_sumfac_kernel_refuses(cuda, what):
         op.K = op.K.transpose(-1, -2)
     else:
         x = x[:, None]
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     with pytest.raises(ValueError):
         op(x)
-    assert tk.LAUNCHES["sumfac"] == 0
+    assert cl.LAUNCHES["sumfac"] == 0
 
 
 def test_sumfac_kernel_once_per_apply_through_a_q2_solve(cuda):
@@ -1201,20 +1215,19 @@ def test_sumfac_kernel_once_per_apply_through_a_q2_solve(cuda):
     h = Hierarchy(p, program_config(cfg))
     b = np.random.default_rng(0).uniform(size=p.n_dofs).astype(np.float32)
     b[p.constrained] = 0.0
-    tk.reset_launch_counts()
-    _, info = h.solve_cg(b, tol=cfg["solver"]["tolerance"], maxiter=50)
+    (_, info), spans = _traced(
+        lambda: h.solve_cg(b, tol=cfg["solver"]["tolerance"], maxiter=50))
     assert info["iterations"] == 15
-    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 96
+    assert cl.LAUNCHES["sumfac"] == spans["sumfac.apply"] == 96
 
 
 def test_sumfac_kernel_launches_nothing_through_a_q1_stencil_solve(cuda):
     p = LaplaceProblem.hyper_cube(3, 4, material_property="linear")
     h = Hierarchy(p, _main_config())
     b = np.random.default_rng(0).uniform(size=p.n_dofs).astype(np.float32)
-    tk.reset_launch_counts()
-    _, info = h.solve_cg(b, tol=1e-5, maxiter=50)
-    assert info["iterations"] > 0 and tk.LAUNCHES["stencil_apply_sym"] > 0
-    assert tk.LAUNCHES["sumfac"] == tk.APPLIES["sumfac"] == 0
+    (_, info), spans = _traced(lambda: h.solve_cg(b, tol=1e-5, maxiter=50))
+    assert info["iterations"] > 0 and cl.LAUNCHES["stencil_apply_sym"] > 0
+    assert cl.LAUNCHES["sumfac"] == spans.get("sumfac.apply", 0) == 0
 
 
 def test_multicolor_colors_on_the_card(cuda):
@@ -1412,10 +1425,10 @@ def test_save_load_on_the_card(cuda, tmp_path):
     counts = []
     outs = []
     for hh in (h, h2):
-        tk.reset_launch_counts()
+        cl.reset_launch_counts()
         outs.append(hh.vmult(b))
         torch.cuda.synchronize()
-        counts.append({k: v for k, v in tk.LAUNCHES.items() if v})
+        counts.append({k: v for k, v in cl.LAUNCHES.items() if v})
     assert torch.equal(outs[0], outs[1])
     assert counts[0] == counts[1] and counts[0].get("fused_tail") == 1
     h3 = Hierarchy.load(path, p, device="cpu")

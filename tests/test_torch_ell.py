@@ -49,8 +49,8 @@ from mfmg_torch.amge.hierarchy import levels_from_arrays
 from mfmg_torch.amge.hierarchy import measure_vcycle_rate as t_rate
 from mfmg_torch.amge.hierarchy import vcycle as t_vcycle
 from mfmg_torch.eigen import device_eig as tde
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import sparse as tsp
-from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops.sparse import ELLMatrix, ELLTransfer
 from mfmg_torch.solve.operator import operator_diagonal as t_diag
 from mfmg_torch.solve.smoothers import JacobiSmoother
@@ -189,10 +189,10 @@ def test_ell_plain_and_kernel_model_match_scipy(case, dtype):
 def test_ell_cpu_apply_launches_nothing(dtype):
     A, _ = _random_csr("square")
     E = tsp.ell_from_scipy(A, dtype=dtype)
-    tk.reset_launch_counts()
+    cl.reset_launch_counts()
     y = E(torch.ones(A.shape[1], dtype=dtype))
     assert y.dtype == dtype and y.shape == (A.shape[0],)
-    assert tk.LAUNCHES["ell_spmv"] == 0
+    assert cl.LAUNCHES["ell_spmv"] == 0
 
 
 def test_ell_transfer_restricts_and_prolongs():

@@ -33,8 +33,8 @@ from mfmg_torch import Hierarchy as THierarchy
 from mfmg_torch import LaplaceProblem as TLaplace
 from mfmg_torch.amge.hierarchy import levels_from_arrays
 from mfmg_torch.amge.hierarchy import vcycle as t_vcycle
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import fused_cycle as tfc
-from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.ops.structured_transfer import GeneralWindowTransfer
 
 import _torch_tails as tt
@@ -240,7 +240,7 @@ def test_fused_vcycle_matches_jax():
     assert len(calls) == 1
     assert _rel(yt.numpy(), yj) <= TOL
     assert _rel(ys.numpy(), yj) <= TOL
-    assert tk.LAUNCHES["fused_tail"] == 0          # CPU tensors: plain only
+    assert cl.LAUNCHES["fused_tail"] == 0          # CPU tensors: plain only
 
 
 def test_nss_mismatch_takes_generic_recursion():

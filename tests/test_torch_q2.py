@@ -32,8 +32,8 @@ from mfmg_tpu.ops import fused_cycle as jfc
 from mfmg_torch import Hierarchy as THierarchy
 from mfmg_torch import LaplaceProblem as TLaplace
 from mfmg_torch.amge.hierarchy import levels_from_arrays
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import fused_cycle as tfc
-from mfmg_torch.ops import stencil_kernels as tk
 from mfmg_torch.solve.smoothers import ChebyshevSmoother
 
 from _torch_carry import flatten_levels, main_path_config
@@ -84,7 +84,7 @@ def test_q2_slice_matches_jax(n_ref):
     assert t_info["iterations"] == int(j_info["iterations"])
     assert t_info["relres"] <= PCG_TOL
     assert abs(t_info["relres"] - float(j_info["relres"])) <= 1e-6
-    assert all(v == 0 for v in tk.LAUNCHES.values())
+    assert all(v == 0 for v in cl.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["f32", "bf16"])

@@ -28,7 +28,7 @@ from mfmg_tpu.ops.pallas_transfer import (build_transfer_tiled, tiled_prolong,
                                           tiled_restrict)
 from mfmg_tpu.ops.structured_transfer import (structured_prolong,
                                               structured_restrict)
-from mfmg_torch.ops import stencil_kernels as tk
+from mfmg_torch.ops import cuda_library as cl
 from mfmg_torch.ops import transfer_kernels as tt
 from mfmg_torch.ops.structured_transfer import StructuredTransfer
 
@@ -149,8 +149,8 @@ def test_structured_transfer_dispatch(transfer, monkeypatch):
     st64 = StructuredTransfer(st.W.double(), *_geom(tr))
     y64 = st64.prolong(st64.restrict(x.double()))
     assert len(calls) == 2 and y64.dtype == torch.float64
-    assert tk.LAUNCHES["structured_restrict"] == 0
-    assert tk.LAUNCHES["structured_prolong"] == 0
+    assert cl.LAUNCHES["structured_restrict"] == 0
+    assert cl.LAUNCHES["structured_prolong"] == 0
 
 
 def test_transfer_wrappers_reject_bad_inputs(transfer):
